@@ -1,0 +1,51 @@
+"""Command-line driver::
+
+    python -m cracks_tpu_torch <parameters.prm> [key=value ...]
+        [device=cuda|cpu]
+
+Runs the simulation described by the parameter file, with any
+``Parameters`` field overridable as ``key=value``, on the given device.
+The device defaults to ``cuda``, and a missing card raises; the port
+never falls back to the CPU on its own.
+"""
+
+import sys
+
+
+def _convert(template, value: str):
+    if isinstance(template, bool):
+        low = value.strip().lower()
+        if low not in ("true", "false", "1", "0", "yes", "no", "on", "off"):
+            raise ValueError(f"not a boolean: {value!r}")
+        return low in ("true", "1", "yes", "on")
+    return type(template)(value)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("usage: python -m cracks_tpu_torch <parameter_file> "
+              "[key=value ...] [device=cuda|cpu]")
+        return 2
+
+    from .driver import run_prm
+    from .host import config
+
+    base = config.load_parameters(argv[0])
+    device = "cuda"
+    overrides = {}
+    for extra in argv[1:]:
+        key, sep, value = extra.partition("=")
+        if not sep:
+            raise ValueError(f"expected key=value, got {extra!r}")
+        if key == "device":
+            device = value
+        else:
+            overrides[key] = _convert(getattr(base, key), value)
+    print(f"Problem dimension: {base.replace(**overrides).dimension}")
+    run_prm(argv[0], device=device, **overrides)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

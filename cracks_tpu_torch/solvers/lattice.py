@@ -1,0 +1,782 @@
+"""Tensor-grid (monolattice) lattice GMG solve of the Newton system.
+
+Port of the single-device, seam-free part of
+``cracks_tpu/solvers/lattice.py``.  On a uniformly refined tensor-
+product mesh (Sneddon's ``rect_mesh`` roots, ``n_global_pre_refine``
+refinements, no hanging nodes) the mesh IS a global (GY, GX) lattice
+and every FEM gather/scatter is a shifted slice:
+
+  * cell->vertex gather = 4 shifted cell-grid windows of the lattice;
+  * vertex scatter-add  = 4 shifted window adds;
+  * 2:1 restriction/prolongation = strided slices, separable per axis;
+  * Galerkin element-RAP coarsening = [o::2] slices + contraction with
+    the constant embedding matrices;
+  * the active-set injection to level l = [::2**l].
+
+Lattice vectors are (comp, *grid) with comp leading; element data is
+(ndl, ndl, *cellgrid).  Every stencil product goes through
+`ops.stencil.stencil_matvec` (the CUDA kernel on the card).
+
+The solve is ONE algorithm, the JAX package's split variant
+(`_solve_split`): exact f64 element matrices built once per Newton
+solve; their f32 cast, Galerkin-coarsened, feeds a float32 CG
+preconditioned by a Chebyshev-smoothed V-cycle; f64 refinement passes
+correct the f32 iterate with the stored f64 operator.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import physics
+from ..ops.stencil import stencil_matvec
+from .galerkin import embedding_matrices
+from .multigrid import sharp_spectrum, smoothing_range
+
+
+@lru_cache(maxsize=None)
+def _offsets(dim: int) -> tuple:
+    """Corner a -> per-grid-axis offsets, grid axes ordered slowest to
+    fastest (z, y, x).  Local vertex a has reference coordinate along
+    geometric axis d equal to (a >> d) & 1, and grid axis j is
+    geometric axis dim-1-j."""
+    return tuple(
+        tuple(((a >> (dim - 1 - j)) & 1) for j in range(dim))
+        for a in range(2 ** dim))
+
+
+def _win(o, G):
+    """Index tuple selecting the shifted cell-grid window at corner
+    offset o of a (*, *G) vertex-lattice array."""
+    return (slice(None),) + tuple(
+        slice(o[j], G[j] - 1 + o[j]) for j in range(len(G)))
+
+
+def _every_other(ndim: int):
+    """Index tuple of the [::2] injection on every grid axis of a
+    (k, *grid) array."""
+    return (slice(None),) + (slice(None, None, 2),) * ndim
+
+
+def _dot(a, b):
+    return torch.sum(a * b)
+
+
+# ---------------------------------------------------------------------------
+# host setup
+# ---------------------------------------------------------------------------
+
+class LatticeLayout(NamedTuple):
+    """Host-built tensor-grid identification of a MeshData."""
+
+    grid: tuple             # vertex extents, slowest..fastest (y,x)/(z,y,x)
+    vert_idx: np.ndarray    # (*grid) int32 global vertex id per node
+    vert_pos: np.ndarray    # (n_v,) int32 flat lattice pos per vertex
+    cell_perm: np.ndarray   # (n_cells,) raster -> mesh cell id
+
+
+def detect_tensor_grid(mesh) -> LatticeLayout | None:
+    """Identify a mesh whose vertices form an exact tensor grid.
+    Anything else returns None: hanging nodes, unstructured meshes, and
+    the slit meshes whose duplicated lip vertices the JAX package glues
+    with a seam (ROADMAP A9)."""
+    if mesh.dim not in (2, 3) or len(mesh.hang_child):
+        return None
+    dim = mesh.dim
+
+    def axis_index(vals):
+        """Cluster coordinates that differ only by multilinear-map
+        float noise across roots; returns (index per value, count)."""
+        s = np.sort(np.unique(vals))
+        span = s[-1] - s[0]
+        if span <= 0:
+            return None
+        tol = 1e-9 * span
+        brk = np.diff(s) > tol
+        cid = np.r_[0, np.cumsum(brk)]
+        if len(s) > 1 and np.diff(s)[brk].min(initial=np.inf) < 100 * tol:
+            return None
+        idx = cid[np.searchsorted(s, vals)]
+        return idx, cid[-1] + 1
+
+    res = [axis_index(mesh.vert_coords[:, d]) for d in range(dim)]
+    if any(r is None for r in res):
+        return None
+    gidx = [r[0] for r in res][::-1]          # per grid axis
+    grid = tuple(int(r[1]) for r in res)[::-1]
+    if min(grid) < 4:
+        return None
+    nv = mesh.n_vertices
+    pos = np.zeros(nv, np.int64)
+    for j in range(dim):
+        pos = pos * grid[j] + gidx[j]
+    if int(np.prod(grid)) != nv or len(np.unique(pos)) != nv:
+        return None     # includes the seam (slit) case, ROADMAP A9
+    vert_idx = np.full(int(np.prod(grid)), -1, np.int64)
+    vert_idx[pos] = np.arange(nv)
+    if (vert_idx < 0).any():
+        return None
+    vert_idx = vert_idx.reshape(grid)
+
+    # cells: locate each cell by its first (lexicographically lowest)
+    # vertex; require the full cell raster and the fem.py corner order
+    cgrid = tuple(g - 1 for g in grid)
+    if mesh.n_cells != int(np.prod(cgrid)):
+        return None
+    ll = mesh.cell2vert[:, 0]
+    cpos = np.array(np.unravel_index(pos[ll], grid))   # (dim, n_c)
+    offs = _offsets(dim)
+    expect = np.stack([
+        vert_idx[tuple(cpos[j] + o[j] for j in range(dim))]
+        for o in offs], axis=1)
+    if not (expect == mesh.cell2vert).all():
+        return None
+    craster = np.zeros(mesh.n_cells, np.int64)
+    for j in range(dim):
+        craster = craster * cgrid[j] + cpos[j]
+    raster = np.full(int(np.prod(cgrid)), -1, np.int64)
+    raster[craster] = np.arange(mesh.n_cells)
+    if (raster < 0).any():
+        return None
+    return LatticeLayout(grid=grid,
+                         vert_idx=vert_idx.astype(np.int32),
+                         vert_pos=pos.astype(np.int32),
+                         cell_perm=raster.astype(np.int32))
+
+
+class LatticeHierarchy(NamedTuple):
+    """Static per-epoch data for the lattice GMG solve (device)."""
+
+    grid: tuple             # finest vertex extents
+    n_levels: int           # total levels incl. finest
+    vert_pos: torch.Tensor  # (n_v,) int64
+    dir_u: tuple            # per-level Dirichlet masks (dim, *g),
+    #                         coarsest..finest
+    dir_p: tuple            # per-level (1, *g)
+    P_embed: torch.Tensor   # (nvc+1, ndl, ndl) f32
+
+
+def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
+                            device, min_coarse: int = 50):
+    """Host construction.  Levels halve the cell extents while the grid
+    stays 2:1 coarsenable and the coarse vertex count stays at least
+    `min_coarse`."""
+    dim = mesh.dim
+    grid = lay.grid
+    grids = [grid]
+    while all((g - 1) % 2 == 0 for g in grids[-1]):
+        g_c = tuple((g - 1) // 2 + 1 for g in grids[-1])
+        if int(np.prod(g_c)) < min_coarse:
+            break
+        grids.append(g_c)
+    if len(grids) < 2:
+        return None
+
+    mask_u, mask_p = dirichlet_fn(mesh)
+    mask_u = np.asarray(mask_u).reshape(mesh.n_vertices, dim)
+    mask_p = np.asarray(mask_p)
+    # a coarse-lattice node IS a fine node, so the geometric Dirichlet
+    # masks inject exactly
+    MU = np.zeros(grid + (dim,), bool)
+    MP = np.zeros(grid, bool)
+    pos_nd = np.unravel_index(lay.vert_pos, grid)
+    MU[pos_nd] = mask_u
+    MP[pos_nd] = mask_p
+    du = np.moveaxis(MU, -1, 0)                    # (dim, *grid)
+    dp = MP[None]                                  # (1, *grid)
+    b = dict(dtype=torch.bool, device=device)
+    dir_u = [torch.as_tensor(np.ascontiguousarray(du), **b)]
+    dir_p = [torch.as_tensor(np.ascontiguousarray(dp), **b)]
+    for _ in range(len(grids) - 1):
+        du = du[_every_other(dim)]
+        dp = dp[_every_other(dim)]
+        dir_u.insert(0, torch.as_tensor(np.ascontiguousarray(du), **b))
+        dir_p.insert(0, torch.as_tensor(np.ascontiguousarray(dp), **b))
+    i64 = dict(dtype=torch.int64, device=device)
+    return LatticeHierarchy(
+        grid=grid, n_levels=len(grids),
+        vert_pos=torch.as_tensor(lay.vert_pos.astype(np.int64), **i64),
+        dir_u=tuple(dir_u), dir_p=tuple(dir_p),
+        P_embed=torch.as_tensor(embedding_matrices(dim),
+                                dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# lattice primitives
+# ---------------------------------------------------------------------------
+
+def scatter_windows(Ye, grid):
+    """(nvc, k, *cellgrid) per-corner cell values -> vertex lattice
+    (k, *grid) by shifted window adds."""
+    Y = torch.zeros((Ye.shape[1],) + tuple(grid), dtype=Ye.dtype,
+                    device=Ye.device)
+    for a, o in enumerate(_offsets(len(grid))):
+        Y[_win(o, grid)] += Ye[a]
+    return Y
+
+
+def matvec_block(jacL, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """Rectangular lattice block matvec: rows [lo_r, hi_r), columns
+    [lo_c, hi_c) of the local element matrices.
+    jacL (ndl, ndl, *cellgrid); X (k_in, *grid) -> (k_out, *grid)."""
+    return stencil_matvec(jacL, X.contiguous(), lo_r, hi_r, lo_c, hi_c,
+                          k_in, k_out)
+
+
+def matvec(jacL, X, lo, hi, k):
+    """Unmasked lattice matvec of one (square) block."""
+    return matvec_block(jacL, X, lo, hi, lo, hi, k, k)
+
+
+def block_diag(jacL, lo, hi, k, grid):
+    """Lattice diagonal of one block: (k, *grid)."""
+    idx = torch.arange(lo, hi, device=jacL.device)
+    d = jacL[idx, idx]                            # (b, *cg)
+    nvc = (hi - lo) // k
+    return scatter_windows(d.reshape((nvc, k) + d.shape[1:]), grid)
+
+
+def gershgorin(jacL, free, Dinv, lo, hi, k, grid):
+    """Upper bound on lambda_max(D^-1 A) via element-wise over-counted
+    Gershgorin row sums."""
+    rs = jacL[lo:hi, lo:hi].abs().sum(dim=1)       # (b, *cg)
+    nvc = (hi - lo) // k
+    s = scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]), grid)
+    return torch.where(free, s * Dinv.abs(), 0.0).max()
+
+
+def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10):
+    """Sharp lambda_max(D^-1 A) estimate on the free subspace: m-step
+    Lanczos on the symmetrized S = D^(-1/2) (J + J^T)/2 D^(-1/2), top
+    Ritz value, starting from a checkerboard +-1 on the free set.  The
+    Gershgorin bound overestimates the Jacobi-scaled blocks ~1.5-2.3x
+    and power iteration sits far below the clustered top of the phase-
+    field block; see the JAX function for the measurements.  Falls back
+    to the Gershgorin bound when the Ritz value is not finite and
+    positive."""
+    dtype = Dinv.dtype
+    sq = Dinv.abs().sqrt()
+    # the transposed block, contiguous, once per level build
+    jacT = jacL[lo:hi, lo:hi].transpose(0, 1).contiguous()
+    nb = hi - lo
+
+    def S(x):
+        xs = torch.where(free, sq * x, 0.0)
+        y = 0.5 * (matvec(jacL, xs, lo, hi, k) + matvec(jacT, xs, 0, nb, k))
+        return torch.where(free, sq * y, 0.0)
+
+    idx = sum(torch.meshgrid(*[torch.arange(g, device=free.device)
+                               for g in grid], indexing="ij"))
+    sign = torch.where(idx % 2 == 0, 1.0, -1.0).to(dtype)
+    v = torch.where(free, sign[None], 0.0)
+    n0 = torch.sqrt(_dot(v, v))
+    v = torch.where(n0 > 0, v / n0.clamp_min(1e-30), v)
+
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros((), dtype=dtype, device=v.device)
+    alphas, betas = [], []
+    for _ in range(m):
+        w = S(v) - beta * v_prev
+        alpha = _dot(v, w)
+        w = w - alpha * v
+        beta_new = torch.sqrt(_dot(w, w))
+        v_new = torch.where(beta_new > 0, w / beta_new.clamp_min(1e-30), w)
+        alphas.append(alpha)
+        betas.append(beta_new)
+        v_prev, v, beta = v, v_new, beta_new
+    a = torch.stack(alphas).cpu().float()
+    b = torch.stack(betas).cpu().float()
+    T = torch.diag(a) + torch.diag(b[:-1], 1) + torch.diag(b[:-1], -1)
+    lam = float(torch.linalg.eigvalsh(T).max())
+    if math.isfinite(lam) and lam > 0:
+        return torch.tensor(lam, dtype=dtype, device=Dinv.device)
+    return gershgorin(jacL, free, Dinv, lo, hi, k, grid)
+
+
+def coarsen(jacL, P_embed):
+    """Galerkin element-RAP one level down on the lattice:
+    (ndl, ndl, *cg) -> (ndl, ndl, *(cg//2)).  Runs at full f32 (the
+    package turns TF32 off): reduced-precision RAPs made the coarse
+    operator indefinite in the JAX package (see cracks_tpu_torch's
+    __init__)."""
+    dim = jacL.dim() - 2
+    out = 0.0
+    for pos, o in enumerate(_offsets(dim)):
+        # embedding_matrices orders child positions by geometric bits
+        # (pos>>d)&1; _offsets(dim)[a] IS position a in that order
+        A = jacL[(slice(None), slice(None))
+                 + tuple(slice(oj, None, 2) for oj in o)]
+        P = P_embed[pos].to(jacL.dtype)
+        out = out + torch.einsum("ai,ab...,bj->ij...", P, A, P)
+    return out.contiguous()
+
+
+def coarsen_chain(jacL, P_embed, n_levels: int):
+    """[coarsest..finest] Galerkin element-matrix levels."""
+    jacs = [jacL]
+    for _ in range(n_levels - 1):
+        jacs.insert(0, coarsen(jacs[0], P_embed))
+    return jacs
+
+
+def _axis_slice(ndim, axis, s):
+    return tuple(s if j == axis else slice(None) for j in range(ndim))
+
+
+def _prolong_axis(X, axis):
+    """1d Q1 prolongation along one axis: n -> 2n-1 with midpoint
+    averages."""
+    n = X.shape[axis]
+    shp = list(X.shape)
+    shp[axis] = 2 * n - 1
+    out = torch.zeros(shp, dtype=X.dtype, device=X.device)
+    sl = lambda s: _axis_slice(X.dim(), axis, s)
+    out[sl(slice(0, None, 2))] = X
+    out[sl(slice(1, None, 2))] = 0.5 * (X[sl(slice(0, n - 1))]
+                                        + X[sl(slice(1, n))])
+    return out
+
+
+def _restrict_axis(X, axis):
+    """Transpose of _prolong_axis: 2n-1 -> n."""
+    sl = lambda s: _axis_slice(X.dim(), axis, s)
+    Xc = X[sl(slice(0, None, 2))].clone()
+    mid = 0.5 * X[sl(slice(1, None, 2))]
+    n = Xc.shape[axis]
+    Xc[sl(slice(0, n - 1))] += mid
+    Xc[sl(slice(1, n))] += mid
+    return Xc
+
+
+def prolong(Xc, grid, k):
+    """Q1 2:1 lattice prolongation (k, *coarsegrid) -> (k, *grid),
+    separable per axis."""
+    X = Xc
+    for j in range(len(grid)):
+        X = _prolong_axis(X, j + 1)
+    return X
+
+
+def restrict(Xf, k):
+    """Transpose of prolong: (k, *grid) -> (k, *coarsegrid)."""
+    X = Xf
+    for j in reversed(range(X.dim() - 1)):
+        X = _restrict_axis(X, j + 1)
+    return X
+
+
+# ---------------------------------------------------------------------------
+# multigrid
+# ---------------------------------------------------------------------------
+
+def _chebyshev(op, Dinv, b, lam_max, degree, rng):
+    upper = 1.2 * lam_max
+    lower = lam_max / rng
+    theta = 0.5 * (upper + lower)
+    delta = 0.5 * (upper - lower)
+    r = b
+    p = (1.0 / theta) * (Dinv * r)
+    x = p
+    sigma = theta / delta
+    rho_old = 1.0 / sigma
+    for _ in range(degree - 1):
+        r = b - op(x)
+        rho = 1.0 / (2.0 * sigma - rho_old)
+        p = (rho * rho_old) * p + (2.0 * rho / delta) * (Dinv * r)
+        x = x + p
+        rho_old = rho
+    return x
+
+
+class _LOps(NamedTuple):
+    jac: torch.Tensor
+    free: torch.Tensor
+    Dinv: torch.Tensor
+    lam: torch.Tensor
+    rng: torch.Tensor   # Chebyshev smoothing range paired with lam
+
+
+def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
+                        which, sharp: bool = False):
+    """Per-level _LOps (coarsest..finest) for one block.  `sharp`
+    selects the spectral window: Lanczos lambda_max + range 4 at
+    production sizes, Gershgorin + range 20 at golden sizes."""
+    rng = torch.tensor(smoothing_range(sharp), dtype=jacs[0].dtype,
+                       device=jacs[0].device)
+    L = len(jacs)
+    acts = [None] * L
+    if which == "p":
+        a = active_L
+        for l in range(L - 1, -1, -1):
+            acts[l] = a
+            a = a[_every_other(a.dim() - 1)]
+    out = []
+    for l in range(L):
+        jac = jacs[l]
+        g = tuple(c + 1 for c in jac.shape[2:])
+        if which == "p":
+            free = ~(dir_p[l] | acts[l])
+        else:
+            free = torch.broadcast_to(~dir_u[l], (k,) + g)
+        free = free.contiguous()
+        d = block_diag(jac, lo, hi, k, g)
+        Dinv = torch.where(free & (d.abs() > 0), 1.0 / d, 1.0)
+        if sharp:
+            lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, g)
+        else:
+            lam = gershgorin(jac, free, Dinv, lo, hi, k, g)
+        out.append(_LOps(jac=jac, free=free, Dinv=Dinv, lam=lam, rng=rng))
+    return out
+
+
+def _masked_mv(lv: _LOps, lo, hi, k):
+    def op(X):
+        Y = matvec(lv.jac, torch.where(lv.free, X, 0.0), lo, hi, k)
+        return torch.where(lv.free, Y, 0.0)
+    return op
+
+
+def _coarse_dense_factor(lv0: _LOps, lo, hi, k):
+    """Dense Cholesky of the coarsest-level block, Jacobi-scaled, in
+    f64.  Returns (lower factor L, scale s) with
+    s A s + 1e-5 I = L L^T on the free dofs (identity elsewhere)."""
+    g0 = tuple(lv0.free.shape[1:])
+    nvert0 = int(np.prod(g0))
+    n0 = k * nvert0
+    dev = lv0.jac.device
+    pos = torch.arange(nvert0, device=dev).reshape(g0)
+    offs = _offsets(len(g0))
+    wins = torch.stack([pos[tuple(slice(o[j], g0[j] - 1 + o[j])
+                                  for j in range(len(g0)))]
+                        for o in offs])            # (nvc, *cg0)
+    # local dof ldof = a*k + d  ->  flat = d*nvert0 + win[a]
+    comp = torch.arange(k, device=dev)
+    lflat = (comp[None, :, None] * nvert0
+             + wins.reshape(len(offs), 1, -1))     # (nvc, k, n_cells0)
+    b = hi - lo
+    lflat = lflat.reshape(b, -1)                   # (b, n_cells0)
+    A = lv0.jac[lo:hi, lo:hi].reshape(b, b, -1).to(torch.float64)
+    rows = lflat[:, None, :].expand(b, b, lflat.shape[1])
+    cols = lflat[None, :, :].expand(b, b, lflat.shape[1])
+    A0 = torch.zeros((n0, n0), dtype=torch.float64, device=dev)
+    A0.index_put_((rows.reshape(-1), cols.reshape(-1)), A.reshape(-1),
+                  accumulate=True)
+    m = lv0.free.reshape(-1)
+    A0 = torch.where(m[:, None] & m[None, :], A0, 0.0)
+    A0 = A0 + torch.diag(torch.where(m, 0.0, 1.0).to(torch.float64))
+    s = 1.0 / torch.sqrt(torch.diagonal(A0).abs())
+    A0s = A0 * s[:, None] * s[None, :]
+    # SPD-safety shift (preconditioner only; the refinement passes
+    # correct any inexactness): the element chain feeding A0 is f32, so
+    # its rounding can leave lambda_min slightly negative
+    A0s = A0s + 1e-5 * torch.eye(n0, dtype=torch.float64, device=dev)
+    return torch.linalg.cholesky(A0s), s
+
+
+def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2):
+    """V-cycle with Chebyshev pre/post smoothing on every level above
+    the coarsest and the dense Cholesky solve (in the factor's dtype)
+    on the coarsest."""
+    L = len(levels)
+    cho, cho_scale = coarse_factor
+    shape0 = levels[0].free.shape
+
+    def cycle(l, b):
+        lv = levels[l]
+        b = torch.where(lv.free, b, 0.0)
+        if l == 0:
+            bs = (cho_scale * b.reshape(-1).to(cho.dtype))[:, None]
+            x = cho_scale * torch.cholesky_solve(bs, cho, upper=False)[:, 0]
+            return torch.where(lv.free, x.to(b.dtype).reshape(shape0), 0.0)
+        op = _masked_mv(lv, lo, hi, k)
+        x = _chebyshev(op, lv.Dinv, b, lv.lam, degree, lv.rng)
+        r = b - op(x)
+        e_c = cycle(l - 1, restrict(r, k))
+        g = tuple(lv.free.shape[1:])
+        x = x + torch.where(lv.free, prolong(e_c, g, k), 0.0)
+        r = b - op(x)
+        return x + _chebyshev(op, lv.Dinv, r, lv.lam, degree, lv.rng)
+
+    return lambda b: cycle(L - 1, b)
+
+
+# ---------------------------------------------------------------------------
+# the solve
+# ---------------------------------------------------------------------------
+
+def _blk(which, dim):
+    """(k, lo, hi) of one block in the corner-major local dof order."""
+    nvc = 2 ** dim
+    if which == "u":
+        return dim, 0, nvc * dim
+    return 1, nvc * dim, nvc * (dim + 1)
+
+
+def _active_lattice(active, vert_pos, grid):
+    nvert = int(np.prod(grid))
+    return torch.zeros(nvert, dtype=torch.bool, device=active.device
+                       ).index_put((vert_pos,), active).reshape(
+                           (1,) + tuple(grid))
+
+
+def _to_lat(xg, vert_pos, grid, k):
+    """Flat global dof vector -> (k, *grid) lattice layout."""
+    nvert = int(np.prod(grid))
+    X = torch.zeros((nvert, k), dtype=xg.dtype, device=xg.device)
+    X[vert_pos] = xg.reshape(-1, k)
+    return X.reshape(tuple(grid) + (k,)).movedim(-1, 0).contiguous()
+
+
+def _to_glob(X, vert_pos, k):
+    """(k, *grid) lattice layout -> flat global dof vector."""
+    return X.movedim(0, -1).reshape(-1, k)[vert_pos].reshape(-1)
+
+
+def _prepare64(u, phi, phi_old, phi_oold, caL64, sc, *, grid, dim,
+               with_split, monolithic):
+    """Exact f64 element Jacobians on the lattice raster, built once
+    per Newton solve: (ndl, ndl, *cellgrid)."""
+    nvc = 2 ** dim
+    ndl = nvc * (dim + 1)
+    cgrid = tuple(g - 1 for g in grid)
+    return physics.element_matrices(
+        u, phi, phi_old, phi_oold, caL64, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic).reshape(
+            (ndl, ndl) + cgrid)
+
+
+def _prepare32_from64(jacL64, P_embed, *, n_levels):
+    """The f32 operator chain is the CAST of the exact f64 element
+    matrices, Galerkin-coarsened (branch-consistent with the f64
+    operator; see the JAX function)."""
+    return tuple(coarsen_chain(jacL64.to(torch.float32), P_embed,
+                               n_levels))
+
+
+def _prepare_levels(jacs, dir_u, dir_p, vert_pos, active, *, grid, which,
+                    dim, sharp):
+    """Per-block level operators and the coarse factor, built once per
+    Newton solve.  The coarse Cholesky is factored in f64 and handed to
+    the f32 CG pass as an f32 factor."""
+    k, lo, hi = _blk(which, dim)
+    active_L = _active_lattice(active, vert_pos, grid)
+    levels = _build_block_levels(list(jacs), dir_u, dir_p, grid, active_L,
+                                 lo, hi, k, which, sharp=sharp)
+    cho, scale = _coarse_dense_factor(levels[0], lo, hi, k)
+    return levels, (cho.to(torch.float32), scale.to(torch.float32))
+
+
+def _pass_setup(fin_free, vert_pos, r_g, rtol, target2, *, grid, which,
+                dim):
+    """f64 -> f32 boundary of one CG pass: residual norm, normalized
+    lattice-layout residual and the f32 pass tolerance."""
+    k, _, _ = _blk(which, dim)
+    rr0 = _dot(r_g, r_g)
+    scale = torch.sqrt(rr0)
+    inv_scale = torch.where(scale > 0, 1.0 / scale, 0.0)
+    R0 = _to_lat((r_g * inv_scale).to(torch.float32), vert_pos, grid, k)
+    R0 = torch.where(fin_free, R0, 0.0)
+    # pass target 3e-7 relative on the NORMALIZED system: each f64
+    # refinement restart costs a stored-matrix f64 operator application,
+    # so the f32 pass digs as deep as single precision allows; the
+    # stall window in _cg_pass32 exits early at the f32 floor
+    tol2 = torch.where(rr0 > 0, target2 / rr0, 1.0).clamp_min(
+        max(rtol, 3e-7) ** 2).to(torch.float32)
+    return R0, scale, tol2, rr0
+
+
+def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, degree=2,
+               inner_max=192, stall_window=16):
+    """One float32 lattice-GMG CG pass on the normalized lattice
+    residual; returns (best iterate, inner iterations, best rr).
+
+    Exits when the pass target is met, inner_max is reached, or no new
+    best residual appeared within `stall_window` iterations (the f32
+    arithmetic floor).  inner_max is 192 at every size: the JAX package
+    lowers it to 96 above 600k DoFs only to bound one TPU execution's
+    time.  The exit test reads one scalar per iteration
+    back to the host; the next iteration's work is queued before that
+    read, so the card stays busy while the host waits."""
+    k, lo, hi = _blk(which, dim)
+    op = _masked_mv(levels[-1], lo, hi, k)
+    M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree)
+    tol2_h = float(tol2)
+    Z = M(R0)
+    X = torch.zeros_like(R0)
+    R, Pv, rz = R0, Z, _dot(R0, Z)
+    Xb, rrb, kb, kk = torch.zeros_like(R0), 1.0, 0, 0
+    while rrb > tol2_h and kk < inner_max and kk - kb < stall_window:
+        Ap = op(Pv)
+        denom = _dot(Pv, Ap)
+        alpha = torch.where(denom != 0, rz / denom, 0.0)
+        X = X + alpha * Pv
+        R = R - alpha * Ap
+        rr = _dot(R, R)
+        Z = M(R)
+        rz_new = _dot(R, Z)
+        beta = torch.where(rz != 0, rz_new / rz, 0.0)
+        Pv = Z + beta * Pv
+        rz = rz_new
+        kk += 1
+        rr_h = float(rr)
+        if rr_h < rrb:
+            Xb, rrb, kb = X, rr_h, kk
+    return Xb, kk, rrb
+
+
+def _iter_dist(u, phi, phi_old, phi_oold, sc_vec, u0, phi0, phi_old0,
+               phi_oold0, sc_vec0) -> float:
+    """Max-relative distance between everything the element Jacobians
+    depend on: u scaled by its own magnitude, phi and the previous-step
+    phase fields by their O(1) scale, the time-dependent scalars
+    relatively.  The staleness test of the operator cache."""
+    su = u0.abs().max().clamp_min(1e-30)
+    d = (u - u0).abs().max() / su
+    d = torch.maximum(d, (phi - phi0).abs().max())
+    d = torch.maximum(d, (phi_old - phi_old0).abs().max())
+    d = torch.maximum(d, (phi_oold - phi_oold0).abs().max())
+    rel = (sc_vec - sc_vec0).abs() / sc_vec0.abs().clamp_min(1e-30)
+    dsc = torch.where(sc_vec == sc_vec0, 0.0, rel).max()
+    return float(torch.maximum(d, dsc))
+
+
+def _scalars_vec(sc):
+    return torch.stack([v.to(torch.float64) for v in sc])
+
+
+def _pass_apply_mat(Xb, scale, vert_pos, x_acc, b, jacL64, dir_u_fin,
+                    dir_p_fin, active, *, grid, which, dim):
+    """f32 -> f64 boundary of one CG pass: un-normalize the pass
+    iterate, form the trial accumulate, apply the exact f64 Newton
+    operator (stored f64 element matrices) and form the trial residual.
+    Returns (x_try, r_try, rr_try, jp) with jp = J_pu x_try (the
+    phase-field block's right-hand side correction when which == 'u')."""
+    k, lo, hi = _blk(which, dim)
+    nvc = 2 ** dim
+    x_try = x_acc + _to_glob(Xb.to(torch.float64), vert_pos, k) * scale
+    active_L = _active_lattice(active, vert_pos, grid)
+    free_p = ~(dir_p_fin | active_L)
+    free = ~dir_u_fin if which == "u" else free_p
+    X = torch.where(free, _to_lat(x_try, vert_pos, grid, k), 0.0)
+    Y = torch.where(free, matvec(jacL64, X, lo, hi, k), 0.0)
+    r_try = b - _to_glob(Y, vert_pos, k)
+    rr_try = _dot(r_try, r_try)
+    if which == "u":
+        Yp = matvec_block(jacL64, X, nvc * dim, nvc * (dim + 1), lo, hi, k,
+                          1)
+        jp = _to_glob(torch.where(free_p, Yp, 0.0), vert_pos, 1)
+    else:
+        jp = torch.zeros_like(r_try)
+    return x_try, r_try, rr_try, jp
+
+
+def solve_lattice(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
+                  rhs_p, with_split, *, passes: int = 3, degree: int = 2,
+                  jac_rtol: float = 1e-6):
+    """Block Gauss-Seidel solve of the Newton system on the lattice:
+    the u block, then the phase-field block with the J_pu coupling
+    moved to its right-hand side.  Each block runs up to `passes`
+    restarted-refinement passes: f32 GMG-preconditioned CG on the
+    normalized residual, then the exact f64 stored-matrix residual.
+    Returns (du, dp, total CG iterations) on the free dofs."""
+    hier: LatticeHierarchy = sys.lattice_hierarchy
+    p = sys.params
+    rtol = p.cg_rtol
+    eps64 = float(np.finfo(np.float64).eps)
+    grid = hier.grid
+    dim = sys.dim
+
+    # Operator reuse across the PDAS tail: the element Jacobians depend
+    # only on (u, phi, phi_old, phi_oold, scalars); iterations at the
+    # residual floor move those by ~1e-10 relative, so the f32 chain
+    # and the stored f64 operator are reused while the context moved by
+    # at most `jac_rtol` from the point where they were BUILT (an
+    # inexact Newton step with O(jac_rtol) perturbation; the residual
+    # and line search stay exact).
+    sc_vec = _scalars_vec(sys.scalars)
+    ctx = (u, phi, phi_old, phi_oold, sc_vec)
+    flags = (with_split,)
+    jacs = jacL64 = None
+    cache = sys._split_jac_cache
+    if cache is not None:
+        key0, flags0, jacs_c, jacL64_c = cache
+        if flags0 == flags and all(a.shape == b.shape
+                                   for a, b in zip(key0, ctx)):
+            if _iter_dist(*ctx, *key0) <= jac_rtol:
+                jacs, jacL64 = jacs_c, jacL64_c
+        del jacs_c, jacL64_c
+    if jacs is None:
+        # drop the stale operators before building replacements
+        sys._split_jac_cache = cache = None
+        sys._split_levels_cache = None
+        jacL64 = _prepare64(u, phi, phi_old, phi_oold, sys.lattice_ca64,
+                            sys.scalars, grid=grid, dim=dim,
+                            with_split=with_split, monolithic=False)
+        jacs = _prepare32_from64(jacL64, hier.P_embed,
+                                 n_levels=hier.n_levels)
+        sys._split_jac_cache = (ctx, flags, jacs, jacL64)
+    total_its = 0
+    last_ju_pu = None   # J_pu du of the final accepted u iterate
+
+    def block(which, b):
+        nonlocal total_its, last_ju_pu
+        bnorm = float(torch.sqrt(_dot(b, b)))
+        # absolute floor: the linear residual only has to be invisible
+        # at the Newton iteration's own (absolute) convergence bound;
+        # PDAS-tail right-hand sides are pure f64 assembly noise
+        atol_newton = 1e-3 * p.lower_bound_newton_residual
+        target2 = max(rtol * bnorm, atol_newton, 100.0 * eps64 * bnorm) ** 2
+        if bnorm * bnorm <= target2:
+            return torch.zeros_like(b)
+        # u-block level operators depend only on the element Jacobians
+        # and the Dirichlet masks, not on the active set, so they ride
+        # the operator cache; the p block's mask changes every iteration
+        lv_cache = sys._split_levels_cache
+        if which == "u" and lv_cache is not None and lv_cache[0] is jacs:
+            levels, coarse32 = lv_cache[1]
+        else:
+            levels, coarse32 = _prepare_levels(
+                jacs, hier.dir_u, hier.dir_p, hier.vert_pos, active,
+                grid=grid, which=which, dim=dim,
+                sharp=sharp_spectrum(sys.mesh.n_dofs))
+            if which == "u":
+                sys._split_levels_cache = (jacs, (levels, coarse32))
+        fin_free = levels[-1].free
+        target2_d = torch.tensor(target2, dtype=torch.float64,
+                                 device=b.device)
+        x_acc = torch.zeros_like(b)
+        r_cur = b
+        rr_cur = bnorm * bnorm
+        for _ in range(passes):
+            if rr_cur <= target2:
+                break
+            R0, scale, tol2, _rr0 = _pass_setup(
+                fin_free, hier.vert_pos, r_cur, rtol, target2_d,
+                grid=grid, which=which, dim=dim)
+            Xb, its, _rrb = _cg_pass32(levels, coarse32, R0, tol2,
+                                       which=which, dim=dim, degree=degree)
+            x_try, r_try, rr_try_d, jp = _pass_apply_mat(
+                Xb, scale, hier.vert_pos, x_acc, b, jacL64,
+                hier.dir_u[-1], hier.dir_p[-1], active, grid=grid,
+                which=which, dim=dim)
+            total_its += its
+            rr_try = float(rr_try_d)
+            if not np.isfinite(rr_try) or rr_try >= rr_cur:
+                break
+            progress = rr_try / max(rr_cur, 1e-300)
+            x_acc, r_cur, rr_cur = x_try, r_try, rr_try
+            if which == "u":
+                last_ju_pu = jp
+            if rr_cur <= target2 or progress > 0.25:
+                break
+        return x_acc
+
+    du = block("u", rhs_u)
+    rhs_p2 = rhs_p if last_ju_pu is None else rhs_p - last_ju_pu
+    dp = block("p", rhs_p2)
+    return du, dp, total_its

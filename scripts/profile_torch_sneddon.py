@@ -1,0 +1,178 @@
+"""Where the time goes in the PyTorch port's Sneddon 2d lattice path on
+one CUDA card.
+
+    python3 scripts/profile_torch_sneddon.py [refine]   (default 6)
+
+Runs the bench case (refine 6 = 1,232,643 DoFs, two load steps,
+lattice GMG mixed-precision CG) three times on the card:
+
+1. warm-up (kernel build, cuBLAS/cuSOLVER initialisation);
+2. phase timing: the solver's phases are wrapped with a synchronize on
+   both sides and a host clock, which gives wall time per phase (the
+   synchronizes add a little time of their own);
+3. torch.profiler trace without the wrappers: device time by kernel
+   name, the union of device-busy intervals against the wall time of
+   the run (the device's idle share), and the stencil kernel's share.
+
+Prints the card's name and power limit first; writes the profiler's
+table to chiprun_out/profile_torch_sneddon.txt.
+"""
+
+import collections
+import functools
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from cracks_tpu_torch.driver import Simulation  # noqa: E402
+from cracks_tpu_torch.host import config  # noqa: E402
+from cracks_tpu_torch.ops.stencil import stencil_matvec  # noqa: E402
+from cracks_tpu_torch.solvers import lattice, newton  # noqa: E402
+
+PHASES = [
+    (newton, "_assemble", "residual assembly (f64)"),
+    (newton, "_active_set_update", "PDAS head (indicator, set update)"),
+    (lattice, "_prepare64", "f64 element matrices (12 jvps)"),
+    (lattice, "_prepare32_from64", "f32 cast + Galerkin RAP chain"),
+    (lattice, "_prepare_levels", "level build (diag, lambda, Cholesky)"),
+    (lattice, "_pass_setup", "CG pass setup (f64 -> f32)"),
+    (lattice, "_cg_pass32", "f32 CG + V-cycle"),
+    (lattice, "_pass_apply_mat", "f64 refinement residual"),
+]
+
+
+def _params(refine):
+    return config.load_parameters(
+        os.path.join(REPO, "params", "parameters_sneddon_2d.prm"),
+        n_global_pre_refine=refine, n_local_pre_refine=0,
+        n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+        linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+
+
+def _run(refine):
+    sim = Simulation(_params(refine), device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    return sim, time.perf_counter() - t0
+
+
+def _report(sim, wall, label):
+    print(f"{label}: run {wall:.3f} s; per step " + ", ".join(
+        f"{s:.3f} s" for _, _, s in sim.step_times) + "; Newton/linear its "
+        + str([(e[1], e[2]) for e in sim.solver_effort]))
+
+
+def phase_timing(refine):
+    acc = collections.defaultdict(lambda: [0.0, 0])
+    originals = []
+    # the outermost phase on the stack owns the time
+    depth = [0]
+
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                acc[label][0] += time.perf_counter() - t0
+                acc[label][1] += 1
+                depth[0] -= 1
+        setattr(mod, name, timed)
+
+    for mod, name, label in PHASES:
+        wrap(mod, name, label)
+    try:
+        sim, wall = _run(refine)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    _report(sim, wall, "phase-timed run")
+    total = sum(t for t, _ in acc.values())
+    for label, (t, n) in sorted(acc.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {label:42s} {t:8.3f} s {100 * t / wall:5.1f} %  "
+              f"({n} calls)")
+    print(f"  {'(other: driver, line-search glue, host)':42s} "
+          f"{wall - total:8.3f} s {100 * (wall - total) / wall:5.1f} %")
+
+
+def profiled(refine, out_path):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    stencil_matvec.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim, wall = _run(refine)
+    _report(sim, wall, "profiled run")
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    spans = []
+    for e in kern:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    dev_total = sum(t for t, _ in by_name.values())
+    print(f"device busy {busy / 1e6:.3f} s of {wall:.3f} s wall: idle "
+          f"share {100 * (1 - busy / 1e6 / wall):.1f} %; {len(kern)} "
+          f"device events; stencil launches {stencil_matvec.launches}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (t, n) in top:
+        print(f"  {t / 1e3:9.2f} ms {100 * t / dev_total:5.1f} % {n:7d}x  "
+              f"{name[:90]}")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    refine = int(sys.argv[1]) if len(sys.argv) > 1 else 6
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip())
+    sim, wall = _run(refine)
+    _report(sim, wall, "warm-up run")
+    del sim
+    sim, wall = _run(refine)
+    _report(sim, wall, "plain run")
+    del sim
+    phase_timing(refine)
+    profiled(refine, os.path.join(REPO, "chiprun_out",
+                                  "profile_torch_sneddon.txt"))
+    print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
+
+
+if __name__ == "__main__":
+    main()

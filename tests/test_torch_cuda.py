@@ -1,0 +1,83 @@
+"""Tests of the PyTorch port that need an NVIDIA GPU (marked `cuda`;
+they skip elsewhere).  This file imports no jax, so it also runs on a
+machine that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The CUDA stencil kernel is held against its plain PyTorch version on
+the card, at a small non-square lattice, for every block the lattice
+solve uses and both dtypes (f32: rtol 1e-5, atol 1e-4 * max|Y|, the
+bounds of tests/test_pallas_stencil.py; f64: rtol 1e-12,
+atol 1e-11 * max|Y|).  The main path at refine 3 on the card agrees
+with the CPU run (plain versions) to rel 1e-7 in the energies."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cracks_tpu_torch.ops import stencil
+
+BLOCKS = [(0, 8, 0, 8, 2, 2), (8, 12, 8, 12, 1, 1), (8, 12, 0, 8, 2, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block", BLOCKS)
+def test_kernel_matches_plain_version(cuda, dtype, block):
+    lo_r, hi_r, lo_c, hi_c, k_in, k_out = block
+    rng = np.random.default_rng(2)
+    jac = torch.as_tensor(rng.normal(size=(12, 12, 40, 36)), dtype=dtype,
+                          device=cuda)
+    X = torch.as_tensor(rng.normal(size=(k_in, 41, 37)), dtype=dtype,
+                        device=cuda)
+    before = stencil.stencil_matvec.launches
+    y = stencil.stencil_matvec(jac, X, *block)
+    assert stencil.stencil_matvec.launches == before + 1
+    ref = stencil.stencil_matvec_reference(jac, X, *block)
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-11)
+    torch.testing.assert_close(y, ref, rtol=rtol,
+                               atol=atol * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_plain_version(cuda):
+    """A CUDA call the kernel cannot take raises; it does not fall back
+    to the plain version."""
+    jac = torch.zeros((12, 12, 4, 4), dtype=torch.float32, device=cuda)
+    X = torch.zeros((2, 5, 6), dtype=torch.float32, device=cuda)
+    before = stencil.stencil_matvec.launches
+    with pytest.raises(ValueError):
+        stencil.stencil_matvec(jac, X, 0, 8, 0, 8, 2, 2)
+    assert stencil.stencil_matvec.launches == before
+
+
+@pytest.mark.cuda
+def test_main_path_refine3_matches_cpu(cuda):
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.host import config
+    prm = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "params", "parameters_sneddon_2d.prm")
+    p = config.load_parameters(
+        prm, n_global_pre_refine=3, n_local_pre_refine=0,
+        n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+        linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+        mixed_precision_cg=True)
+    energies = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = stencil.stencil_matvec.launches
+        sim = Simulation(p, device=dev, verbose=False)
+        sim.run()
+        launched = stencil.stencil_matvec.launches - before
+        assert (launched > 0) == (dev.type == "cuda")
+        d = sim.statistics.data
+        energies[dev.type] = np.array(d["Bulk Energy"] + d["Crack Energy"])
+    np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=1e-7)

@@ -1,0 +1,109 @@
+"""The slice as a whole: the PyTorch port's Simulation (device="cpu")
+against the JAX Simulation on the Sneddon 2d bench configuration at
+refine 3 (19,683 DoFs, two load steps, cg + gmg + mixed-precision CG,
+cg_rtol 1e-8).  The JAX side runs its split lattice solve (the
+algorithm the port implements) by setting FUSED_SOLVE_MAX_DOFS to 0.
+
+Bulk and crack energy agree per step to rel 1e-8 (the JAX split and
+fused variants agree to 1e-9; the f32 CG sums in another order), with
+equal DoFs and equal Newton iterations per step."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import cracks_tpu.solvers.lattice as jlat
+from cracks_tpu.config import load_parameters
+from cracks_tpu.driver import Simulation as JSimulation
+from cracks_tpu_torch import __main__ as cli
+from cracks_tpu_torch.driver import Simulation, run_prm
+from cracks_tpu_torch.host import config
+
+torch.set_num_threads(1)
+
+PRM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "params", "parameters_sneddon_2d.prm")
+# bench.py's Sneddon settings (_make_params/_tpu_overrides), refine 3
+BENCH = dict(n_global_pre_refine=3, n_local_pre_refine=0,
+             n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+             linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+             cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+
+
+def test_sneddon_refine3_matches_jax(monkeypatch, tmp_path):
+    monkeypatch.setattr(jlat, "FUSED_SOLVE_MAX_DOFS", 0)
+    sim_j = JSimulation(load_parameters(PRM, **BENCH), verbose=False)
+    sim_j.run()
+    out = tmp_path / "out"
+    sim, state = run_prm(PRM, device="cpu", **{**BENCH,
+                                                "output_dir": str(out)})
+    dj, dt = sim_j.statistics.data, sim.statistics.data
+    assert dt["DoFs"] == dj["DoFs"] == [19683, 19683]
+    for col in ("Bulk Energy", "Crack Energy"):
+        np.testing.assert_allclose(dt[col], dj[col], rtol=1e-8, atol=0,
+                                   err_msg=col)
+    assert ([e[1] for e in sim.solver_effort]
+            == [e[1] for e in sim_j.solver_effort])
+    assert sim.step_cuts == 0
+    assert state.u.dtype == torch.float64 and state.u.device.type == "cpu"
+    text = (out / "statistics").read_text()
+    assert "Bulk Energy" in text and (out / "parameters.prm").exists()
+
+
+def test_device_is_explicit():
+    p = config.load_parameters(PRM, **BENCH)
+    with pytest.raises(TypeError):
+        Simulation(p)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Simulation(p, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([PRM, "n_global_pre_refine=1", "n_local_pre_refine=0",
+                  "n_refinement_cycles=0"])
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(n_local_pre_refine=2), "A5"),
+    (dict(n_refinement_cycles=1), "A5"),
+    (dict(write_vtu=True), "A5"),
+    (dict(checkpoint_every=1), "A5"),
+    (dict(decompose_stress_matrix=1.0), "A1"),
+    (dict(outer_solver="simple monolithic"), "A4"),
+    (dict(dimension=3), "A8"),
+    (dict(test_case="miehe shear"), "A9"),
+    (dict(n_devices=2), "A11"),
+])
+def test_unported_configurations_raise(override, item):
+    p = config.load_parameters(PRM, **{**BENCH, **override})
+    with pytest.raises(NotImplementedError, match=item):
+        Simulation(p, device="cpu", verbose=False)
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(linear_solver="direct"), "A3"),
+    (dict(linear_solver="cg", n_global_pre_refine=1,
+          mixed_precision_cg=False), "not ported"),
+])
+def test_unported_linear_solvers_raise(override, item):
+    p = config.load_parameters(PRM, **{**BENCH, **override})
+    sim = Simulation(p, device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match=item):
+        sim.run()
+
+
+def test_cli_parses_overrides(monkeypatch):
+    seen = {}
+
+    def fake_run_prm(path, *, device, **overrides):
+        seen.update(path=path, device=device, **overrides)
+
+    monkeypatch.setattr("cracks_tpu_torch.driver.run_prm", fake_run_prm)
+    assert cli.main([PRM, "n_global_pre_refine=6", "mixed_precision_cg=False",
+                     "cg_rtol=1e-8", "device=cpu"]) == 0
+    assert seen == dict(path=PRM, device="cpu", n_global_pre_refine=6,
+                        mixed_precision_cg=False, cg_rtol=1e-8)
+    with pytest.raises(ValueError):
+        cli.main([PRM, "mixed_precision_cg=maybe"])
