@@ -7,23 +7,34 @@ without printing the final line:
 
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and the torch/CUDA versions;
-2. build: compiles the lattice-stencil kernel from
-   cracks_tpu_torch/csrc/ with nvcc (timed);
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   card, at the refine-6 Sneddon shapes (640x640 cells) of the four
-   stencil products the solve runs, from seeded numpy inputs; both
-   timed with CUDA events (median of 25 runs, L2 flushed before each);
-4. main path, small: the port's Simulation at refine 3 on the card and
-   on the CPU (plain versions); the energies must agree;
-5. main path, full size: the Sneddon 2d bench case (refine 6,
-   1,232,643 DoFs, two load steps, lattice GMG mixed-precision CG) on
-   the card; every step must converge with finite statistics, and the
-   kernel's launch count must rise during the run.
+2. build: compiles both stencil kernels from cracks_tpu_torch/csrc/
+   with nvcc, one compiler per source, all started together (timed);
+3. kernel vs plain, 2d and 3d: each kernel against its plain PyTorch
+   version on the card, at the main paths' shapes (2d: refine-6 Sneddon,
+   640x640 cells; 3d: refine-3 Sneddon, 80^3 cells) for the four
+   stencil products the solve runs, from seeded numpy inputs.  The
+   kernel, the plain version and the library yardstick (the same block
+   assembled once as a torch.sparse CSR matrix, times X) are timed with
+   CUDA events, median of 25 runs, L2 flushed before each; the bound is
+   the bytes of J + X + Y over 3.35 TB/s or the flops over the card's
+   peak rate, whichever is larger;
+4. main paths, small: the port's Simulation on the card and on the CPU
+   (plain versions) at 2d refine 3 and 3d refine 1; the energies must
+   agree to rel 1e-7 with equal Newton iterations per step;
+5. main path 2d, full size: the Sneddon 2d bench case (refine 6,
+   1,232,643 DoFs, two load steps, lattice GMG mixed-precision CG);
+6. main path 3d, full size: Sneddon 3d at refine 3 (2,125,764 DoFs, two
+   load steps, the same solver settings).
+   In 5 and 6 every step must converge without a time-step cut, with
+   finite statistics and positive bulk energy, and the path's kernel
+   must be launched: its count is set to 0 just before the run and read
+   just after.
 
-The line before the last is a JSON object with the kernel's numbers;
+The line before the last is a JSON object with both kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -35,22 +46,35 @@ import numpy as np
 import torch
 
 SEED = 0
-GC = 640          # refine-6 Sneddon cell grid per axis (641 vertices)
-REFINE = 6
-N_DOFS = 1_232_643
-PRM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "params",
-                   "parameters_sneddon_2d.prm")
-# (name, dtype, lo_r, hi_r, lo_c, hi_c, k_in, k_out): the u block and the
-# phase-field block of the f32 CG pass / V-cycle, and the f64 u block and
-# J_pu coupling block of the refinement residual
-SHAPES = [
-    ("f32 u block", torch.float32, 0, 8, 0, 8, 2, 2),
-    ("f32 phi block", torch.float32, 8, 12, 8, 12, 1, 1),
-    ("f64 u block", torch.float64, 0, 8, 0, 8, 2, 2),
-    ("f64 J_pu block", torch.float64, 8, 12, 0, 8, 2, 1),
-]
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+# non-tensor-core peak rates (H100 SXM data sheet)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # f32: the bounds of tests/test_pallas_stencil.py; f64: rounding-level
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
+f32, f64 = torch.float32, torch.float64
+# per kernel: its cell grid on the main path and the four products the
+# solve runs, (name, dtype, lo_r, hi_r, lo_c, hi_c, k_in, k_out): the u
+# block and the phase-field block of the f32 CG pass / V-cycle, and the
+# f64 u block and J_pu coupling block of the refinement residual
+KERNELS = [
+    dict(name="lattice_stencil", dim=2, cells=(640, 640),
+         replaces="cracks_tpu/ops/pallas_stencil.py:39",
+         shapes=[("f32 u block", f32, 0, 8, 0, 8, 2, 2),
+                 ("f32 phi block", f32, 8, 12, 8, 12, 1, 1),
+                 ("f64 u block", f64, 0, 8, 0, 8, 2, 2),
+                 ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1)]),
+    dict(name="lattice_stencil3d", dim=3, cells=(80, 80, 80),
+         replaces="cracks_tpu/ops/pallas_stencil.py:232",
+         shapes=[("f32 u block", f32, 0, 24, 0, 24, 3, 3),
+                 ("f32 phi block", f32, 24, 32, 24, 32, 1, 1),
+                 ("f64 u block", f64, 0, 24, 0, 24, 3, 3),
+                 ("f64 J_pu block", f64, 24, 32, 0, 24, 3, 1)]),
+]
+# the main paths: small (dim, refine, DoFs) and full size dim -> (refine,
+# DoFs)
+SMALL = [(2, 3, 19_683), (3, 1, 37_044)]
+FULL = {2: (6, 1_232_643), 3: (3, 2_125_764)}
 
 
 def device_phase():
@@ -68,11 +92,15 @@ def device_phase():
 def build_phase():
     from cracks_tpu_torch import kernels
     t0 = time.perf_counter()
-    path, log = kernels.build("lattice_stencil")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = list(pool.map(kernels.build, [k["name"] for k in KERNELS]))
     kernels.lattice_stencil()
-    print(f"build: {path} in {time.perf_counter() - t0:.2f} s")
-    if log.strip():
-        print(log.strip())
+    kernels.lattice_stencil3d()
+    print(f"build: {[path for path, _ in builds]} in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for _, log in builds:
+        if log.strip():
+            print(log.strip())
 
 
 def _time_ms(fn, flush, reps=25, warmup=3):
@@ -91,20 +119,52 @@ def _time_ms(fn, flush, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def kernel_phase():
-    """Kernel vs plain at the refine-6 shapes; returns one record per
-    shape."""
+def _csr_block(jac, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """The J block assembled once as a (k_out*nvert, k_in*nvert) CSR
+    matrix: rows d*nvert + v, columns e*nvert + w, the layout of Y and
+    X flattened."""
+    from cracks_tpu_torch.ops.stencil import _corner_offsets
+    grid = tuple(c + 1 for c in jac.shape[2:])
+    nvert = int(np.prod(grid))
+    dev = jac.device
+    pos = torch.arange(nvert, device=dev).reshape(grid)
+    wins = torch.stack([pos[tuple(slice(o[j], grid[j] - 1 + o[j])
+                                  for j in range(len(grid)))].reshape(-1)
+                        for o in _corner_offsets(len(grid))])
+    rows = (torch.arange(k_out, device=dev)[None, :, None] * nvert
+            + wins[:, None, :]).reshape(hi_r - lo_r, 1, -1)
+    cols = (torch.arange(k_in, device=dev)[None, :, None] * nvert
+            + wins[:, None, :]).reshape(1, hi_c - lo_c, -1)
+    shape = (hi_r - lo_r, hi_c - lo_c, wins.shape[1])
+    idx = torch.stack([rows.expand(shape).reshape(-1),
+                       cols.expand(shape).reshape(-1)])
+    del rows, cols, wins, pos
+    A = torch.sparse_coo_tensor(idx, jac[lo_r:hi_r, lo_c:hi_c].reshape(-1),
+                                (k_out * nvert, k_in * nvert),
+                                check_invariants=False)
+    del idx
+    return A.coalesce().to_sparse_csr()
+
+
+def kernel_phase(spec):
+    """Kernel vs plain version vs CSR yardstick at one kernel's main-path
+    shapes; returns one record per shape."""
     from cracks_tpu_torch.ops.stencil import (stencil_matvec,
                                               stencil_matvec_reference)
     dev = torch.device("cuda")
+    cells, dim = spec["cells"], spec["dim"]
+    ndl = 2 ** dim * (dim + 1)
+    grid = tuple(c + 1 for c in cells)
     rng = np.random.default_rng(SEED)
-    jac64 = torch.as_tensor(rng.standard_normal((12, 12, GC, GC)),
-                            dtype=torch.float64, device=dev)
-    x64 = torch.as_tensor(rng.standard_normal((2, GC + 1, GC + 1)),
-                          dtype=torch.float64, device=dev)
+    # f32 normals, widened on the card: exact, and half the host work
+    jac64 = torch.as_tensor(rng.standard_normal((ndl, ndl) + cells,
+                                                dtype=np.float32),
+                            device=dev).to(f64)
+    x64 = torch.as_tensor(rng.standard_normal((dim,) + grid), dtype=f64,
+                          device=dev)
     flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)  # 128 MB
     records = []
-    for name, dt, lo_r, hi_r, lo_c, hi_c, k_in, k_out in SHAPES:
+    for name, dt, lo_r, hi_r, lo_c, hi_c, k_in, k_out in spec["shapes"]:
         jac = jac64.to(dt)
         X = x64[:k_in].to(dt).contiguous()
         args = (lo_r, hi_r, lo_c, hi_c, k_in, k_out)
@@ -115,35 +175,53 @@ def kernel_phase():
         scale = float(y_ref.abs().max())
         err = (y - y_ref).abs()
         max_abs_err = float(err.max())
-        bound = atol_rel * scale + rtol * y_ref.abs()
-        if not bool((err <= bound).all()) or not bool(torch.isfinite(y).all()):
-            raise AssertionError(f"{name}: kernel disagrees with the plain "
-                                 f"version, max |err| {max_abs_err:.3e}, "
-                                 f"max |Y| {scale:.3e}")
+        ok = bool((err <= atol_rel * scale + rtol * y_ref.abs()).all())
+        if not ok or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{spec['name']} {name}: kernel disagrees "
+                                 f"with the plain version, max |err| "
+                                 f"{max_abs_err:.3e}, max |Y| {scale:.3e}")
+        del err, y_ref
         ms = _time_ms(lambda: stencil_matvec(jac, X, *args), flush)
         plain_ms = _time_ms(lambda: stencil_matvec_reference(jac, X, *args),
                             flush)
-        jbytes = (hi_r - lo_r) * (hi_c - lo_c) * GC * GC * jac.element_size()
-        print(f"kernel {name}: k_in={k_in} k_out={k_out} "
+        A = _csr_block(jac, *args)
+        xf = X.reshape(-1)
+        csr_err = float((A @ xf - y.reshape(-1)).abs().max())
+        library_ms = _time_ms(lambda: A @ xf, flush)
+        nnz = A.values().numel()
+        del A
+        nblock = (hi_r - lo_r) * (hi_c - lo_c) * int(np.prod(cells))
+        nvert = int(np.prod(grid))
+        nbytes = (nblock + (k_in + k_out) * nvert) * jac.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * nblock / PEAK_FLOPS[dt] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"{spec['name']} {name}: k_in={k_in} k_out={k_out} "
               f"max|err|={max_abs_err:.3e} (max|Y| {scale:.3e}, rtol "
-              f"{rtol:g}, atol {atol_rel:g}*max|Y|); kernel "
-              f"{ms * 1e3:.1f} us = {jbytes / ms / 1e6:.1f} GB/s of J "
-              f"({jbytes / 1e6:.1f} MB); plain {plain_ms * 1e3:.1f} us")
+              f"{rtol:g}, atol {atol_rel:g}*max|Y|); kernel {ms * 1e3:.1f}"
+              f" us, bound {bound_ms * 1e3:.1f} us ({bound_by}, "
+              f"{nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s; "
+              f"plain {plain_ms * 1e3:.1f} us; CSR {library_ms * 1e3:.1f} "
+              f"us ({nnz} nonzeros, max|CSR - kernel| {csr_err:.3e})")
         records.append(dict(name=name, k_in=k_in, k_out=k_out,
                             dtype=str(dt).replace("torch.", ""),
                             max_abs_err=max_abs_err, ms=ms,
-                            plain_ms=plain_ms, j_mb=jbytes / 1e6,
-                            gbps=jbytes / ms / 1e6))
-        del jac, X, y, y_ref, err, bound
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            mb=nbytes / 1e6, gbps=nbytes / ms / 1e6))
+        del jac, X, y, xf
+        torch.cuda.empty_cache()
     del jac64, x64, flush
     torch.cuda.empty_cache()
     return records
 
 
-def _params(refine):
-    from cracks_tpu_torch.host import config
+def _params(dim, refine):
+    from cracks_tpu_torch import config
     return config.load_parameters(
-        PRM, n_global_pre_refine=refine, n_local_pre_refine=0,
+        os.path.join(ROOT, "params", f"parameters_sneddon_{dim}d.prm"),
+        n_global_pre_refine=refine, n_local_pre_refine=0,
         n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
         linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
         cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
@@ -154,36 +232,52 @@ def _energies(sim):
     return np.array([d["Bulk Energy"], d["Crack Energy"]], dtype=float)
 
 
-def small_phase():
-    """Refine 3 on the card vs the plain versions on the CPU."""
+def small_phase(dim, refine, n_dofs):
+    """A small case on the card vs the plain versions on the CPU."""
     from cracks_tpu_torch.driver import Simulation
     runs = {}
     for dev in ("cuda", "cpu"):
-        sim = Simulation(_params(3), device=dev, verbose=False)
+        t0 = time.perf_counter()
+        sim = Simulation(_params(dim, refine), device=dev, verbose=False)
         sim.run()
         runs[dev] = sim
-        print(f"refine 3 on {dev}: Newton/linear its per step "
-              f"{[(e[1], e[2]) for e in sim.solver_effort]}, energies "
-              f"{_energies(sim).tolist()}")
+        print(f"{dim}d refine {refine} on {dev} ({sim.mesh.n_dofs} DoFs, "
+              f"{time.perf_counter() - t0:.1f} s): Newton/linear its per "
+              f"step {[(e[1], e[2]) for e in sim.solver_effort]}, "
+              f"energies {_energies(sim).tolist()}")
+        if sim.mesh.n_dofs != n_dofs:
+            raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected "
+                                 f"{n_dofs}")
     a, b = _energies(runs["cuda"]), _energies(runs["cpu"])
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
-    print(f"refine 3 cuda vs cpu: max relative energy difference "
-          f"{rel:.3e} (bound 1e-7)")
+    print(f"{dim}d refine {refine} cuda vs cpu: max relative energy "
+          f"difference {rel:.3e} (bound 1e-7)")
     if not rel <= 1e-7:
-        raise AssertionError("card and CPU runs disagree at refine 3")
+        raise AssertionError(f"card and CPU runs disagree at {dim}d refine "
+                             f"{refine}")
+    newton = [[e[1] for e in runs[d].solver_effort] for d in ("cuda", "cpu")]
+    if newton[0] != newton[1]:
+        raise AssertionError(f"Newton iterations per step differ between "
+                             f"card and CPU: {newton}")
 
 
-def main_phase():
-    """The bench case at full size; returns the kernel launch count."""
+def main_phase(dim):
+    """One full-size main path on the card; returns its kernel's launch
+    count."""
     from cracks_tpu_torch.driver import Simulation
-    from cracks_tpu_torch.ops.stencil import stencil_matvec
-    sim = Simulation(_params(REFINE), device="cuda", verbose=True)
-    if sim.mesh.n_dofs != N_DOFS:
-        raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected {N_DOFS}")
+    from cracks_tpu_torch.ops import stencil
+    refine, n_dofs = FULL[dim]
+    kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
+    t0 = time.perf_counter()
+    sim = Simulation(_params(dim, refine), device="cuda", verbose=True)
+    host_s = time.perf_counter() - t0
+    if sim.mesh.n_dofs != n_dofs:
+        raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected {n_dofs}")
     torch.cuda.reset_peak_memory_stats()
-    stencil_matvec.launches = 0
+    stencil.stencil_matvec2d.launches = 0
+    stencil.stencil_matvec3d.launches = 0
     sim.run()
-    launches = stencil_matvec.launches
+    launches = kernel.launches
     torch.cuda.synchronize()
     steps = len(sim.solver_effort)
     if steps != 2 or sim.step_cuts:
@@ -197,30 +291,41 @@ def main_phase():
     if not min(sim.statistics.data["Bulk Energy"]) > 0:
         raise AssertionError("bulk energy is not positive")
     if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+        raise AssertionError(f"the {dim}d main path never launched its "
+                             "kernel")
+    print(f"{dim}d main path: host setup (forest, mesh) {host_s:.2f} s, "
+          f"setup system {sim.timer.wall['Setup system']:.2f} s")
     for (step, newton_its, lin_its, n_active), (_, _, secs) in zip(
             sim.solver_effort, sim.step_times):
-        print(f"step {step}: {secs:.2f} s, {newton_its} Newton its, "
+        print(f"{dim}d step {step}: {secs:.2f} s, {newton_its} Newton its, "
               f"{lin_its} linear its, active set {n_active}")
-    print(f"main path: {sim.mesh.n_dofs} DoFs, kernel launches {launches}, "
-          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    print(f"{dim}d main path: {sim.mesh.n_dofs} DoFs, kernel launches "
+          f"{launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    del sim
+    torch.cuda.empty_cache()
     return launches
 
 
 def main():
     device_phase()
     build_phase()
-    records = kernel_phase()
-    small_phase()
-    launches = main_phase()
-    head = records[0]   # the f32 u block: the dominant product
-    print(json.dumps({"kernels": [{
-        "name": "lattice_stencil", "route": "cuda",
-        "source": "cracks_tpu_torch/csrc/lattice_stencil.cu",
-        "replaces": "cracks_tpu/ops/pallas_stencil.py:39",
-        "launches": launches, "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "shapes": records}]}))
+    records = {k["name"]: kernel_phase(k) for k in KERNELS}
+    for dim, refine, n_dofs in SMALL:
+        small_phase(dim, refine, n_dofs)
+    launches = {k["name"]: main_phase(k["dim"]) for k in KERNELS}
+    entries = []
+    for k in KERNELS:
+        head = records[k["name"]][0]   # the f32 u block: the main product
+        entries.append({
+            "name": k["name"], "route": "cuda",
+            "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
+            "replaces": k["replaces"], "launches": launches[k["name"]],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": records[k["name"]]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,11 @@ preconditioned mixed-precision CG), written on torch tensors for one
 NVIDIA Hopper card.  The JAX package ``cracks_tpu`` stays beside it as
 the reference every slice of this port is held against.
 
-This package never imports jax.  The numpy-only host modules of
-``cracks_tpu`` (configuration, forest/mesh, FE tables, problems,
-statistics) are reached through ``host``, which loads them without
-running ``cracks_tpu/__init__.py``.
+This package never imports jax, nor any file of ``cracks_tpu``: it
+keeps its own copies of the numpy-only host modules (``config``,
+``expressions``, ``meshio``, ``mesh`` with the native key core under
+``native/``, ``fem``, ``problems``, ``statistics``, ``profiling``), and
+builds whatever it compiles into its own ``build/`` directory.
 
 The device is never chosen silently: ``Simulation``/``System`` take an
 explicit ``device`` and create every tensor on it, and every tensor has

@@ -29,7 +29,7 @@ def main(argv=None):
         return 2
 
     from .driver import run_prm
-    from .host import config
+    from . import config
 
     base = config.load_parameters(argv[0])
     device = "cuda"

@@ -14,6 +14,7 @@ import functools
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
@@ -54,13 +55,37 @@ def build(name: str) -> tuple[str, str]:
     return lib, proc.stdout + proc.stderr
 
 
-@functools.cache
-def lattice_stencil() -> ctypes.CDLL:
-    """The loaded lattice-stencil library (csrc/lattice_stencil.cu)."""
-    path, _ = build("lattice_stencil")
+class StencilLib(NamedTuple):
+    """A loaded stencil library and its two entry points, each
+    ``(J, X, Y, R, C, *cellgrid, lo_r, lo_c, k_in, k_out, stream) ->
+    cudaError_t``."""
+
+    name: str
+    lib: ctypes.CDLL
+    f32: object
+    f64: object
+
+
+def _load_stencil(name: str, dim: int) -> StencilLib:
+    path, _ = build(name)
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.lattice_stencil_f32, lib.lattice_stencil_f64):
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    fns = []
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"{name}_{dt}")
+        fn.argtypes = [p, p, p] + [i] * (dim + 6) + [p]
         fn.restype = i
-    return lib
+        fns.append(fn)
+    return StencilLib(name, lib, *fns)
+
+
+@functools.cache
+def lattice_stencil() -> StencilLib:
+    """The 2d lattice-stencil library (csrc/lattice_stencil.cu)."""
+    return _load_stencil("lattice_stencil", 2)
+
+
+@functools.cache
+def lattice_stencil3d() -> StencilLib:
+    """The 3d lattice-stencil library (csrc/lattice_stencil3d.cu)."""
+    return _load_stencil("lattice_stencil3d", 3)

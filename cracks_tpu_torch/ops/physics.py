@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..host import fem
+from .. import fem
 
 ALPHA_BIOT = 0.0  # reference cracks.cc:1497
 

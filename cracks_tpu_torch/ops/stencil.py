@@ -1,24 +1,26 @@
-"""The 2d lattice block-stencil matvec: hand-written CUDA kernel and its
-plain PyTorch version.
+"""The lattice block-stencil matvec: hand-written CUDA kernels (2d and
+3d) and their plain PyTorch version.
 
-For vertex (d, vy, vx) of a uniform 2d Q1 lattice with stored element
-matrices J (R, C, GCY, GCX):
+For vertex (d, *v) of a uniform Q1 lattice with stored element
+matrices J (R, C, *cellgrid):
 
-    Y[d,vy,vx] = sum_{a,b,e} J[lo_r + a*k_out + d, lo_c + b*k_in + e,
-                               vy-oy_a, vx-ox_a]
-                             * X[e, vy-oy_a+oy_b, vx-ox_a+ox_b]
+    Y[d,v] = sum_{a,b,e} J[lo_r + a*k_out + d, lo_c + b*k_in + e, v-o_a]
+                         * X[e, v-o_a+o_b]
 
-over the 4 cell corners a, b (offset (oy, ox) = (a >> 1, a & 1)) and
-the k_in input components e; cells outside the cell grid contribute
-nothing.  Rows [lo_r, hi_r) and columns [lo_c, hi_c) of the local
-element matrices select the block: the u block (k = 2), the
-phase-field block (k = 1) or the rectangular J_pu coupling
-(k_in = 2, k_out = 1).
+over the 2**dim cell corners a, b (offset o_a per grid axis, slowest
+to fastest: (oy, ox) = (a >> 1, a & 1) in 2d, (oz, oy, ox) =
+((a >> 2) & 1, (a >> 1) & 1, a & 1) in 3d) and the k_in input
+components e; cells outside the cell grid contribute nothing.  Rows
+[lo_r, hi_r) and columns [lo_c, hi_c) of the local element matrices
+select the block: the u block (k = dim), the phase-field block (k = 1)
+or the rectangular J_pu coupling (k_in = dim, k_out = 1).
 
-`stencil_matvec` dispatches on the device of X: a CUDA tensor goes to
-the kernel in ``csrc/lattice_stencil.cu`` (replacing the Pallas TPU
-kernel ``cracks_tpu/ops/pallas_stencil.py::_kernel``) or raises; a CPU
-tensor goes to `stencil_matvec_reference`, the slice formulation of
+`stencil_matvec` dispatches on the rank of J (4: 2d, 5: 3d) and on the
+device of X: a CUDA tensor goes to the kernel in
+``csrc/lattice_stencil.cu`` (replacing the Pallas TPU kernel
+``cracks_tpu/ops/pallas_stencil.py::_kernel``) or
+``csrc/lattice_stencil3d.cu`` (replacing ``::_kernel3d``), or raises; a
+CPU tensor goes to `stencil_matvec_reference`, the slice formulation of
 ``cracks_tpu/solvers/lattice.py::matvec_block``.
 """
 
@@ -28,77 +30,117 @@ import torch
 
 from .. import kernels
 
-_OFFS = ((0, 0), (0, 1), (1, 0), (1, 1))   # corner a -> (oy, ox)
+
+def _corner_offsets(dim):
+    """Corner a -> per-grid-axis offsets, slowest axis first."""
+    return [tuple((a >> (dim - 1 - j)) & 1 for j in range(dim))
+            for a in range(2 ** dim)]
 
 
 def stencil_matvec_reference(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
-    """Plain PyTorch version: gather the 4 shifted cell windows of X,
-    one batched per-cell product with the J block, scatter-add the 4
-    shifted windows back.  jac (R, C, GCY, GCX); X (k_in, GY, GX)
-    -> (k_out, GY, GX)."""
-    GY, GX = X.shape[1:]
-    GCY, GCX = GY - 1, GX - 1
-    Xe = torch.stack([X[:, oy:oy + GCY, ox:ox + GCX] for oy, ox in _OFFS])
-    Xf = Xe.reshape(4 * k_in, GCY, GCX)
-    Yf = torch.einsum("ijyx,jyx->iyx", jac[lo_r:hi_r, lo_c:hi_c], Xf)
-    Ye = Yf.reshape(4, k_out, GCY, GCX)
-    Y = torch.zeros((k_out, GY, GX), dtype=X.dtype, device=X.device)
-    for a, (oy, ox) in enumerate(_OFFS):
-        Y[:, oy:oy + GCY, ox:ox + GCX] += Ye[a]
+    """Plain PyTorch version, 2d and 3d: gather the 2**dim shifted cell
+    windows of X, one batched per-cell product with the J block,
+    scatter-add the 2**dim shifted windows back.  jac (R, C, *cellgrid);
+    X (k_in, *grid) -> (k_out, *grid)."""
+    grid = X.shape[1:]
+    offs = _corner_offsets(len(grid))
+
+    def win(o):
+        return (slice(None),) + tuple(slice(oj, g - 1 + oj)
+                                      for oj, g in zip(o, grid))
+
+    Xf = torch.cat([X[win(o)] for o in offs])      # (nvc*k_in, *cellgrid)
+    Yf = torch.einsum("ij...,j...->i...", jac[lo_r:hi_r, lo_c:hi_c], Xf)
+    Y = torch.zeros((k_out,) + tuple(grid), dtype=X.dtype, device=X.device)
+    for a, o in enumerate(offs):
+        Y[win(o)] += Yf[a * k_out:(a + 1) * k_out]
     return Y
 
 
 def _check(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """Validate a kernel call: one device, f32 or f64 of one dtype,
+    contiguous, matching cell/vertex grids, a block inside J."""
+    dim = X.dim() - 1
     if jac.device != X.device:
         raise ValueError(f"jac on {jac.device}, X on {X.device}")
     if X.dtype not in (torch.float32, torch.float64) \
             or jac.dtype != X.dtype:
         raise TypeError(f"stencil_matvec takes f32 or f64 of one dtype, "
                         f"got jac {jac.dtype}, X {X.dtype}")
-    if jac.dim() != 4 or X.dim() != 3:
-        raise ValueError(f"need jac (R, C, GCY, GCX) and X (k, GY, GX), "
-                         f"got {tuple(jac.shape)}, {tuple(X.shape)}")
+    if dim not in (2, 3) or jac.dim() != dim + 2:
+        raise ValueError(f"need jac (R, C, *cellgrid) and X (k, *grid) in "
+                         f"2d or 3d, got {tuple(jac.shape)}, "
+                         f"{tuple(X.shape)}")
     if not (jac.is_contiguous() and X.is_contiguous()):
         raise ValueError("stencil_matvec needs contiguous jac and X")
-    R, C, GCY, GCX = jac.shape
-    if (X.shape[1] - 1, X.shape[2] - 1) != (GCY, GCX):
-        raise ValueError(f"cell grid {(GCY, GCX)} does not match vertex "
-                         f"grid {tuple(X.shape[1:])}")
-    if k_in not in (1, 2) or k_out not in (1, 2) or X.shape[0] != k_in:
+    R, C = jac.shape[:2]
+    if tuple(g - 1 for g in X.shape[1:]) != tuple(jac.shape[2:]):
+        raise ValueError(f"cell grid {tuple(jac.shape[2:])} does not match "
+                         f"vertex grid {tuple(X.shape[1:])}")
+    if (k_in not in (1, dim) or k_out not in (1, dim)
+            or X.shape[0] != k_in):
         raise ValueError(f"k_in={k_in}, k_out={k_out}, X has "
                          f"{X.shape[0]} components")
-    if not (0 <= lo_r and hi_r - lo_r == 4 * k_out and hi_r <= R
-            and 0 <= lo_c and hi_c - lo_c == 4 * k_in and hi_c <= C):
+    nvc = 2 ** dim
+    if not (0 <= lo_r and hi_r - lo_r == nvc * k_out and hi_r <= R
+            and 0 <= lo_c and hi_c - lo_c == nvc * k_in and hi_c <= C):
         raise ValueError(f"block rows [{lo_r},{hi_r}) cols [{lo_c},{hi_c})"
                          f" does not fit jac {tuple(jac.shape)} with "
                          f"k_in={k_in}, k_out={k_out}")
 
 
-def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
-    """Y = J_block X on the lattice.  CUDA tensors launch the kernel
-    (and count the launch in `stencil_matvec.launches`); CPU tensors use
-    the plain version."""
-    if X.device.type == "cpu":
-        return stencil_matvec_reference(jac, X, lo_r, hi_r, lo_c, hi_c,
-                                        k_in, k_out)
+def _launch(load, dim, jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """Validate, then load the `dim`-d kernel library, allocate Y and
+    launch its f32/f64 entry point on the current stream; raises on a
+    tensor the kernel cannot take and on a refused launch."""
     if X.device.type != "cuda":
-        raise ValueError(f"stencil_matvec: unsupported device {X.device}")
+        raise ValueError(f"the {dim}d stencil kernel takes CUDA tensors, "
+                         f"got {X.device}")
+    if X.dim() != dim + 1:
+        raise ValueError(f"the {dim}d stencil kernel got X "
+                         f"{tuple(X.shape)}")
     _check(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out)
-    lib = kernels.lattice_stencil()
-    fn = (lib.lattice_stencil_f32 if X.dtype == torch.float32
-          else lib.lattice_stencil_f64)
-    R, C, GCY, GCX = jac.shape
+    lib = load()
+    fn = lib.f32 if X.dtype == torch.float32 else lib.f64
     Y = torch.empty((k_out,) + tuple(X.shape[1:]), dtype=X.dtype,
                     device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = fn(jac.data_ptr(), X.data_ptr(), Y.data_ptr(), R, C, GCY,
-                 GCX, lo_r, lo_c, k_in, k_out, stream)
+        err = fn(jac.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                 *jac.shape, lo_r, lo_c, k_in, k_out, stream)
     if err != 0:
-        raise RuntimeError(f"lattice_stencil launch failed: CUDA error "
-                           f"{err}")
-    stencil_matvec.launches += 1
+        raise RuntimeError(f"{lib.name} launch failed: CUDA error {err}")
     return Y
 
 
-stencil_matvec.launches = 0
+def stencil_matvec2d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """The 2d CUDA kernel on CUDA tensors (jac (R, C, GCY, GCX), X (k_in,
+    GY, GX)); each launch adds one to `stencil_matvec2d.launches`."""
+    Y = _launch(kernels.lattice_stencil, 2, jac, X, lo_r, hi_r, lo_c, hi_c,
+                k_in, k_out)
+    stencil_matvec2d.launches += 1
+    return Y
+
+
+def stencil_matvec3d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """The 3d CUDA kernel on CUDA tensors (jac (R, C, GCZ, GCY, GCX), X
+    (k_in, GZ, GY, GX)); each launch adds one to
+    `stencil_matvec3d.launches`."""
+    Y = _launch(kernels.lattice_stencil3d, 3, jac, X, lo_r, hi_r, lo_c,
+                hi_c, k_in, k_out)
+    stencil_matvec3d.launches += 1
+    return Y
+
+
+stencil_matvec2d.launches = 0
+stencil_matvec3d.launches = 0
+
+
+def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+    """Y = J_block X on the lattice.  CPU tensors use the plain version;
+    CUDA tensors launch the 2d or 3d kernel by the rank of jac."""
+    if X.device.type == "cpu":
+        return stencil_matvec_reference(jac, X, lo_r, hi_r, lo_c, hi_c,
+                                        k_in, k_out)
+    kernel = stencil_matvec3d if jac.dim() == 5 else stencil_matvec2d
+    return kernel(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out)

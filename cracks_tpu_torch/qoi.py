@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .host import fem
+from . import fem
 from .ops.physics import CellArrays
 
 

@@ -3,11 +3,11 @@
 Port of the single-device, seam-free part of
 ``cracks_tpu/solvers/lattice.py``.  On a uniformly refined tensor-
 product mesh (Sneddon's ``rect_mesh`` roots, ``n_global_pre_refine``
-refinements, no hanging nodes) the mesh IS a global (GY, GX) lattice
-and every FEM gather/scatter is a shifted slice:
+refinements, no hanging nodes) the mesh IS a global (GY, GX) or
+(GZ, GY, GX) lattice and every FEM gather/scatter is a shifted slice:
 
-  * cell->vertex gather = 4 shifted cell-grid windows of the lattice;
-  * vertex scatter-add  = 4 shifted window adds;
+  * cell->vertex gather = 2**dim shifted cell-grid windows;
+  * vertex scatter-add  = 2**dim shifted window adds;
   * 2:1 restriction/prolongation = strided slices, separable per axis;
   * Galerkin element-RAP coarsening = [o::2] slices + contraction with
     the constant embedding matrices;
@@ -15,7 +15,7 @@ and every FEM gather/scatter is a shifted slice:
 
 Lattice vectors are (comp, *grid) with comp leading; element data is
 (ndl, ndl, *cellgrid).  Every stencil product goes through
-`ops.stencil.stencil_matvec` (the CUDA kernel on the card).
+`ops.stencil.stencil_matvec` (the 2d or 3d CUDA kernel on the card).
 
 The solve is ONE algorithm, the JAX package's split variant
 (`_solve_split`): exact f64 element matrices built once per Newton

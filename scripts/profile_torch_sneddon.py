@@ -1,21 +1,28 @@
-"""Where the time goes in the PyTorch port's Sneddon 2d lattice path on
-one CUDA card.
+"""Where the time goes in the PyTorch port's Sneddon lattice path on one
+CUDA card, in 2d or 3d.
 
-    python3 scripts/profile_torch_sneddon.py [refine]   (default 6)
+    python3 scripts/profile_torch_sneddon.py [dim [refine]]
 
-Runs the bench case (refine 6 = 1,232,643 DoFs, two load steps,
-lattice GMG mixed-precision CG) three times on the card:
+dim is 2 (default; refine defaults to 6 = 1,232,643 DoFs) or 3 (refine
+defaults to 3 = 2,125,764 DoFs).  Runs the case (two load steps,
+lattice GMG mixed-precision CG) three times on the card, after timing
+the host setup (forest refinement and mesh extraction, then the
+system's setup: lattice detection, cell geometry, lumped mass, GMG
+hierarchy) on its own:
 
 1. warm-up (kernel build, cuBLAS/cuSOLVER initialisation);
 2. phase timing: the solver's phases are wrapped with a synchronize on
    both sides and a host clock, which gives wall time per phase (the
-   synchronizes add a little time of their own);
+   synchronizes add a little time of their own), and with a reset of
+   the peak-memory counter, which gives each phase's peak device
+   memory;
 3. torch.profiler trace without the wrappers: device time by kernel
    name, the union of device-busy intervals against the wall time of
-   the run (the device's idle share), and the stencil kernel's share.
+   the run (the device's idle share), and the launches and time of
+   every stencil kernel variant (dtype, k_in, k_out).
 
 Prints the card's name and power limit first; writes the profiler's
-table to chiprun_out/profile_torch_sneddon.txt.
+table to chiprun_out/profile_torch_sneddon{dim}d.txt.
 """
 
 import collections
@@ -31,14 +38,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cracks_tpu_torch.driver import Simulation  # noqa: E402
-from cracks_tpu_torch.host import config  # noqa: E402
-from cracks_tpu_torch.ops.stencil import stencil_matvec  # noqa: E402
+from cracks_tpu_torch import config  # noqa: E402
+from cracks_tpu_torch.ops import stencil  # noqa: E402
 from cracks_tpu_torch.solvers import lattice, newton  # noqa: E402
 
 PHASES = [
     (newton, "_assemble", "residual assembly (f64)"),
     (newton, "_active_set_update", "PDAS head (indicator, set update)"),
-    (lattice, "_prepare64", "f64 element matrices (12 jvps)"),
+    (lattice, "_prepare64", "f64 element matrices (ndl jvps)"),
     (lattice, "_prepare32_from64", "f32 cast + Galerkin RAP chain"),
     (lattice, "_prepare_levels", "level build (diag, lambda, Cholesky)"),
     (lattice, "_pass_setup", "CG pass setup (f64 -> f32)"),
@@ -47,17 +54,19 @@ PHASES = [
 ]
 
 
-def _params(refine):
+def _params(dim, refine):
     return config.load_parameters(
-        os.path.join(REPO, "params", "parameters_sneddon_2d.prm"),
+        os.path.join(REPO, "params", f"parameters_sneddon_{dim}d.prm"),
         n_global_pre_refine=refine, n_local_pre_refine=0,
         n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
         linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
         cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
 
 
-def _run(refine):
-    sim = Simulation(_params(refine), device="cuda", verbose=False)
+def _run(dim, refine):
+    t0 = time.perf_counter()
+    sim = Simulation(_params(dim, refine), device="cuda", verbose=False)
+    sim.host_setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run()
@@ -66,13 +75,15 @@ def _run(refine):
 
 
 def _report(sim, wall, label):
-    print(f"{label}: run {wall:.3f} s; per step " + ", ".join(
+    print(f"{label}: forest + mesh {sim.host_setup_s:.3f} s; run {wall:.3f}"
+          f" s, of which setup system {sim.timer.wall['Setup system']:.3f}"
+          " s; per step " + ", ".join(
         f"{s:.3f} s" for _, _, s in sim.step_times) + "; Newton/linear its "
         + str([(e[1], e[2]) for e in sim.solver_effort]))
 
 
-def phase_timing(refine):
-    acc = collections.defaultdict(lambda: [0.0, 0])
+def phase_timing(dim, refine):
+    acc = collections.defaultdict(lambda: [0.0, 0, 0])
     originals = []
     # the outermost phase on the stack owns the time
     depth = [0]
@@ -87,6 +98,7 @@ def phase_timing(refine):
                 return fn(*a, **kw)
             depth[0] += 1
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
@@ -94,32 +106,36 @@ def phase_timing(refine):
                 torch.cuda.synchronize()
                 acc[label][0] += time.perf_counter() - t0
                 acc[label][1] += 1
+                acc[label][2] = max(acc[label][2],
+                                    torch.cuda.max_memory_allocated())
                 depth[0] -= 1
         setattr(mod, name, timed)
 
     for mod, name, label in PHASES:
         wrap(mod, name, label)
     try:
-        sim, wall = _run(refine)
+        sim, wall = _run(dim, refine)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     _report(sim, wall, "phase-timed run")
-    total = sum(t for t, _ in acc.values())
-    for label, (t, n) in sorted(acc.items(), key=lambda kv: -kv[1][0]):
+    total = sum(t for t, _, _ in acc.values())
+    for label, (t, n, peak) in sorted(acc.items(),
+                                      key=lambda kv: -kv[1][0]):
         print(f"  {label:42s} {t:8.3f} s {100 * t / wall:5.1f} %  "
-              f"({n} calls)")
+              f"({n} calls, peak device memory {peak / 1e9:.2f} GB)")
     print(f"  {'(other: driver, line-search glue, host)':42s} "
           f"{wall - total:8.3f} s {100 * (wall - total) / wall:5.1f} %")
 
 
-def profiled(refine, out_path):
+def profiled(dim, refine, out_path):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    stencil_matvec.launches = 0
+    kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
+    kernel.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim, wall = _run(refine)
+        sim, wall = _run(dim, refine)
     _report(sim, wall, "profiled run")
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
@@ -143,11 +159,15 @@ def profiled(refine, out_path):
     dev_total = sum(t for t, _ in by_name.values())
     print(f"device busy {busy / 1e6:.3f} s of {wall:.3f} s wall: idle "
           f"share {100 * (1 - busy / 1e6 / wall):.1f} %; {len(kern)} "
-          f"device events; stencil launches {stencil_matvec.launches}")
+          f"device events; stencil launches {kernel.launches}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:
         print(f"  {t / 1e3:9.2f} ms {100 * t / dev_total:5.1f} % {n:7d}x  "
               f"{name[:90]}")
+    print("stencil kernel variants (all levels, both load steps):")
+    for name, (t, n) in sorted(by_name.items()):
+        if "lattice_stencil" in name:
+            print(f"  {t / 1e3:9.2f} ms {n:7d}x  {name[:100]}")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
@@ -157,20 +177,21 @@ def profiled(refine, out_path):
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    refine = int(sys.argv[1]) if len(sys.argv) > 1 else 6
+    dim = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    refine = int(sys.argv[2]) if len(sys.argv) > 2 else {2: 6, 3: 3}[dim]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip())
-    sim, wall = _run(refine)
+    sim, wall = _run(dim, refine)
     _report(sim, wall, "warm-up run")
     del sim
-    sim, wall = _run(refine)
+    sim, wall = _run(dim, refine)
     _report(sim, wall, "plain run")
     del sim
-    phase_timing(refine)
-    profiled(refine, os.path.join(REPO, "chiprun_out",
-                                  "profile_torch_sneddon.txt"))
+    phase_timing(dim, refine)
+    profiled(dim, refine, os.path.join(REPO, "chiprun_out",
+                                       f"profile_torch_sneddon{dim}d.txt"))
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
 
 

@@ -4,11 +4,11 @@ machine that has only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The CUDA stencil kernel is held against its plain PyTorch version on
-the card, at a small non-square lattice, for every block the lattice
-solve uses and both dtypes (f32: rtol 1e-5, atol 1e-4 * max|Y|, the
-bounds of tests/test_pallas_stencil.py; f64: rtol 1e-12,
-atol 1e-11 * max|Y|).  The main path at refine 3 on the card agrees
+The CUDA stencil kernels (2d and 3d) are held against their plain
+PyTorch version on the card, at small non-square lattices, for every
+block the lattice solve uses and both dtypes (f32: rtol 1e-5,
+atol 1e-4 * max|Y|, the bounds of tests/test_pallas_stencil.py; f64:
+rtol 1e-12, atol 1e-11 * max|Y|).  The main path at refine 3 on the card agrees
 with the CPU run (plain versions) to rel 1e-7 in the energies."""
 
 import os
@@ -20,6 +20,8 @@ import torch
 from cracks_tpu_torch.ops import stencil
 
 BLOCKS = [(0, 8, 0, 8, 2, 2), (8, 12, 8, 12, 1, 1), (8, 12, 0, 8, 2, 1)]
+BLOCKS3 = [(0, 24, 0, 24, 3, 3), (24, 32, 24, 32, 1, 1),
+           (24, 32, 0, 24, 3, 1)]
 
 
 @pytest.fixture
@@ -39,9 +41,28 @@ def test_kernel_matches_plain_version(cuda, dtype, block):
                           device=cuda)
     X = torch.as_tensor(rng.normal(size=(k_in, 41, 37)), dtype=dtype,
                         device=cuda)
-    before = stencil.stencil_matvec.launches
+    before = stencil.stencil_matvec2d.launches
     y = stencil.stencil_matvec(jac, X, *block)
-    assert stencil.stencil_matvec.launches == before + 1
+    assert stencil.stencil_matvec2d.launches == before + 1
+    ref = stencil.stencil_matvec_reference(jac, X, *block)
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-11)
+    torch.testing.assert_close(y, ref, rtol=rtol,
+                               atol=atol * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block", BLOCKS3)
+def test_kernel3d_matches_plain_version(cuda, dtype, block):
+    lo_r, hi_r, lo_c, hi_c, k_in, k_out = block
+    rng = np.random.default_rng(3)
+    jac = torch.as_tensor(rng.normal(size=(32, 32, 9, 12, 37)), dtype=dtype,
+                          device=cuda)
+    X = torch.as_tensor(rng.normal(size=(k_in, 10, 13, 38)), dtype=dtype,
+                        device=cuda)
+    before = stencil.stencil_matvec3d.launches
+    y = stencil.stencil_matvec(jac, X, *block)
+    assert stencil.stencil_matvec3d.launches == before + 1
     ref = stencil.stencil_matvec_reference(jac, X, *block)
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-11)
     torch.testing.assert_close(y, ref, rtol=rtol,
@@ -54,16 +75,24 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
     to the plain version."""
     jac = torch.zeros((12, 12, 4, 4), dtype=torch.float32, device=cuda)
     X = torch.zeros((2, 5, 6), dtype=torch.float32, device=cuda)
-    before = stencil.stencil_matvec.launches
+    jac3 = torch.zeros((32, 32, 2, 3, 4), dtype=torch.float32, device=cuda)
+    X3 = torch.zeros((3, 3, 4, 5), dtype=torch.float32, device=cuda)
+    before = (stencil.stencil_matvec2d.launches,
+              stencil.stencil_matvec3d.launches)
     with pytest.raises(ValueError):
         stencil.stencil_matvec(jac, X, 0, 8, 0, 8, 2, 2)
-    assert stencil.stencil_matvec.launches == before
+    with pytest.raises(ValueError):
+        stencil.stencil_matvec(jac3, X3, 0, 24, 0, 24, 2, 2)
+    with pytest.raises(TypeError):
+        stencil.stencil_matvec(jac3, X3.double(), 0, 24, 0, 24, 3, 3)
+    assert (stencil.stencil_matvec2d.launches,
+            stencil.stencil_matvec3d.launches) == before
 
 
 @pytest.mark.cuda
 def test_main_path_refine3_matches_cpu(cuda):
     from cracks_tpu_torch.driver import Simulation
-    from cracks_tpu_torch.host import config
+    from cracks_tpu_torch import config
     prm = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))), "params", "parameters_sneddon_2d.prm")
     p = config.load_parameters(
@@ -73,10 +102,10 @@ def test_main_path_refine3_matches_cpu(cuda):
         mixed_precision_cg=True)
     energies = {}
     for dev in (cuda, torch.device("cpu")):
-        before = stencil.stencil_matvec.launches
+        before = stencil.stencil_matvec2d.launches
         sim = Simulation(p, device=dev, verbose=False)
         sim.run()
-        launched = stencil.stencil_matvec.launches - before
+        launched = stencil.stencil_matvec2d.launches - before
         assert (launched > 0) == (dev.type == "cuda")
         d = sim.statistics.data
         energies[dev.type] = np.array(d["Bulk Energy"] + d["Crack Energy"])

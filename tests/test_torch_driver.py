@@ -19,7 +19,7 @@ from cracks_tpu.config import load_parameters
 from cracks_tpu.driver import Simulation as JSimulation
 from cracks_tpu_torch import __main__ as cli
 from cracks_tpu_torch.driver import Simulation, run_prm
-from cracks_tpu_torch.host import config
+from cracks_tpu_torch import config
 
 torch.set_num_threads(1)
 
@@ -72,7 +72,6 @@ def test_device_is_explicit():
     (dict(checkpoint_every=1), "A5"),
     (dict(decompose_stress_matrix=1.0), "A1"),
     (dict(outer_solver="simple monolithic"), "A4"),
-    (dict(dimension=3), "A8"),
     (dict(test_case="miehe shear"), "A9"),
     (dict(n_devices=2), "A11"),
 ])
@@ -80,6 +79,17 @@ def test_unported_configurations_raise(override, item):
     p = config.load_parameters(PRM, **{**BENCH, **override})
     with pytest.raises(NotImplementedError, match=item):
         Simulation(p, device="cpu", verbose=False)
+
+
+def test_sneddon_3d_is_accepted():
+    """The 3d Sneddon lattice is part of the slice: the configuration is
+    admitted and sets up the 3d mesh (10 roots per axis, refine 1)."""
+    p = config.load_parameters(PRM.replace("_2d", "_3d"),
+                               **{**BENCH, "n_global_pre_refine": 1})
+    assert p.dimension == 3
+    sim = Simulation(p, device="cpu", verbose=False)
+    assert sim.mesh.dim == 3
+    assert (sim.mesh.n_cells, sim.mesh.n_dofs) == (8000, 37044)
 
 
 @pytest.mark.parametrize("override,item", [

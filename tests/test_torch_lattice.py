@@ -1,9 +1,10 @@
 """The lattice GMG solve of the PyTorch port against the JAX package's
 split lattice solve (cracks_tpu/solvers/lattice.py), on Sneddon 2d
-lattices: layout and hierarchy, transfer operators, the Galerkin
-coarse chain, the per-level smoother data, one V-cycle, and one whole
-Newton-system solve.  f32 results are compared at tolerances stated
-per test (the two frameworks sum f32 terms in different orders)."""
+(refine 3, 81x81 vertices) and 3d (refine 1, 21^3 vertices) lattices:
+layout and hierarchy, transfer operators, the Galerkin coarse chain,
+the per-level smoother data, one V-cycle, and one whole Newton-system
+solve.  f32 results are compared at tolerances stated per test (the two
+frameworks sum f32 terms in different orders)."""
 
 import os
 
@@ -15,9 +16,9 @@ import torch
 import cracks_tpu.solvers.lattice as jlat
 from cracks_tpu import meshio, problems
 from cracks_tpu.config import Parameters
-from cracks_tpu.driver import MESH_DIR, Simulation as JSimulation
+from cracks_tpu.driver import Simulation as JSimulation
 from cracks_tpu.mesh import Forest
-from cracks_tpu_torch import interop
+from cracks_tpu_torch import interop, mesh as tmesh, meshio as tmeshio
 from cracks_tpu_torch.driver import Simulation
 from cracks_tpu_torch.solvers import lattice
 
@@ -25,9 +26,13 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 
-def _params(refine):
+# dim -> (refinement of the Newton-system fixture, its GMG levels)
+CASES = {2: (3, 4), 3: (1, 3)}
+
+
+def _params(refine, dim=2):
     return Parameters(
-        test_case="sneddon", pressure_expr="1.0e-3", G_c=1.0,
+        dimension=dim, test_case="sneddon", pressure_expr="1.0e-3", G_c=1.0,
         poisson_ratio_nu=0.2, E_modulus=1.0, k_reg_expr="1e-8*h",
         eps_reg_expr="2.0*h", lower_bound_newton_residual=1e-7,
         max_no_newton_steps=50, max_no_line_search_steps=10,
@@ -41,11 +46,15 @@ def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def test_layout_and_hierarchy_match_jax():
-    f = Forest(meshio.rect_mesh([-10, -10], [10, 10], [10, 10]))
-    f.refine_global(3)
+@pytest.mark.parametrize("dim,refine,grid,n_levels", [
+    (2, 3, (81, 81), 4), (3, 3, (81, 81, 81), 5)], ids=["2d", "3d"])
+def test_layout_and_hierarchy_match_jax(dim, refine, grid, n_levels):
+    """3d at refine 3: the 2,125,764-DoF bench lattice, 5 GMG levels down
+    to 6^3 vertices."""
+    f = Forest(meshio.rect_mesh([-10] * dim, [10] * dim, [10] * dim))
+    f.refine_global(refine)
     mesh = f.extract()
-    p = _params(3)
+    p = _params(refine, dim)
 
     def dirichlet_fn(m):
         mu_, _, mp_, _ = problems.dirichlet_conditions(p, m, 0.0,
@@ -54,30 +63,34 @@ def test_layout_and_hierarchy_match_jax():
 
     lay_j = jlat.detect_tensor_grid(mesh)
     lay = lattice.detect_tensor_grid(mesh)
-    assert lay.grid == lay_j.grid == (81, 81)
+    assert lay.grid == lay_j.grid == grid
     for name in ("vert_idx", "vert_pos", "cell_perm"):
         np.testing.assert_array_equal(getattr(lay, name),
                                       getattr(lay_j, name))
     hier_j = jlat.build_lattice_hierarchy(mesh, lay_j, dirichlet_fn)
     hier = lattice.build_lattice_hierarchy(mesh, lay, dirichlet_fn,
                                            device=CPU)
-    assert hier.n_levels == hier_j.n_levels == 4
+    assert hier.n_levels == hier_j.n_levels == n_levels
     np.testing.assert_array_equal(_np(hier.vert_pos), _np(hier_j.vert_pos))
     for a, b in zip(hier.dir_u + hier.dir_p, hier_j.dir_u + hier_j.dir_p):
         np.testing.assert_array_equal(_np(a), _np(b))
     np.testing.assert_array_equal(_np(hier.P_embed), _np(hier_j.P_embed))
+    if dim == 3:
+        assert tuple(hier.dir_u[0].shape) == (3, 6, 6, 6)
+        return
     # a seam-glued slit mesh is left to ROADMAP A9
-    fs = Forest(meshio.read_ucd(os.path.join(MESH_DIR, "unit_slit.inp"),
-                                dim=2))
+    fs = tmesh.Forest(tmeshio.read_ucd(
+        os.path.join(tmeshio.MESH_DIR, "unit_slit.inp"), dim=2))
     fs.refine_global(2)
     assert lattice.detect_tensor_grid(fs.extract()) is None
 
 
 @pytest.mark.parametrize("grid_c,grid_f", [((9, 9), (17, 17)),
-                                           ((11, 6), (21, 11))])
+                                           ((11, 6), (21, 11)),
+                                           ((5, 6, 4), (9, 11, 7))])
 def test_prolong_restrict_transpose_and_match_jax(grid_c, grid_f):
     rng = np.random.default_rng(1)
-    for k in (1, 2):
+    for k in (1, len(grid_f)):
         Xc = rng.normal(size=(k,) + grid_c)
         Yf = rng.normal(size=(k,) + grid_f)
         P = lattice.prolong(torch.as_tensor(Xc), grid_f, k)
@@ -93,15 +106,17 @@ def test_prolong_restrict_transpose_and_match_jax(grid_c, grid_f):
             rtol=1e-14, atol=1e-14)
 
 
-@pytest.fixture(scope="module")
-def newton_system():
-    """A refine-3 Sneddon state after one JAX load step, the JAX
-    system, the same system in the port, and the operators both build
-    from it."""
-    sim_j = JSimulation(_params(3), verbose=False)
+@pytest.fixture(scope="module", params=[2, 3], ids=["2d", "3d"])
+def newton_system(request):
+    """A Sneddon state after one JAX load step (CASES), the JAX system,
+    the same system in the port, and the operators both build from
+    it."""
+    dim = request.param
+    refine = CASES[dim][0]
+    sim_j = JSimulation(_params(refine, dim), verbose=False)
     state = sim_j.run()
     sys_j = sim_j.sys
-    sim = Simulation(_params(3), device=CPU, verbose=False)
+    sim = Simulation(_params(refine, dim), device=CPU, verbose=False)
     sim.setup_system()
     sim.determine_mesh_dependent_parameters()
     sim._set_context()
@@ -112,9 +127,9 @@ def newton_system():
     st_t = interop.solution_state(*st_j, active, device=CPU)
     hier_j = sys_j.lattice_hierarchy
     jacL64_j = jlat._prepare64(*st_j, sys_j.lattice_ca64, sys_j.scalars,
-                               grid=hier_j.grid, dim=2, with_split=False,
+                               grid=hier_j.grid, dim=dim, with_split=False,
                                monolithic=False)
-    return dict(sys_j=sys_j, sys_t=sys_t, st_j=st_j, st_t=st_t,
+    return dict(dim=dim, sys_j=sys_j, sys_t=sys_t, st_j=st_j, st_t=st_t,
                 active=active, jacL64_j=jacL64_j, hier_j=hier_j)
 
 
@@ -122,8 +137,9 @@ def test_prepare64_and_coarsen_chain_match_jax(newton_system):
     ns = newton_system
     hier = ns["sys_t"].lattice_hierarchy
     jac64 = lattice._prepare64(*ns["st_t"][:4], ns["sys_t"].lattice_ca64,
-                               ns["sys_t"].scalars, grid=hier.grid, dim=2,
-                               with_split=False, monolithic=False)
+                               ns["sys_t"].scalars, grid=hier.grid,
+                               dim=ns["dim"], with_split=False,
+                               monolithic=False)
     ref64 = np.asarray(ns["jacL64_j"])
     np.testing.assert_allclose(_np(jac64), ref64, rtol=1e-12,
                                atol=1e-12 * np.abs(ref64).max())
@@ -131,7 +147,7 @@ def test_prepare64_and_coarsen_chain_match_jax(newton_system):
                                     n_levels=ns["hier_j"].n_levels)
     jacs = lattice._prepare32_from64(torch.tensor(ref64), hier.P_embed,
                                      n_levels=hier.n_levels)
-    assert len(jacs) == len(jacs_j) == 4
+    assert len(jacs) == len(jacs_j) == CASES[ns["dim"]][1]
     for a, b in zip(jacs, jacs_j):
         b = np.asarray(b)
         assert a.dtype == torch.float32 and tuple(a.shape) == b.shape
@@ -144,7 +160,7 @@ def _levels_both(ns, which, sharp):
     jacs_j = jlat._prepare32_from64(ns["jacL64_j"], hier_j.P_embed,
                                     n_levels=hier_j.n_levels)
     jacs_t = [torch.tensor(np.asarray(j)) for j in jacs_j]
-    k, lo, hi = lattice._blk(which, 2)
+    k, lo, hi = lattice._blk(which, ns["dim"])
     grid = hier_j.grid
     act_j = jnp.zeros(int(np.prod(grid)), bool).at[hier_j.vert_pos].set(
         jnp.asarray(ns["active"])).reshape((1,) + grid)
@@ -181,16 +197,16 @@ def test_vcycle_matches_jax(newton_system, which):
     grid = hier_j.grid
     levels_j, coarse_j, _ = jlat._prepare_levels(
         jacs_j, hier_j.dir_u, hier_j.dir_p, hier_j.vert_pos,
-        jnp.asarray(ns["active"]), grid=grid, which=which, dim=2,
+        jnp.asarray(ns["active"]), grid=grid, which=which, dim=ns["dim"],
         sharp=False)
-    k, lo, hi = lattice._blk(which, 2)
+    k, lo, hi = lattice._blk(which, ns["dim"])
     M_j = jlat.make_vcycle(list(levels_j), lo, hi, k, degree=2,
                            coarse_factor=coarse_j)
     hier = ns["sys_t"].lattice_hierarchy
     jacs_t = tuple(torch.tensor(np.asarray(j)) for j in jacs_j)
     levels_t, coarse_t = lattice._prepare_levels(
         jacs_t, hier.dir_u, hier.dir_p, hier.vert_pos, ns["st_t"][4],
-        grid=grid, which=which, dim=2, sharp=False)
+        grid=grid, which=which, dim=ns["dim"], sharp=False)
     M_t = lattice.make_vcycle(levels_t, lo, hi, k, coarse_t)
     b = np.random.default_rng(5).normal(size=(k,) + grid).astype(np.float32)
     ref = np.asarray(M_j(jnp.asarray(b)))
@@ -204,7 +220,7 @@ def test_solve_lattice_matches_jax_split_solve(newton_system):
     sys_j, sys_t = ns["sys_j"], ns["sys_t"]
     n_v = sys_t.mesh.n_vertices
     rng = np.random.default_rng(0)
-    rhs_u = rng.normal(size=n_v * 2)
+    rhs_u = rng.normal(size=n_v * ns["dim"])
     rhs_p = rng.normal(size=n_v)
     sys_j._split_jac_cache = None
     sys_j._split_levels_cache = None

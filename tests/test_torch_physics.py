@@ -1,7 +1,8 @@
 """Element kernel, cell geometry and QoI reductions of the PyTorch port
-against the JAX package, f64, on a refine-2 Sneddon lattice (41x41
-vertices).  Inputs come from a seeded numpy generator and reach both
-packages through cracks_tpu_torch.interop.
+against the JAX package, f64, in 2d (a refine-2 Sneddon lattice, 41x41
+vertices) and 3d (a 6x6x6-cell lattice over the Sneddon box: 8
+quadrature points, 32 local dofs).  Inputs come from a seeded numpy
+generator and reach both packages through cracks_tpu_torch.interop.
 
 Tolerance: rtol 1e-12 and atol 1e-12 * max|reference| — the two
 packages sum the same f64 terms in different orders."""
@@ -30,10 +31,16 @@ def _close(a, ref, rtol=1e-12):
                                atol=rtol * max(np.abs(ref).max(), 1e-300))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    f = Forest(meshio.rect_mesh([-10, -10], [10, 10], [10, 10]))
-    f.refine_global(2)
+# dim -> (root subdivisions per axis, global refinements)
+MESHES = {2: (10, 2), 3: (3, 1)}
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["2d", "3d"])
+def setup(request):
+    dim = request.param
+    reps, refine = MESHES[dim]
+    f = Forest(meshio.rect_mesh([-10] * dim, [10] * dim, [reps] * dim))
+    f.refine_global(refine)
     mesh = f.extract()
     p = Parameters(test_case="sneddon", pressure_expr="1.0e-3", G_c=1.0,
                    poisson_ratio_nu=0.2, E_modulus=1.0)
@@ -43,13 +50,13 @@ def setup():
     ca = jphys.cell_arrays_from_core(core, dtype=jnp.float64, chunk=False)
     rng = np.random.default_rng(7)
     n_v = mesh.n_vertices
-    state = dict(u=rng.normal(size=n_v * 2) * 1e-2,
+    state = dict(u=rng.normal(size=n_v * dim) * 1e-2,
                  phi=rng.uniform(-0.2, 1.0, n_v),
                  phi_old=rng.uniform(-0.2, 1.0, n_v),
                  phi_oold=rng.uniform(-0.2, 1.0, n_v))
     sc = jphys.make_scalars(0.5, 1e-2, 0.7, 1.0, 3.0, 1.5, 0.0, 0.0)
-    return dict(mesh=mesh, lam=lam, mu=mu, lay=lay, core=core, ca=ca,
-                state=state, sc=sc)
+    return dict(dim=dim, mesh=mesh, lam=lam, mu=mu, lay=lay, core=core,
+                ca=ca, state=state, sc=sc)
 
 
 def _port_inputs(s):
@@ -81,10 +88,10 @@ def test_assemble_residual_matches_jax(setup, monolithic):
     st = {k: jnp.asarray(v) for k, v in s["state"].items()}
     ru_j, rp_j = jphys.assemble_residual(
         st["u"], st["phi"], st["phi_old"], st["phi_oold"], s["ca"], s["sc"],
-        dim=2, with_split=False, monolithic=monolithic)
+        dim=s["dim"], with_split=False, monolithic=monolithic)
     t, ca, sc = _port_inputs(s)
     ru, rp = physics.assemble_residual(
-        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=2,
+        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=s["dim"],
         with_split=False, monolithic=monolithic)
     _close(ru, ru_j)
     _close(rp, rp_j)
@@ -96,12 +103,14 @@ def test_element_matrices_match_jax(setup, monolithic):
     st = {k: jnp.asarray(v) for k, v in s["state"].items()}
     jac_j = jphys.element_matrices(
         st["u"], st["phi"], st["phi_old"], st["phi_oold"], s["ca"], s["sc"],
-        dim=2, with_split=False, monolithic=monolithic, cell_last=True)
+        dim=s["dim"], with_split=False, monolithic=monolithic,
+        cell_last=True)
     t, ca, sc = _port_inputs(s)
     jac = physics.element_matrices(
-        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=2,
+        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=s["dim"],
         with_split=False, monolithic=monolithic)
-    assert tuple(jac.shape) == (12, 12, s["mesh"].n_cells)
+    ndl = 2 ** s["dim"] * (s["dim"] + 1)
+    assert tuple(jac.shape) == (ndl, ndl, s["mesh"].n_cells)
     _close(jac, jac_j)
 
 
@@ -109,20 +118,21 @@ def test_spectral_split_raises(setup):
     t, ca, sc = _port_inputs(setup)
     with pytest.raises(NotImplementedError, match="A1"):
         physics.assemble_residual(t["u"], t["phi"], t["phi_old"],
-                                  t["phi_oold"], ca, sc, dim=2,
+                                  t["phi_oold"], ca, sc, dim=setup["dim"],
                                   with_split=True, monolithic=False)
 
 
 def test_energy_tcv_and_linf_match_jax(setup):
     s = setup
+    dim = s["dim"]
     st = {k: jnp.asarray(v) for k, v in s["state"].items()}
     lam_e, mu_e = jnp.asarray(s["lam"]), jnp.asarray(s["mu"])
     ref = jqoi.energy_tcv_device(st["u"], st["phi"], s["ca"], lam_e, mu_e,
-                                 1e-2, 0.7, 1.0, dim=2)
+                                 1e-2, 0.7, 1.0, dim=dim)
     t, ca, _ = _port_inputs(s)
     got = qoi.energy_tcv_device(
         t["u"], t["phi"], ca, torch.as_tensor(s["lam"]),
-        torch.as_tensor(s["mu"]), 1e-2, 0.7, 1.0, dim=2)
+        torch.as_tensor(s["mu"]), 1e-2, 0.7, 1.0, dim=dim)
     for a, b in zip(got, ref):
         _close(a, b)
     rng = np.random.default_rng(3)
@@ -132,7 +142,7 @@ def test_energy_tcv_and_linf_match_jax(setup):
                                    st["phi"], st["phi_old"])
     assert float(linf) == float(linf_j)
     # the host references are copies; pin them against the originals
-    assert qoi.tcv_exact(2, 1e-3, 0.2) == jqoi.tcv_exact(2, 1e-3, 0.2)
+    assert qoi.tcv_exact(dim, 1e-3, 0.2) == jqoi.tcv_exact(dim, 1e-3, 0.2)
     phi = s["state"]["phi"]
     assert (qoi.sneddon_phi_l2_error(s["mesh"], phi, 0.7)
             == jqoi.sneddon_phi_l2_error(s["mesh"], phi, 0.7))
