@@ -17,25 +17,42 @@ without printing the final line:
    assembled once as a torch.sparse CSR matrix, times X) are timed with
    CUDA events, median of 25 runs, L2 flushed before each; the bound is
    the bytes of J + X + Y over 3.35 TB/s or the flops over the card's
-   peak rate, whichever is larger;
+   peak rate, whichever is larger.  For the two f32 blocks of the CG
+   pass (u and phi), the row-slab sharded product on D = 4 shards
+   (ops.stencil.stencil_matvec_sharded: the halo exchange and one launch
+   per shard) on the same inputs must equal the unsharded kernel bit for
+   bit (max |difference| 0) and the plain version within TOL; it is
+   timed the same way (the D launches plus the exchange), with its
+   plain version (the per-shard plain products) and a bound that adds
+   the halo bytes (the per-shard J halo rows and two X rows per shard)
+   to J + X + Y;
 4. main paths, small: the port's Simulation on the card and on the CPU
-   (plain versions) at 2d refine 3 and 3d refine 1; the energies must
-   agree to rel 1e-7 with equal Newton iterations per step;
+   (plain versions) at 2d refine 3 and 3d refine 1, replicated and with
+   dof_sharding = lattice on 4 shards; the energies must agree to rel
+   1e-7 with equal Newton iterations per step (the four CPU runs go to
+   spawned worker processes at once, while the card runs its side);
 5. main path 2d, full size: the Sneddon 2d bench case (refine 6,
    1,232,643 DoFs, two load steps, lattice GMG mixed-precision CG);
 6. main path 3d, full size: Sneddon 3d at refine 3 (2,125,764 DoFs, two
-   load steps, the same solver settings).
-   In 5 and 6 every step must converge without a time-step cut, with
-   finite statistics and positive bulk energy, and the path's kernel
-   must be launched: its count is set to 0 just before the run and read
-   just after.
+   load steps, the same solver settings);
+7. the sharded main paths: 5 and 6 again with n_devices = 4,
+   dof_sharding = lattice (the lattice-layout Newton, 4 row slabs on the
+   one card); bulk and crack energy must agree with the replicated run
+   of 5 or 6 to rel 1e-7 with equal Newton iterations per step, and the
+   sharded wrapper's per-shard launches must be a positive multiple of
+   4.
+   In 5 to 7 every step must converge without a time-step cut, with
+   finite statistics and positive bulk energy, and the path's kernels
+   must be launched: their counts are set to 0 just before the run and
+   read just after.
 
-The line before the last is a JSON object with both kernels' numbers;
+The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -60,12 +77,14 @@ f32, f64 = torch.float32, torch.float64
 KERNELS = [
     dict(name="lattice_stencil", dim=2, cells=(640, 640),
          replaces="cracks_tpu/ops/pallas_stencil.py:39",
+         replaces_sharded="cracks_tpu/ops/pallas_stencil.py:171",
          shapes=[("f32 u block", f32, 0, 8, 0, 8, 2, 2),
                  ("f32 phi block", f32, 8, 12, 8, 12, 1, 1),
                  ("f64 u block", f64, 0, 8, 0, 8, 2, 2),
                  ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1)]),
     dict(name="lattice_stencil3d", dim=3, cells=(80, 80, 80),
          replaces="cracks_tpu/ops/pallas_stencil.py:232",
+         replaces_sharded="cracks_tpu/ops/pallas_stencil.py:368",
          shapes=[("f32 u block", f32, 0, 24, 0, 24, 3, 3),
                  ("f32 phi block", f32, 24, 32, 24, 32, 1, 1),
                  ("f64 u block", f64, 0, 24, 0, 24, 3, 3),
@@ -75,6 +94,9 @@ KERNELS = [
 # DoFs)
 SMALL = [(2, 3, 19_683), (3, 1, 37_044)]
 FULL = {2: (6, 1_232_643), 3: (3, 2_125_764)}
+# the sharded runs: D row slabs of the leading grid axis on the one card
+D_SHARDS = 4
+SHARDED = dict(n_devices=D_SHARDS, dof_sharding="lattice")
 
 
 def device_phase():
@@ -146,9 +168,65 @@ def _csr_block(jac, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
     return A.coalesce().to_sparse_csr()
 
 
+def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
+    """The row-slab sharded product (D_SHARDS shards) of one f32 square
+    block on the kernel phase's inputs: bit for bit against the
+    unsharded kernel's Y, within TOL of the plain version, and timed;
+    returns its record."""
+    from cracks_tpu_torch.ops.stencil import (
+        pad_jac_sharded, stencil_matvec_reference, stencil_matvec_sharded,
+        stencil_matvec_sharded_reference)
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    mesh = make_shard_mesh(["cuda"] * D_SHARDS)
+    JPs = pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+    ys = stencil_matvec_sharded(JPs, X, k, mesh)
+    torch.cuda.synchronize()
+    diff = float((ys - y).abs().max())
+    if diff != 0.0 or not torch.equal(ys, y):
+        raise AssertionError(f"{spec['name']} sharded {name}: differs from "
+                             f"the unsharded kernel, max |diff| {diff:.3e}")
+    y_ref = stencil_matvec_reference(jac, X, lo, hi, lo, hi, k, k)
+    rtol, atol_rel = TOL[jac.dtype]
+    scale = float(y_ref.abs().max())
+    err = (ys - y_ref).abs()
+    max_abs_err = float(err.max())
+    if not bool((err <= atol_rel * scale + rtol * y_ref.abs()).all()):
+        raise AssertionError(f"{spec['name']} sharded {name}: disagrees "
+                             f"with the plain version, max |err| "
+                             f"{max_abs_err:.3e}")
+    del err, y_ref, ys
+    ms = _time_ms(lambda: stencil_matvec_sharded(JPs, X, k, mesh), flush)
+    plain_ms = _time_ms(
+        lambda: stencil_matvec_sharded_reference(JPs, X, k, mesh), flush)
+    esz = jac.element_size()
+    cells, grid = jac.shape[2:], X.shape[1:]
+    kl = hi - lo
+    nbytes = (kl * kl * int(np.prod(cells)) + 2 * k * int(np.prod(grid))
+              # one J halo row and two X halo rows per shard
+              + D_SHARDS * (kl * kl * int(np.prod(cells[1:]))
+                            + 2 * k * int(np.prod(grid[1:])))) * esz
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * kl * kl * int(np.prod(cells)) / PEAK_FLOPS[jac.dtype] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{spec['name']} sharded {name} (D={D_SHARDS} on "
+          f"{mesh.device}, {JPs[0].shape[2]} J rows per shard): max|sharded"
+          f" - unsharded kernel| {diff:.1e}; max|err| vs plain "
+          f"{max_abs_err:.3e}; sharded {ms * 1e3:.1f} us, bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_by}, {nbytes / 1e6:.1f} MB), "
+          f"plain {plain_ms * 1e3:.1f} us")
+    del JPs
+    return dict(name=name, k_in=k, k_out=k, dtype="float32",
+                shards=D_SHARDS, max_abs_diff_unsharded=diff,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                mb=nbytes / 1e6)
+
+
 def kernel_phase(spec):
     """Kernel vs plain version vs CSR yardstick at one kernel's main-path
-    shapes; returns one record per shape."""
+    shapes, and the sharded product of the f32 square blocks; returns
+    (one record per shape, one sharded record per f32 square block)."""
     from cracks_tpu_torch.ops.stencil import (stencil_matvec,
                                               stencil_matvec_reference)
     dev = torch.device("cuda")
@@ -163,7 +241,7 @@ def kernel_phase(spec):
     x64 = torch.as_tensor(rng.standard_normal((dim,) + grid), dtype=f64,
                           device=dev)
     flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)  # 128 MB
-    records = []
+    records, sharded = [], []
     for name, dt, lo_r, hi_r, lo_c, hi_c, k_in, k_out in spec["shapes"]:
         jac = jac64.to(dt)
         X = x64[:k_in].to(dt).contiguous()
@@ -210,21 +288,30 @@ def kernel_phase(spec):
                             plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             mb=nbytes / 1e6, gbps=nbytes / ms / 1e6))
+        if dt == f32 and (lo_r, k_in) == (lo_c, k_out):
+            sharded.append(sharded_record(spec, name, jac, X, lo_r, hi_r,
+                                          k_in, y, flush, library_ms))
         del jac, X, y, xf
         torch.cuda.empty_cache()
     del jac64, x64, flush
     torch.cuda.empty_cache()
-    return records
+    return records, sharded
 
 
-def _params(dim, refine):
+def _params(dim, refine, **overrides):
     from cracks_tpu_torch import config
     return config.load_parameters(
         os.path.join(ROOT, "params", f"parameters_sneddon_{dim}d.prm"),
         n_global_pre_refine=refine, n_local_pre_refine=0,
         n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
         linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
-        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True,
+        **overrides)
+
+
+def _label(overrides):
+    return (f" sharded (D={overrides['n_devices']}, dof_sharding=lattice)"
+            if overrides else "")
 
 
 def _energies(sim):
@@ -232,52 +319,89 @@ def _energies(sim):
     return np.array([d["Bulk Energy"], d["Crack Energy"]], dtype=float)
 
 
-def small_phase(dim, refine, n_dofs):
-    """A small case on the card vs the plain versions on the CPU."""
+def _run_small(dim, refine, overrides, device, n_threads=None):
+    """One small case: (DoFs, energies, (Newton, linear) its per step,
+    seconds).  On the CPU it runs in a worker process of small_phases,
+    with n_threads threads."""
     from cracks_tpu_torch.driver import Simulation
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        sim = Simulation(_params(dim, refine), device=dev, verbose=False)
-        sim.run()
-        runs[dev] = sim
-        print(f"{dim}d refine {refine} on {dev} ({sim.mesh.n_dofs} DoFs, "
-              f"{time.perf_counter() - t0:.1f} s): Newton/linear its per "
-              f"step {[(e[1], e[2]) for e in sim.solver_effort]}, "
-              f"energies {_energies(sim).tolist()}")
-        if sim.mesh.n_dofs != n_dofs:
-            raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected "
-                                 f"{n_dofs}")
-    a, b = _energies(runs["cuda"]), _energies(runs["cpu"])
-    rel = float(np.max(np.abs(a - b) / np.abs(b)))
-    print(f"{dim}d refine {refine} cuda vs cpu: max relative energy "
-          f"difference {rel:.3e} (bound 1e-7)")
-    if not rel <= 1e-7:
-        raise AssertionError(f"card and CPU runs disagree at {dim}d refine "
-                             f"{refine}")
-    newton = [[e[1] for e in runs[d].solver_effort] for d in ("cuda", "cpu")]
-    if newton[0] != newton[1]:
-        raise AssertionError(f"Newton iterations per step differ between "
-                             f"card and CPU: {newton}")
+    if n_threads:
+        torch.set_num_threads(n_threads)
+    t0 = time.perf_counter()
+    sim = Simulation(_params(dim, refine, **overrides), device=device,
+                     verbose=False)
+    sim.run()
+    return (sim.mesh.n_dofs, _energies(sim),
+            [(e[1], e[2]) for e in sim.solver_effort],
+            time.perf_counter() - t0)
 
 
-def main_phase(dim):
-    """One full-size main path on the card; returns its kernel's launch
-    count."""
+def small_phases():
+    """Each small case, replicated and sharded, on the card vs the plain
+    versions on the CPU.  The CPU runs (the 3d ones take minutes of
+    plain einsums) go to spawned worker processes at once, splitting the
+    host's cores, while the card runs its side; nothing here is
+    timed."""
+    jobs = [(dim, refine, n_dofs, ov) for dim, refine, n_dofs in SMALL
+            for ov in ({}, SHARDED)]
+    # the two 3d runs take minutes, the two 2d runs seconds: the 3d ones
+    # get the cores the 2d ones leave
+    threads = {2: 1, 3: max(1, ((os.cpu_count() or 4) - 2) // 2)}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=ctx) as pool:
+        cpu = [pool.submit(_run_small, dim, refine, ov, "cpu", threads[dim])
+               for dim, refine, _, ov in jobs]
+        for (dim, refine, n_dofs, ov), fut in zip(jobs, cpu):
+            runs = {"cuda": _run_small(dim, refine, ov, "cuda")}
+            runs["cpu"] = fut.result()
+            name = f"{dim}d refine {refine}{_label(ov)}"
+            for dev, (dofs, energies, its, secs) in runs.items():
+                print(f"{name} on {dev} ({dofs} DoFs, {secs:.1f} s"
+                      f"{f', {threads[dim]} threads' if dev == 'cpu' else ''}"
+                      "):"
+                      f" Newton/linear its per step {its}, energies "
+                      f"{energies.tolist()}")
+                if dofs != n_dofs:
+                    raise AssertionError(f"{dofs} DoFs, expected {n_dofs}")
+            a, b = runs["cuda"][1], runs["cpu"][1]
+            rel = float(np.max(np.abs(a - b) / np.abs(b)))
+            print(f"{name} cuda vs cpu: max relative energy difference "
+                  f"{rel:.3e} (bound 1e-7)")
+            if not rel <= 1e-7:
+                raise AssertionError(f"card and CPU runs disagree: {name}")
+            newton = [[n for n, _ in runs[d][2]] for d in ("cuda", "cpu")]
+            if newton[0] != newton[1]:
+                raise AssertionError(f"Newton iterations per step differ "
+                                     f"between card and CPU: {newton}")
+
+
+def main_phase(dim, refine=None, n_dofs=None, replicated=None,
+               **overrides):
+    """One full-size main path on the card.  Returns the energies,
+    Newton iterations per step and the launch counts of the path's
+    kernel and of the sharded wrapper.  With `replicated` (that return
+    of the same case without sharding) the energies must agree to rel
+    1e-7 with equal Newton iterations, and the sharded wrapper must have
+    launched a positive multiple of D_SHARDS kernels."""
     from cracks_tpu_torch.driver import Simulation
     from cracks_tpu_torch.ops import stencil
-    refine, n_dofs = FULL[dim]
+    if refine is None:
+        refine, n_dofs = FULL[dim]
+    label = f"{dim}d{_label(overrides)} main path"
     kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
     t0 = time.perf_counter()
-    sim = Simulation(_params(dim, refine), device="cuda", verbose=True)
+    sim = Simulation(_params(dim, refine, **overrides), device="cuda",
+                     verbose=True)
     host_s = time.perf_counter() - t0
     if sim.mesh.n_dofs != n_dofs:
         raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected {n_dofs}")
     torch.cuda.reset_peak_memory_stats()
     stencil.stencil_matvec2d.launches = 0
     stencil.stencil_matvec3d.launches = 0
+    stencil.stencil_matvec_sharded.launches = 0
     sim.run()
     launches = kernel.launches
+    sharded = stencil.stencil_matvec_sharded.launches
     torch.cuda.synchronize()
     steps = len(sim.solver_effort)
     if steps != 2 or sim.step_cuts:
@@ -291,40 +415,74 @@ def main_phase(dim):
     if not min(sim.statistics.data["Bulk Energy"]) > 0:
         raise AssertionError("bulk energy is not positive")
     if launches <= 0:
-        raise AssertionError(f"the {dim}d main path never launched its "
-                             "kernel")
-    print(f"{dim}d main path: host setup (forest, mesh) {host_s:.2f} s, "
+        raise AssertionError(f"the {label} never launched its kernel")
+    out = dict(energies=_energies(sim), launches=launches, sharded=sharded,
+               newton=[e[1] for e in sim.solver_effort])
+    print(f"{label}: host setup (forest, mesh) {host_s:.2f} s, "
           f"setup system {sim.timer.wall['Setup system']:.2f} s")
     for (step, newton_its, lin_its, n_active), (_, _, secs) in zip(
             sim.solver_effort, sim.step_times):
-        print(f"{dim}d step {step}: {secs:.2f} s, {newton_its} Newton its, "
-              f"{lin_its} linear its, active set {n_active}")
-    print(f"{dim}d main path: {sim.mesh.n_dofs} DoFs, kernel launches "
-          f"{launches}, peak device memory "
+        print(f"{label} step {step}: {secs:.2f} s, {newton_its} Newton its,"
+              f" {lin_its} linear its, active set {n_active}")
+    print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches}, "
+          f"sharded-wrapper launches {sharded}, peak device memory "
           f"{torch.cuda.max_memory_allocated()} B")
+    if replicated is not None:
+        mesh = sim.sys.shard_mesh
+        print(f"{label}: {mesh.n_shards} shards of the "
+              f"{sim.sys.lattice_hierarchy.grid[0]}-row leading axis "
+              f"(padded to {sim.sys.lat_gyp}) on {mesh.device} "
+              f"({torch.cuda.get_device_name(mesh.device)})")
+        rel = float(np.max(np.abs(out["energies"] - replicated["energies"])
+                           / np.abs(replicated["energies"])))
+        print(f"{label} vs replicated: max relative energy difference "
+              f"{rel:.3e} (bound 1e-7), Newton its {out['newton']} vs "
+              f"{replicated['newton']}")
+        if not rel <= 1e-7 or out["newton"] != replicated["newton"]:
+            raise AssertionError(f"the {label} disagrees with the "
+                                 "replicated run")
+        if sharded <= 0 or sharded % D_SHARDS:
+            raise AssertionError(f"the {label} launched {sharded} per-shard"
+                                 f" kernels, not a positive multiple of "
+                                 f"{D_SHARDS}")
     del sim
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 def main():
+    t_start = time.perf_counter()
     device_phase()
     build_phase()
     records = {k["name"]: kernel_phase(k) for k in KERNELS}
-    for dim, refine, n_dofs in SMALL:
-        small_phase(dim, refine, n_dofs)
-    launches = {k["name"]: main_phase(k["dim"]) for k in KERNELS}
+    small_phases()
+    full = {k["dim"]: main_phase(k["dim"]) for k in KERNELS}
+    full_sharded = {dim: main_phase(dim, replicated=full[dim], **SHARDED)
+                    for dim in full}
     entries = []
     for k in KERNELS:
-        head = records[k["name"]][0]   # the f32 u block: the main product
+        head = records[k["name"]][0][0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
             "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
-            "replaces": k["replaces"], "launches": launches[k["name"]],
+            "replaces": k["replaces"], "launches": full[k["dim"]]["launches"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": records[k["name"]]})
+            "shapes": records[k["name"]][0]})
+        head = records[k["name"]][1][0]   # the sharded f32 u block
+        entries.append({
+            "name": k["name"] + "_sharded", "route": "cuda",
+            "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
+            "wrapper": "cracks_tpu_torch/ops/stencil.py:"
+                       "stencil_matvec_sharded",
+            "replaces": k["replaces_sharded"],
+            "launches": full_sharded[k["dim"]]["sharded"],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": records[k["name"]][1]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

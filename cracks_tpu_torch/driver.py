@@ -22,7 +22,8 @@ from . import profiling, statistics
 from .ops import physics
 from .ops.constraints import (Constraints, hanging_interpolate_p,
                               hanging_interpolate_u, make_constraints)
-from .solvers import lattice, newton
+from .parallel.sharding import make_shard_mesh
+from .solvers import lattice, lattice_newton, newton
 from .solvers.newton import NoConvergence
 
 
@@ -66,8 +67,12 @@ def check_supported(p) -> None:
         (p.write_vtu, "VTU output: ROADMAP A5"),
         (p.checkpoint_every > 0 or bool(p.resume_from),
          "checkpoint/resume: ROADMAP A5"),
-        (p.n_devices != 1 or p.dof_sharding != "replicated",
-         "multi-device runs and DoF sharding: ROADMAP A11"),
+        (p.n_devices > 1 and p.dof_sharding != "lattice",
+         f"n_devices={p.n_devices} with replicated DoF vectors (the GSPMD "
+         "cell-axis mode): ROADMAP A11b; dof_sharding=lattice runs D "
+         "shards on one device"),
+        (p.mesh_dcn > 1, "a multi-host device mesh (mesh_dcn > 1): "
+         "ROADMAP A11b"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -76,8 +81,9 @@ def check_supported(p) -> None:
 
 class System:
     """Everything bound to one mesh epoch on one device: geometry
-    tables, constraints, material fields, the lattice bundle, and the
-    physics scalars (refreshed per solve context)."""
+    tables, constraints, material fields, the lattice bundle, the shard
+    mesh of the lattice-layout Newton, and the physics scalars
+    (refreshed per solve context)."""
 
     def __init__(self, params, mesh, *, device):
         self.params = params
@@ -109,9 +115,15 @@ class System:
         self.lattice_hierarchy = None
         self._lattice_lay = None
         self._lattice_ca64 = None
-        # operator caches of lattice.solve_lattice
+        # operator caches of lattice.solve_lattice_lat
         self._split_jac_cache = None
         self._split_levels_cache = None
+        # dof_sharding = lattice (set by Simulation.setup_system): the
+        # lattice-layout Newton, and with n_devices = D > 1 its D row
+        # slabs, all on this System's one device
+        self.use_lattice_state = False
+        self.shard_mesh = (make_shard_mesh([self.device] * params.n_devices)
+                           if params.n_devices > 1 else None)
         # context (set by the driver before each nonlinear solve)
         self.scalars: physics.Scalars = None
         self.with_split = False
@@ -126,6 +138,13 @@ class System:
             self._lattice_ca64 = physics.cell_arrays_from_core(
                 self._core, torch.float64, perm=self._lattice_lay.cell_perm)
         return self._lattice_ca64
+
+    @property
+    def lat_gyp(self) -> int:
+        """Padded leading-grid-axis extent of lattice-layout vectors:
+        ceil(G0/D)*D with a shard mesh, G0 without."""
+        g0 = self.lattice_hierarchy.grid[0]
+        return g0 if self.shard_mesh is None else self.shard_mesh.padded(g0)
 
     def constraints(self, time: float) -> Constraints:
         # masks are time-independent and the Newton-update constraints
@@ -221,9 +240,19 @@ class Simulation:
             raise NotImplementedError(
                 "the mesh is not a coarsenable uniform tensor lattice: "
                 "slit (seam) lattices are ROADMAP A9, hanging-node and "
-                "unstructured meshes need the Galerkin GMG (A10)")
+                "unstructured meshes need the Galerkin GMG (A10), and "
+                "their sharded mode the owned+ghost halo pool (A11b)")
         self.sys.lattice_hierarchy = hier
         self.sys._lattice_lay = lay
+        # the lattice-layout Newton (cracks_tpu/driver.py:361-364); the
+        # JAX package runs it with no device mesh at n_devices = 1 too
+        self.sys.use_lattice_state = p.dof_sharding == "lattice"
+        if self.sys.use_lattice_state:
+            mesh = self.sys.shard_mesh
+            self.log(f"DoF sharding = lattice: D = "
+                     f"{1 if mesh is None else mesh.n_shards} row slabs "
+                     f"of the {lay.grid[0]}-row leading grid axis, padded "
+                     f"to {self.sys.lat_gyp} rows, on {self.device}")
         self.log(f"\nDoFs: {self.mesh.n_vertices * self.mesh.dim} solid + "
                  f"{self.mesh.n_vertices} phase = {self.mesh.n_dofs}")
 
@@ -295,6 +324,9 @@ class Simulation:
         self.step_times = []
         lam_e = torch.as_tensor(self.sys.lam_cells, **f64)
         mu_e = torch.as_tensor(self.sys.mu_cells, **f64)
+        solve = (lattice_newton.newton_active_set_lattice
+                 if self.sys.use_lattice_state
+                 else newton.newton_active_set)
 
         while True:
             step_t0 = walltime.time()
@@ -318,8 +350,7 @@ class Simulation:
                 self.use_old_timestep_pf = False
                 try:
                     self._set_context()
-                    newton.newton_active_set(self.sys, state, self.time,
-                                             verbose=self.verbose)
+                    solve(self.sys, state, self.time, verbose=self.verbose)
                     break
                 except NoConvergence:
                     self.step_cuts += 1

@@ -58,6 +58,13 @@ def lattice_hierarchy(src, *, device) -> LatticeHierarchy:
         P_embed=_tensor(src.P_embed, device, torch.float32))
 
 
+def lattice_arrays(*arrays, device):
+    """Lattice-layout values as tensors of their own dtype (f32, f64,
+    bool): state vectors (k, gyp, ...) with or without the sharded
+    layout's pad rows, masks, element-matrix blocks."""
+    return tuple(_tensor(a, device) for a in arrays)
+
+
 def solution_state(u, phi, phi_old, phi_oold, active, *, device):
     """The Newton state (u, phi, phi_old, phi_oold, active) as f64/bool
     tensors."""

@@ -278,15 +278,25 @@ def element_matrices(u, phi, phi_old, phi_oold, ca: CellArrays,
     Built from ndl one-hot jvps of the batched cell-last residual on
     pre-gathered cell values (JAX: element_matrices(cell_last=True) via
     element_matrices_from_cellvals)."""
-    nvc = ca.gather_p.shape[0]
+    return element_matrices_from_cellvals(
+        *_cell_values(u, phi, phi_old, phi_oold, ca, dim), ca, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic)
+
+
+def element_matrices_from_cellvals(u_e, phi_e, pf_old_e, pf_oold_e,
+                                   ca: CellArrays, sc: Scalars, *, dim: int,
+                                   with_split: bool, monolithic: bool):
+    """(ndl, ndl, n_c) element Jacobians from pre-gathered per-cell
+    values (u_e (nvc, dim, n_c), the phase fields (nvc, n_c)): shared by
+    the flat gather path above and the lattice window path
+    (solvers/lattice.element_matrices_lattice)."""
+    nvc = phi_e.shape[0]
     ndl = nvc * (dim + 1)
-    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
-                                             ca, dim)
     n_c = phi_e.shape[-1]
 
     def f(ue, pe):
         ru_e, rp_e = _element_residual_cl(
-            ue, pe, pfo_e, pfoo_e, ca, sc, dim=dim,
+            ue, pe, pf_old_e, pf_oold_e, ca, sc, dim=dim,
             with_split=with_split, monolithic=monolithic)
         return torch.cat([ru_e.reshape(nvc * dim, n_c), rp_e], dim=0)
 

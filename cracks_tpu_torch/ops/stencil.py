@@ -22,6 +22,10 @@ device of X: a CUDA tensor goes to the kernel in
 ``csrc/lattice_stencil3d.cu`` (replacing ``::_kernel3d``), or raises; a
 CPU tensor goes to `stencil_matvec_reference`, the slice formulation of
 ``cracks_tpu/solvers/lattice.py::matvec_block``.
+
+`pad_jac_sharded` / `stencil_matvec_sharded` run the same kernels once
+per shard of a row-slab sharded lattice (``parallel/sharding.py``),
+replacing the ``shard_map`` wrappers of the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -144,3 +148,117 @@ def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
                                         k_in, k_out)
     kernel = stencil_matvec3d if jac.dim() == 5 else stencil_matvec2d
     return kernel(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out)
+
+
+# ---------------------------------------------------------------------------
+# row-slab sharded products (parallel.sharding's layout)
+# ---------------------------------------------------------------------------
+#
+# Port of ``cracks_tpu/ops/pallas_stencil.py::pad_jac_sharded`` /
+# ``stencil_matvec_sharded`` (:140-204) and their 3d versions
+# ``pad_jac3d_sharded`` / ``stencil_matvec3d_sharded`` (:335-404), the
+# two ``shard_map`` regions of the lattice solve, in one
+# dimension-generic pair: the leading grid axis (y in 2d, z in 3d) is
+# cut into D slabs of rows_loc rows.  Shard i's halo'd grid holds
+# global vertex rows i*rows_loc - 1 .. (i+1)*rows_loc (local rows
+# 0 .. rows_loc+1) and global cell rows i*rows_loc - 1 .. (i+1)*rows_loc
+# - 1 (local rows 0 .. rows_loc); the stencil reaches one row, so the
+# kernel's local output rows 1 .. rows_loc see both of their cell rows
+# and every X neighbour and are complete.  Rows outside the lattice
+# (shard 0's lower halo, the pad rows past G0) are zero in J and X, and
+# a zero J entry adds nothing to a sum the unsharded kernel skips, so
+# on the card each output equals the unsharded kernel's bit for bit:
+# the kernel sums each output vertex in a fixed order.  The TPU's
+# (8, 128) tile padding (``:162``, ``:196``) is not carried over.
+
+def pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh):
+    """Per-shard halo'd layout of the J block rows [lo_r, hi_r), columns
+    [lo_c, hi_c), built once per Newton solve.  jac (R, C, GC0, *rest);
+    returns D contiguous blocks (hi_r-lo_r, hi_c-lo_c, rows_loc+1,
+    *rest): local cell row 0 is the previous shard's last cell row (zero
+    on shard 0), rows 1..rows_loc the shard's own, rows past GC0 zero.
+    The halo row travels i -> i+1 by `ppermute_rows`, as the JAX
+    wrapper's one ``ppermute`` at prepare time."""
+    from ..parallel.sharding import ppermute_rows
+    if jac.device != mesh.device:
+        raise ValueError(f"jac on {jac.device}, shards on {mesh.device}")
+    blk = jac[lo_r:hi_r, lo_c:hi_c]
+    gc0 = blk.shape[2]
+    rl = mesh.rows_loc(gc0 + 1)
+    shards = []
+    for i in range(mesh.n_shards):
+        jl = blk.new_empty(blk.shape[:2] + (rl + 1,) + blk.shape[3:])
+        n = max(0, min(rl, gc0 - i * rl))
+        jl[:, :, 1:1 + n] = blk[:, :, i * rl:i * rl + n]
+        jl[:, :, 1 + n:].zero_()
+        shards.append(jl)
+    ppermute_rows([jl[:, :, rl:] for jl in shards], 1,
+                  [jl[:, :, :1] for jl in shards])
+    return shards
+
+
+def _sharded_product(local, JPs, X, mesh):
+    """The per-shard part of the sharded product: the halo'd X_loc
+    (k, rows_loc+2, *rest) of every shard, one vertex row exchanged each
+    way (`ppermute_rows`), `local(JP_i, X_loc_i)` per shard, its rows
+    1..rows_loc kept, the shards concatenated and cut back to G0."""
+    from ..parallel.sharding import ppermute_rows
+    D = mesh.n_shards
+    k, g0 = X.shape[:2]
+    rl = mesh.rows_loc(g0)
+    if len(JPs) != D or any(
+            tuple(jp.shape[2:]) != (rl + 1,) + tuple(g - 1 for g in
+                                                     X.shape[2:])
+            for jp in JPs):
+        raise ValueError(f"per-shard J {[tuple(j.shape) for j in JPs]} "
+                         f"does not fit X {tuple(X.shape)} on {D} shards")
+    if any(jp.device != X.device for jp in JPs):
+        raise ValueError(f"per-shard J on {JPs[0].device}, X on {X.device}")
+    xs = []
+    for i in range(D):
+        xl = X.new_empty((k, rl + 2) + X.shape[2:])
+        n = max(0, min(rl, g0 - i * rl))
+        xl[:, 1:1 + n] = X[:, i * rl:i * rl + n]
+        xl[:, 1 + n:rl + 1].zero_()
+        xs.append(xl)
+    # up: last owned row to the next shard's lower halo; down: first
+    # owned row to the previous shard's upper halo
+    ppermute_rows([xl[:, rl:rl + 1] for xl in xs], 1,
+                  [xl[:, :1] for xl in xs])
+    ppermute_rows([xl[:, 1:2] for xl in xs], -1,
+                  [xl[:, rl + 1:] for xl in xs])
+    ys = [local(jp, xl)[:, 1:rl + 1] for jp, xl in zip(JPs, xs)]
+    return torch.cat(ys, dim=1)[:, :g0]
+
+
+def stencil_matvec_sharded_reference(JPs, X, k, mesh):
+    """Plain version of `stencil_matvec_sharded`: the same per-shard
+    layout and exchange, `stencil_matvec_reference` per shard."""
+    kl = JPs[0].shape[0]
+    return _sharded_product(
+        lambda jp, xl: stencil_matvec_reference(jp, xl, 0, kl, 0, kl, k,
+                                                k),
+        JPs, X, mesh)
+
+
+def stencil_matvec_sharded(JPs, X, k, mesh):
+    """Y = J_block X on a row-slab sharded lattice: X (k, G0, *rest), the
+    global view; JPs from `pad_jac_sharded`.  CPU tensors use the plain
+    version; on CUDA tensors each shard launches the 2d or 3d kernel
+    (`stencil_matvec2d/3d`, which count their own launches too), and
+    each per-shard launch adds one to
+    `stencil_matvec_sharded.launches`."""
+    if X.device.type == "cpu":
+        return stencil_matvec_sharded_reference(JPs, X, k, mesh)
+    kernel = stencil_matvec3d if X.dim() == 4 else stencil_matvec2d
+    kl = JPs[0].shape[0]
+
+    def local(jp, xl):
+        Y = kernel(jp, xl, 0, kl, 0, kl, k, k)
+        stencil_matvec_sharded.launches += 1
+        return Y
+
+    return _sharded_product(local, JPs, X, mesh)
+
+
+stencil_matvec_sharded.launches = 0

@@ -18,10 +18,16 @@ Lattice vectors are (comp, *grid) with comp leading; element data is
 `ops.stencil.stencil_matvec` (the 2d or 3d CUDA kernel on the card).
 
 The solve is ONE algorithm, the JAX package's split variant
-(`_solve_split`): exact f64 element matrices built once per Newton
-solve; their f32 cast, Galerkin-coarsened, feeds a float32 CG
-preconditioned by a Chebyshev-smoothed V-cycle; f64 refinement passes
-correct the f32 iterate with the stored f64 operator.
+(`_solve_split`, and `_solve_split_lat` on lattice-layout state):
+exact f64 element matrices built once per Newton solve; their f32
+cast, Galerkin-coarsened, feeds a float32 CG preconditioned by a
+Chebyshev-smoothed V-cycle; f64 refinement passes correct the f32
+iterate with the stored f64 operator.  It runs on lattice-layout state
+(`solve_lattice_lat`, whose vectors may carry zero pad rows up to the
+sharded extent gyp, ``parallel/sharding.py``); `solve_lattice` is its
+flat-vector entry for the replicated Newton.  With a shard mesh the
+f32 fine-level operator of the CG loop and the V-cycle runs per shard
+(`ops.stencil.stencil_matvec_sharded`); everything else is global-view.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from ..ops import physics
-from ..ops.stencil import stencil_matvec
+from ..ops.stencil import (pad_jac_sharded, stencil_matvec,
+                           stencil_matvec_sharded)
+from ..parallel.sharding import pad_rows, unpad_rows
 from .galerkin import embedding_matrices
 from .multigrid import sharp_spectrum, smoothing_range
 
@@ -210,6 +218,13 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
 # lattice primitives
 # ---------------------------------------------------------------------------
 
+def gather_windows(X):
+    """(k, *G) vertex lattice -> per-corner cell windows
+    (nvc, k, *cellgrid)."""
+    G = X.shape[1:]
+    return torch.stack([X[_win(o, G)] for o in _offsets(len(G))])
+
+
 def scatter_windows(Ye, grid):
     """(nvc, k, *cellgrid) per-corner cell values -> vertex lattice
     (k, *grid) by shifted window adds."""
@@ -218,6 +233,46 @@ def scatter_windows(Ye, grid):
     for a, o in enumerate(_offsets(len(grid))):
         Y[_win(o, grid)] += Ye[a]
     return Y
+
+
+def _cell_windows(U, P, P_old, P_oold, dim):
+    """Per-cell values of lattice-layout state by window gathers:
+    (u_e (nvc, dim, n_c), phi_e, pf_old_e, pf_oold_e (nvc, n_c))."""
+    nvc = 2 ** dim
+    n_c = int(np.prod([g - 1 for g in U.shape[1:]]))
+    return (gather_windows(U).reshape(nvc, dim, n_c),
+            *(gather_windows(X).reshape(nvc, n_c)
+              for X in (P, P_old, P_oold)))
+
+
+def lattice_residual(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
+                     monolithic):
+    """Gather-free residual assembly in lattice layout (port of the JAX
+    ``lattice_residual``): U (dim, *grid), the phase fields (1, *grid),
+    caL the raster-ordered CellArrays.  Returns the rhs (negative
+    residual) (RU (dim, *grid), RP (1, *grid)), the physics of
+    physics.assemble_residual with the cell gather and the vertex
+    scatter-add as 2**dim shifted window slices."""
+    nvc = 2 ** dim
+    grid = tuple(U.shape[1:])
+    cgrid = tuple(g - 1 for g in grid)
+    ru_e, rp_e = physics._element_residual_cl(
+        *_cell_windows(U, P, P_old, P_oold, dim), caL, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic)
+    return (scatter_windows(ru_e.reshape((nvc, dim) + cgrid), grid),
+            scatter_windows(rp_e.reshape((nvc, 1) + cgrid), grid))
+
+
+def element_matrices_lattice(U, P, P_old, P_oold, caL, sc, *, dim,
+                             with_split, monolithic):
+    """(ndl, ndl, *cellgrid) element Jacobians from lattice-layout state
+    (window gathers instead of the flat gather maps)."""
+    ndl = 2 ** dim * (dim + 1)
+    cgrid = tuple(g - 1 for g in U.shape[1:])
+    return physics.element_matrices_from_cellvals(
+        *_cell_windows(U, P, P_old, P_oold, dim), caL, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic).reshape(
+            (ndl, ndl) + cgrid)
 
 
 def matvec_block(jacL, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
@@ -478,10 +533,12 @@ def _coarse_dense_factor(lv0: _LOps, lo, hi, k):
     return torch.linalg.cholesky(A0s), s
 
 
-def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2):
+def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
+                fine_op=None):
     """V-cycle with Chebyshev pre/post smoothing on every level above
     the coarsest and the dense Cholesky solve (in the factor's dtype)
-    on the coarsest."""
+    on the coarsest.  `fine_op`, when given, is the finest level's
+    masked operator (the sharded product)."""
     L = len(levels)
     cho, cho_scale = coarse_factor
     shape0 = levels[0].free.shape
@@ -493,7 +550,8 @@ def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2):
             bs = (cho_scale * b.reshape(-1).to(cho.dtype))[:, None]
             x = cho_scale * torch.cholesky_solve(bs, cho, upper=False)[:, 0]
             return torch.where(lv.free, x.to(b.dtype).reshape(shape0), 0.0)
-        op = _masked_mv(lv, lo, hi, k)
+        op = (fine_op if fine_op is not None and l == L - 1
+              else _masked_mv(lv, lo, hi, k))
         x = _chebyshev(op, lv.Dinv, b, lv.lam, degree, lv.rng)
         r = b - op(x)
         e_c = cycle(l - 1, restrict(r, k))
@@ -537,50 +595,57 @@ def _to_glob(X, vert_pos, k):
     return X.movedim(0, -1).reshape(-1, k)[vert_pos].reshape(-1)
 
 
-def _prepare64(u, phi, phi_old, phi_oold, caL64, sc, *, grid, dim,
-               with_split, monolithic):
-    """Exact f64 element Jacobians on the lattice raster, built once
-    per Newton solve: (ndl, ndl, *cellgrid)."""
-    nvc = 2 ** dim
-    ndl = nvc * (dim + 1)
-    cgrid = tuple(g - 1 for g in grid)
-    return physics.element_matrices(
-        u, phi, phi_old, phi_oold, caL64, sc, dim=dim,
-        with_split=with_split, monolithic=monolithic).reshape(
-            (ndl, ndl) + cgrid)
+def _prepare64(U, P, P_old, P_oold, caL64, sc, *, grid, dim, with_split,
+               monolithic):
+    """Exact f64 element Jacobians (ndl, ndl, *cellgrid) from (padded)
+    lattice-layout state, built once per Newton solve (JAX
+    ``_prepare64_lat``; its ``_maybe_shard_jacs`` is a placement and has
+    no counterpart on one device)."""
+    up = lambda X: unpad_rows(X, grid[0])
+    return element_matrices_lattice(up(U), up(P), up(P_old), up(P_oold),
+                                    caL64, sc, dim=dim,
+                                    with_split=with_split,
+                                    monolithic=monolithic)
 
 
 def _prepare32_from64(jacL64, P_embed, *, n_levels):
     """The f32 operator chain is the CAST of the exact f64 element
     matrices, Galerkin-coarsened (branch-consistent with the f64
-    operator; see the JAX function)."""
+    operator; see the JAX function).  Also the port of
+    ``_prepare32_from64_lat``: the chain keeps no sharding here."""
     return tuple(coarsen_chain(jacL64.to(torch.float32), P_embed,
                                n_levels))
 
 
-def _prepare_levels(jacs, dir_u, dir_p, vert_pos, active, *, grid, which,
-                    dim, sharp):
-    """Per-block level operators and the coarse factor, built once per
-    Newton solve.  The coarse Cholesky is factored in f64 and handed to
-    the f32 CG pass as an f32 factor."""
+def _prepare_levels(jacs, dir_u, dir_p, active, *, grid, which, dim,
+                    sharp, mesh=None):
+    """Per-block level operators and the coarse factor from a (padded)
+    lattice-layout active mask (1, gyp, ...), built once per Newton
+    solve (JAX ``_prepare_levels_lat``).  The coarse Cholesky is
+    factored in f64 and handed to the f32 CG pass as an f32 factor.
+    With a shard mesh the finest f32 block is also laid out per shard
+    (`pad_jac_sharded`) for the sharded fine operator of `_cg_pass32`;
+    fine_pad is None without one.  Returns (levels, coarse32,
+    fine_pad)."""
     k, lo, hi = _blk(which, dim)
-    active_L = _active_lattice(active, vert_pos, grid)
-    levels = _build_block_levels(list(jacs), dir_u, dir_p, grid, active_L,
-                                 lo, hi, k, which, sharp=sharp)
+    levels = _build_block_levels(list(jacs), dir_u, dir_p, grid,
+                                 unpad_rows(active, grid[0]), lo, hi, k,
+                                 which, sharp=sharp)
     cho, scale = _coarse_dense_factor(levels[0], lo, hi, k)
-    return levels, (cho.to(torch.float32), scale.to(torch.float32))
+    fine_pad = (None if mesh is None
+                else pad_jac_sharded(jacs[-1], lo, hi, lo, hi, mesh))
+    return levels, (cho.to(torch.float32), scale.to(torch.float32)), fine_pad
 
 
-def _pass_setup(fin_free, vert_pos, r_g, rtol, target2, *, grid, which,
-                dim):
-    """f64 -> f32 boundary of one CG pass: residual norm, normalized
-    lattice-layout residual and the f32 pass tolerance."""
-    k, _, _ = _blk(which, dim)
-    rr0 = _dot(r_g, r_g)
+def _pass_setup(fin_free, R, rtol, target2, *, grid):
+    """f64 -> f32 boundary of one CG pass on a (padded) lattice-layout
+    residual (JAX ``_pass_setup_lat``): residual norm, the normalized
+    true-shaped f32 residual and the f32 pass tolerance."""
+    R = unpad_rows(R, grid[0])
+    rr0 = _dot(R, R)
     scale = torch.sqrt(rr0)
     inv_scale = torch.where(scale > 0, 1.0 / scale, 0.0)
-    R0 = _to_lat((r_g * inv_scale).to(torch.float32), vert_pos, grid, k)
-    R0 = torch.where(fin_free, R0, 0.0)
+    R0 = torch.where(fin_free, (R * inv_scale).to(torch.float32), 0.0)
     # pass target 3e-7 relative on the NORMALIZED system: each f64
     # refinement restart costs a stored-matrix f64 operator application,
     # so the f32 pass digs as deep as single precision allows; the
@@ -590,8 +655,8 @@ def _pass_setup(fin_free, vert_pos, r_g, rtol, target2, *, grid, which,
     return R0, scale, tol2, rr0
 
 
-def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, degree=2,
-               inner_max=192, stall_window=16):
+def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
+               mesh=None, degree=2, inner_max=192, stall_window=16):
     """One float32 lattice-GMG CG pass on the normalized lattice
     residual; returns (best iterate, inner iterations, best rr).
 
@@ -599,12 +664,23 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, degree=2,
     best residual appeared within `stall_window` iterations (the f32
     arithmetic floor).  inner_max is 192 at every size: the JAX package
     lowers it to 96 above 600k DoFs only to bound one TPU execution's
-    time.  The exit test reads one scalar per iteration
-    back to the host; the next iteration's work is queued before that
-    read, so the card stays busy while the host waits."""
+    time.  With fine_pad (a shard mesh), the finest level's operator,
+    the dominant product of both the CG loop and the V-cycle smoother,
+    runs per shard (`stencil_matvec_sharded`), as the JAX pass runs the
+    Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).  The
+    exit test reads one scalar per iteration back to the host; the next
+    iteration's work is queued before that read, so the card stays busy
+    while the host waits."""
     k, lo, hi = _blk(which, dim)
-    op = _masked_mv(levels[-1], lo, hi, k)
-    M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree)
+    fin = levels[-1]
+    if fine_pad is None:
+        op = _masked_mv(fin, lo, hi, k)
+    else:
+        def op(X):
+            Y = stencil_matvec_sharded(fine_pad, torch.where(fin.free, X, 0.0),
+                                       k, mesh)
+            return torch.where(fin.free, Y, 0.0)
+    M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree, fine_op=op)
     tol2_h = float(tol2)
     Z = M(R0)
     X = torch.zeros_like(R0)
@@ -649,57 +725,65 @@ def _scalars_vec(sc):
     return torch.stack([v.to(torch.float64) for v in sc])
 
 
-def _pass_apply_mat(Xb, scale, vert_pos, x_acc, b, jacL64, dir_u_fin,
-                    dir_p_fin, active, *, grid, which, dim):
-    """f32 -> f64 boundary of one CG pass: un-normalize the pass
-    iterate, form the trial accumulate, apply the exact f64 Newton
-    operator (stored f64 element matrices) and form the trial residual.
-    Returns (x_try, r_try, rr_try, jp) with jp = J_pu x_try (the
-    phase-field block's right-hand side correction when which == 'u')."""
+def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
+                    which, dim, gyp):
+    """f32 -> f64 boundary of one CG pass in lattice layout (JAX
+    ``_pass_apply_mat_lat``): un-normalize the true-shaped pass iterate,
+    form the trial accumulate, apply the exact f64 Newton operator (the
+    stored f64 element matrices, one unsharded product, as in JAX) and
+    form the trial residual.  X_acc and B arrive padded.  Returns padded
+    (X_try, R_try), rr_try and, for which == 'u', the padded
+    JP = J_pu X_try (the phase-field block's right-hand side
+    correction; None for 'p')."""
     k, lo, hi = _blk(which, dim)
     nvc = 2 ** dim
-    x_try = x_acc + _to_glob(Xb.to(torch.float64), vert_pos, k) * scale
-    active_L = _active_lattice(active, vert_pos, grid)
-    free_p = ~(dir_p_fin | active_L)
-    free = ~dir_u_fin if which == "u" else free_p
-    X = torch.where(free, _to_lat(x_try, vert_pos, grid, k), 0.0)
-    Y = torch.where(free, matvec(jacL64, X, lo, hi, k), 0.0)
-    r_try = b - _to_glob(Y, vert_pos, k)
-    rr_try = _dot(r_try, r_try)
+    g0 = grid[0]
+    X_try = unpad_rows(X_acc, g0) + Xb.to(torch.float64) * scale
+    free = free_u if which == "u" else free_p
+    X = torch.where(free, X_try, 0.0)
+    R_try = unpad_rows(B, g0) - torch.where(free, matvec(jacL64, X, lo, hi, k),
+                                            0.0)
+    rr_try = _dot(R_try, R_try)
+    JP = None
     if which == "u":
-        Yp = matvec_block(jacL64, X, nvc * dim, nvc * (dim + 1), lo, hi, k,
-                          1)
-        jp = _to_glob(torch.where(free_p, Yp, 0.0), vert_pos, 1)
-    else:
-        jp = torch.zeros_like(r_try)
-    return x_try, r_try, rr_try, jp
+        JP = pad_rows(torch.where(free_p, matvec_block(
+            jacL64, X, nvc * dim, nvc * (dim + 1), lo, hi, k, 1), 0.0), gyp)
+    return pad_rows(X_try, gyp), pad_rows(R_try, gyp), rr_try, JP
 
 
-def solve_lattice(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
-                  rhs_p, with_split, *, passes: int = 3, degree: int = 2,
-                  jac_rtol: float = 1e-6):
-    """Block Gauss-Seidel solve of the Newton system on the lattice:
-    the u block, then the phase-field block with the J_pu coupling
-    moved to its right-hand side.  Each block runs up to `passes`
-    restarted-refinement passes: f32 GMG-preconditioned CG on the
-    normalized residual, then the exact f64 stored-matrix residual.
-    Returns (du, dp, total CG iterations) on the free dofs."""
+def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
+                      with_split, *, passes: int = 3, degree: int = 2,
+                      jac_rtol: float = 1e-6):
+    """Block Gauss-Seidel solve of the Newton system on lattice-layout
+    state (JAX ``_solve_split_lat``): the u block, then the phase-field
+    block with the J_pu coupling moved to its right-hand side.  Each
+    block runs up to `passes` restarted-refinement passes: f32
+    GMG-preconditioned CG on the normalized residual, then the exact f64
+    stored-matrix residual.  U (dim, gyp, ...), the phase fields, the
+    active mask and the right-hand sides (k, gyp, ...), with zero pad
+    rows past the lattice's G0 rows (gyp = G0 without a shard mesh).
+    With `sys.shard_mesh` the f32 fine-level operator runs per shard.
+    Returns padded (DU, DP, total CG iterations) on the free dofs."""
     hier: LatticeHierarchy = sys.lattice_hierarchy
     p = sys.params
     rtol = p.cg_rtol
     eps64 = float(np.finfo(np.float64).eps)
     grid = hier.grid
     dim = sys.dim
+    gyp = U.shape[1]
+    mesh = sys.shard_mesh
+    free_u = ~hier.dir_u[-1]
+    free_p = ~(hier.dir_p[-1] | unpad_rows(active, grid[0]))
 
     # Operator reuse across the PDAS tail: the element Jacobians depend
-    # only on (u, phi, phi_old, phi_oold, scalars); iterations at the
+    # only on (U, P, P_old, P_oold, scalars); iterations at the
     # residual floor move those by ~1e-10 relative, so the f32 chain
     # and the stored f64 operator are reused while the context moved by
     # at most `jac_rtol` from the point where they were BUILT (an
     # inexact Newton step with O(jac_rtol) perturbation; the residual
     # and line search stay exact).
     sc_vec = _scalars_vec(sys.scalars)
-    ctx = (u, phi, phi_old, phi_oold, sc_vec)
+    ctx = (U, P, P_old, P_oold, sc_vec)
     flags = (with_split,)
     jacs = jacL64 = None
     cache = sys._split_jac_cache
@@ -714,69 +798,86 @@ def solve_lattice(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
         # drop the stale operators before building replacements
         sys._split_jac_cache = cache = None
         sys._split_levels_cache = None
-        jacL64 = _prepare64(u, phi, phi_old, phi_oold, sys.lattice_ca64,
+        jacL64 = _prepare64(U, P, P_old, P_oold, sys.lattice_ca64,
                             sys.scalars, grid=grid, dim=dim,
                             with_split=with_split, monolithic=False)
         jacs = _prepare32_from64(jacL64, hier.P_embed,
                                  n_levels=hier.n_levels)
         sys._split_jac_cache = (ctx, flags, jacs, jacL64)
     total_its = 0
-    last_ju_pu = None   # J_pu du of the final accepted u iterate
+    last_ju_pu = None   # J_pu DU of the final accepted u iterate
 
-    def block(which, b):
+    def block(which, B):
         nonlocal total_its, last_ju_pu
-        bnorm = float(torch.sqrt(_dot(b, b)))
+        bnorm = float(torch.sqrt(_dot(B, B)))      # pad rows are zero
         # absolute floor: the linear residual only has to be invisible
         # at the Newton iteration's own (absolute) convergence bound;
         # PDAS-tail right-hand sides are pure f64 assembly noise
         atol_newton = 1e-3 * p.lower_bound_newton_residual
         target2 = max(rtol * bnorm, atol_newton, 100.0 * eps64 * bnorm) ** 2
         if bnorm * bnorm <= target2:
-            return torch.zeros_like(b)
+            return torch.zeros_like(B)
         # u-block level operators depend only on the element Jacobians
         # and the Dirichlet masks, not on the active set, so they ride
         # the operator cache; the p block's mask changes every iteration
         lv_cache = sys._split_levels_cache
         if which == "u" and lv_cache is not None and lv_cache[0] is jacs:
-            levels, coarse32 = lv_cache[1]
+            levels, coarse32, fine_pad = lv_cache[1]
         else:
-            levels, coarse32 = _prepare_levels(
-                jacs, hier.dir_u, hier.dir_p, hier.vert_pos, active,
-                grid=grid, which=which, dim=dim,
-                sharp=sharp_spectrum(sys.mesh.n_dofs))
+            levels, coarse32, fine_pad = _prepare_levels(
+                jacs, hier.dir_u, hier.dir_p, active, grid=grid,
+                which=which, dim=dim, sharp=sharp_spectrum(sys.mesh.n_dofs),
+                mesh=mesh)
             if which == "u":
-                sys._split_levels_cache = (jacs, (levels, coarse32))
+                sys._split_levels_cache = (jacs, (levels, coarse32,
+                                                  fine_pad))
         fin_free = levels[-1].free
         target2_d = torch.tensor(target2, dtype=torch.float64,
-                                 device=b.device)
-        x_acc = torch.zeros_like(b)
-        r_cur = b
+                                 device=B.device)
+        X_acc = torch.zeros_like(B)
+        R_cur = B
         rr_cur = bnorm * bnorm
         for _ in range(passes):
             if rr_cur <= target2:
                 break
-            R0, scale, tol2, _rr0 = _pass_setup(
-                fin_free, hier.vert_pos, r_cur, rtol, target2_d,
-                grid=grid, which=which, dim=dim)
+            R0, scale, tol2, _rr0 = _pass_setup(fin_free, R_cur, rtol,
+                                                target2_d, grid=grid)
             Xb, its, _rrb = _cg_pass32(levels, coarse32, R0, tol2,
-                                       which=which, dim=dim, degree=degree)
-            x_try, r_try, rr_try_d, jp = _pass_apply_mat(
-                Xb, scale, hier.vert_pos, x_acc, b, jacL64,
-                hier.dir_u[-1], hier.dir_p[-1], active, grid=grid,
-                which=which, dim=dim)
+                                       which=which, dim=dim,
+                                       fine_pad=fine_pad, mesh=mesh,
+                                       degree=degree)
+            X_try, R_try, rr_try_d, JP = _pass_apply_mat(
+                Xb, scale, X_acc, B, jacL64, free_u, free_p, grid=grid,
+                which=which, dim=dim, gyp=gyp)
             total_its += its
             rr_try = float(rr_try_d)
             if not np.isfinite(rr_try) or rr_try >= rr_cur:
                 break
             progress = rr_try / max(rr_cur, 1e-300)
-            x_acc, r_cur, rr_cur = x_try, r_try, rr_try
+            X_acc, R_cur, rr_cur = X_try, R_try, rr_try
             if which == "u":
-                last_ju_pu = jp
+                last_ju_pu = JP
             if rr_cur <= target2 or progress > 0.25:
                 break
-        return x_acc
+        return X_acc
 
-    du = block("u", rhs_u)
-    rhs_p2 = rhs_p if last_ju_pu is None else rhs_p - last_ju_pu
-    dp = block("p", rhs_p2)
-    return du, dp, total_its
+    DU = block("u", RHS_U)
+    RHS_P2 = RHS_P if last_ju_pu is None else RHS_P - last_ju_pu
+    DP = block("p", RHS_P2)
+    return DU, DP, total_its
+
+
+def solve_lattice(sys, u, phi, phi_old, phi_oold, active, rhs_u, rhs_p,
+                  with_split):
+    """Flat-vector entry of the solve for the replicated Newton (JAX
+    ``_solve_split``): lift the flat state, active mask and right-hand
+    sides to the lattice layout, run `solve_lattice_lat`, map the
+    updates back.  Returns (du, dp, total CG iterations)."""
+    hier: LatticeHierarchy = sys.lattice_hierarchy
+    vp, grid, dim = hier.vert_pos, hier.grid, sys.dim
+    lat = lambda x, k: _to_lat(x, vp, grid, k)
+    DU, DP, its = solve_lattice_lat(
+        sys, lat(u, dim), lat(phi, 1), lat(phi_old, 1), lat(phi_oold, 1),
+        _active_lattice(active, vp, grid), lat(rhs_u, dim), lat(rhs_p, 1),
+        with_split)
+    return _to_glob(DU, vp, dim), _to_glob(DP, vp, 1), its

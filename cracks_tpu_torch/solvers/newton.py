@@ -44,10 +44,9 @@ class NewtonLog:
             print(line)
 
 
-def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
-           with_split):
-    """The configured linear solve. Returns (du, dp, iterations).  Only
-    the lattice GMG solve is ported; every other mode raises."""
+def check_linear_solver(sys) -> None:
+    """Raise for a configured linear solve other than the lattice GMG
+    mixed-precision CG, the only one ported (both Newtons call it)."""
     p = sys.params
     mode = p.linear_solver
     if mode == "auto":
@@ -65,9 +64,14 @@ def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
     if sys.lattice_hierarchy is None:
         raise NotImplementedError(
             "Galerkin/assembled GMG on non-lattice meshes: ROADMAP A10")
+
+
+def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
+           with_split):
+    """The configured linear solve. Returns (du, dp, iterations)."""
+    check_linear_solver(sys)
     du, dp, its = lattice.solve_lattice(sys, u, phi, phi_old, phi_oold,
-                                        con, active, rhs_u, rhs_p,
-                                        with_split)
+                                        active, rhs_u, rhs_p, with_split)
     du, dp = expand_update(du, dp, con, active)
     return du, dp, its
 

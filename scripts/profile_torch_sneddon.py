@@ -1,11 +1,13 @@
 """Where the time goes in the PyTorch port's Sneddon lattice path on one
 CUDA card, in 2d or 3d.
 
-    python3 scripts/profile_torch_sneddon.py [dim [refine]]
+    python3 scripts/profile_torch_sneddon.py [dim [refine [shards]]]
 
 dim is 2 (default; refine defaults to 6 = 1,232,643 DoFs) or 3 (refine
-defaults to 3 = 2,125,764 DoFs).  Runs the case (two load steps,
-lattice GMG mixed-precision CG) three times on the card, after timing
+defaults to 3 = 2,125,764 DoFs); shards > 0 runs the lattice-layout
+sharded Newton (n_devices = shards, dof_sharding = lattice) in place of
+the replicated one.  Runs the case (two load steps, lattice GMG
+mixed-precision CG) three times on the card, after timing
 the host setup (forest refinement and mesh extraction, then the
 system's setup: lattice detection, cell geometry, lumped mass, GMG
 hierarchy) on its own:
@@ -22,7 +24,7 @@ hierarchy) on its own:
    every stencil kernel variant (dtype, k_in, k_out).
 
 Prints the card's name and power limit first; writes the profiler's
-table to chiprun_out/profile_torch_sneddon{dim}d.txt.
+table to chiprun_out/profile_torch_sneddon{dim}d[_sharded{D}].txt.
 """
 
 import collections
@@ -40,11 +42,15 @@ sys.path.insert(0, REPO)
 from cracks_tpu_torch.driver import Simulation  # noqa: E402
 from cracks_tpu_torch import config  # noqa: E402
 from cracks_tpu_torch.ops import stencil  # noqa: E402
-from cracks_tpu_torch.solvers import lattice, newton  # noqa: E402
+from cracks_tpu_torch.solvers import (lattice, lattice_newton,  # noqa: E402
+                                      newton)
 
 PHASES = [
     (newton, "_assemble", "residual assembly (f64)"),
     (newton, "_active_set_update", "PDAS head (indicator, set update)"),
+    (lattice_newton, "_condensed_residual", "residual assembly (f64)"),
+    (lattice_newton, "_fused_active_set_update_lat",
+     "PDAS head (indicator, set update)"),
     (lattice, "_prepare64", "f64 element matrices (ndl jvps)"),
     (lattice, "_prepare32_from64", "f32 cast + Galerkin RAP chain"),
     (lattice, "_prepare_levels", "level build (diag, lambda, Cholesky)"),
@@ -54,18 +60,22 @@ PHASES = [
 ]
 
 
-def _params(dim, refine):
+def _params(dim, refine, shards):
+    sharding = (dict(n_devices=shards, dof_sharding="lattice") if shards
+                else {})
     return config.load_parameters(
         os.path.join(REPO, "params", f"parameters_sneddon_{dim}d.prm"),
         n_global_pre_refine=refine, n_local_pre_refine=0,
         n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
         linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
-        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True,
+        **sharding)
 
 
-def _run(dim, refine):
+def _run(dim, refine, shards):
     t0 = time.perf_counter()
-    sim = Simulation(_params(dim, refine), device="cuda", verbose=False)
+    sim = Simulation(_params(dim, refine, shards), device="cuda",
+                     verbose=False)
     sim.host_setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -82,7 +92,7 @@ def _report(sim, wall, label):
         + str([(e[1], e[2]) for e in sim.solver_effort]))
 
 
-def phase_timing(dim, refine):
+def phase_timing(dim, refine, shards):
     acc = collections.defaultdict(lambda: [0.0, 0, 0])
     originals = []
     # the outermost phase on the stack owns the time
@@ -114,7 +124,7 @@ def phase_timing(dim, refine):
     for mod, name, label in PHASES:
         wrap(mod, name, label)
     try:
-        sim, wall = _run(dim, refine)
+        sim, wall = _run(dim, refine, shards)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
@@ -128,14 +138,15 @@ def phase_timing(dim, refine):
           f"{wall - total:8.3f} s {100 * (wall - total) / wall:5.1f} %")
 
 
-def profiled(dim, refine, out_path):
+def profiled(dim, refine, shards, out_path):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
     kernel.launches = 0
+    stencil.stencil_matvec_sharded.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim, wall = _run(dim, refine)
+        sim, wall = _run(dim, refine, shards)
     _report(sim, wall, "profiled run")
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
@@ -159,7 +170,8 @@ def profiled(dim, refine, out_path):
     dev_total = sum(t for t, _ in by_name.values())
     print(f"device busy {busy / 1e6:.3f} s of {wall:.3f} s wall: idle "
           f"share {100 * (1 - busy / 1e6 / wall):.1f} %; {len(kern)} "
-          f"device events; stencil launches {kernel.launches}")
+          f"device events; stencil launches {kernel.launches}, of them "
+          f"per-shard {stencil.stencil_matvec_sharded.launches}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:
         print(f"  {t / 1e3:9.2f} ms {100 * t / dev_total:5.1f} % {n:7d}x  "
@@ -179,19 +191,24 @@ def main():
         raise RuntimeError("needs a CUDA device")
     dim = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     refine = int(sys.argv[2]) if len(sys.argv) > 2 else {2: 6, 3: 3}[dim]
+    shards = int(sys.argv[3]) if len(sys.argv) > 3 else 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip())
-    sim, wall = _run(dim, refine)
+    print(f"Sneddon {dim}d refine {refine}, "
+          + (f"dof_sharding = lattice on {shards} shards" if shards
+             else "replicated"))
+    sim, wall = _run(dim, refine, shards)
     _report(sim, wall, "warm-up run")
     del sim
-    sim, wall = _run(dim, refine)
+    sim, wall = _run(dim, refine, shards)
     _report(sim, wall, "plain run")
     del sim
-    phase_timing(dim, refine)
-    profiled(dim, refine, os.path.join(REPO, "chiprun_out",
-                                       f"profile_torch_sneddon{dim}d.txt"))
+    phase_timing(dim, refine, shards)
+    suffix = f"_sharded{shards}" if shards else ""
+    profiled(dim, refine, shards, os.path.join(
+        REPO, "chiprun_out", f"profile_torch_sneddon{dim}d{suffix}.txt"))
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
 
 

@@ -8,8 +8,11 @@ The CUDA stencil kernels (2d and 3d) are held against their plain
 PyTorch version on the card, at small non-square lattices, for every
 block the lattice solve uses and both dtypes (f32: rtol 1e-5,
 atol 1e-4 * max|Y|, the bounds of tests/test_pallas_stencil.py; f64:
-rtol 1e-12, atol 1e-11 * max|Y|).  The main path at refine 3 on the card agrees
-with the CPU run (plain versions) to rel 1e-7 in the energies."""
+rtol 1e-12, atol 1e-11 * max|Y|).  The row-slab sharded wrapper
+(D per-shard launches of the same kernels) equals the unsharded kernel
+bit for bit, for D in {2, 4}.  The main path at refine 3 on the card,
+replicated and with dof_sharding = lattice on 4 shards, agrees with
+the CPU run (plain versions) to rel 1e-7 in the energies."""
 
 import os
 
@@ -90,7 +93,56 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
 
 
 @pytest.mark.cuda
-def test_main_path_refine3_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sharded_wrapper_matches_unsharded_kernel(cuda, dim, D, dtype):
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    rng = np.random.default_rng(4)
+    if dim == 2:
+        jshape, grid = (12, 12, 40, 36), (41, 37)
+        blocks = [(2, 0, 8), (1, 8, 12)]
+    else:
+        jshape, grid = (32, 32, 9, 12, 37), (10, 13, 38)
+        blocks = [(3, 0, 24), (1, 24, 32)]
+    jac = torch.as_tensor(rng.normal(size=jshape), dtype=dtype, device=cuda)
+    mesh = make_shard_mesh([cuda] * D)
+    for k, lo, hi in blocks:
+        X = torch.as_tensor(rng.normal(size=(k,) + grid), dtype=dtype,
+                            device=cuda)
+        JPs = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+        before = stencil.stencil_matvec_sharded.launches
+        y = stencil.stencil_matvec_sharded(JPs, X, k, mesh)
+        assert stencil.stencil_matvec_sharded.launches == before + D
+        assert torch.equal(y, stencil.stencil_matvec(jac, X, lo, hi, lo, hi,
+                                                     k, k))
+        ref = stencil.stencil_matvec_reference(jac, X, lo, hi, lo, hi, k, k)
+        rtol, atol = ((1e-5, 1e-4) if dtype == torch.float32
+                      else (1e-12, 1e-11))
+        torch.testing.assert_close(y, ref, rtol=rtol,
+                                   atol=atol * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sharded_wrapper_rejects_mixed_devices(cuda):
+    """A CUDA X with per-shard J on the CPU raises before any launch."""
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    cpu = torch.device("cpu")
+    JPs = stencil.pad_jac_sharded(torch.zeros((12, 12, 6, 7)), 0, 8, 0, 8,
+                                  make_shard_mesh([cpu] * 2))
+    X = torch.zeros((2, 7, 8), device=cuda)
+    before = stencil.stencil_matvec_sharded.launches
+    with pytest.raises(ValueError):
+        stencil.stencil_matvec_sharded(JPs, X, 2, make_shard_mesh([cuda] * 2))
+    assert stencil.stencil_matvec_sharded.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharding", [dict(),
+                                      dict(n_devices=4,
+                                           dof_sharding="lattice")],
+                         ids=["replicated", "lattice-4"])
+def test_main_path_refine3_matches_cpu(cuda, sharding):
     from cracks_tpu_torch.driver import Simulation
     from cracks_tpu_torch import config
     prm = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -99,7 +151,7 @@ def test_main_path_refine3_matches_cpu(cuda):
         prm, n_global_pre_refine=3, n_local_pre_refine=0,
         n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
         linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
-        mixed_precision_cg=True)
+        mixed_precision_cg=True, **sharding)
     energies = {}
     for dev in (cuda, torch.device("cpu")):
         before = stencil.stencil_matvec2d.launches

@@ -92,13 +92,16 @@ def test_sneddon_3d_is_accepted():
     assert (sim.mesh.n_cells, sim.mesh.n_dofs) == (8000, 37044)
 
 
+@pytest.mark.parametrize("sharding", [
+    dict(), dict(n_devices=4, dof_sharding="lattice")],
+    ids=["replicated", "lattice"])
 @pytest.mark.parametrize("override,item", [
     (dict(linear_solver="direct"), "A3"),
     (dict(linear_solver="cg", n_global_pre_refine=1,
           mixed_precision_cg=False), "not ported"),
 ])
-def test_unported_linear_solvers_raise(override, item):
-    p = config.load_parameters(PRM, **{**BENCH, **override})
+def test_unported_linear_solvers_raise(override, item, sharding):
+    p = config.load_parameters(PRM, **{**BENCH, **override, **sharding})
     sim = Simulation(p, device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match=item):
         sim.run()

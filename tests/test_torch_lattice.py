@@ -136,10 +136,12 @@ def newton_system(request):
 def test_prepare64_and_coarsen_chain_match_jax(newton_system):
     ns = newton_system
     hier = ns["sys_t"].lattice_hierarchy
-    jac64 = lattice._prepare64(*ns["st_t"][:4], ns["sys_t"].lattice_ca64,
+    dim = ns["dim"]
+    lat = [lattice._to_lat(x, hier.vert_pos, hier.grid, k)
+           for x, k in zip(ns["st_t"][:4], (dim, 1, 1, 1))]
+    jac64 = lattice._prepare64(*lat, ns["sys_t"].lattice_ca64,
                                ns["sys_t"].scalars, grid=hier.grid,
-                               dim=ns["dim"], with_split=False,
-                               monolithic=False)
+                               dim=dim, with_split=False, monolithic=False)
     ref64 = np.asarray(ns["jacL64_j"])
     np.testing.assert_allclose(_np(jac64), ref64, rtol=1e-12,
                                atol=1e-12 * np.abs(ref64).max())
@@ -204,9 +206,11 @@ def test_vcycle_matches_jax(newton_system, which):
                            coarse_factor=coarse_j)
     hier = ns["sys_t"].lattice_hierarchy
     jacs_t = tuple(torch.tensor(np.asarray(j)) for j in jacs_j)
-    levels_t, coarse_t = lattice._prepare_levels(
-        jacs_t, hier.dir_u, hier.dir_p, hier.vert_pos, ns["st_t"][4],
+    levels_t, coarse_t, fine_pad = lattice._prepare_levels(
+        jacs_t, hier.dir_u, hier.dir_p,
+        lattice._active_lattice(ns["st_t"][4], hier.vert_pos, grid),
         grid=grid, which=which, dim=ns["dim"], sharp=False)
+    assert fine_pad is None
     M_t = lattice.make_vcycle(levels_t, lo, hi, k, coarse_t)
     b = np.random.default_rng(5).normal(size=(k,) + grid).astype(np.float32)
     ref = np.asarray(M_j(jnp.asarray(b)))
@@ -231,8 +235,8 @@ def test_solve_lattice_matches_jax_split_solve(newton_system):
         jnp.asarray(rhs_u), jnp.asarray(rhs_p), False)
     ut, pt, pot, poot, act = ns["st_t"]
     du, dp, its = lattice.solve_lattice(
-        sys_t, ut, pt, pot, poot, sys_t.constraints(1.0), act,
-        torch.as_tensor(rhs_u), torch.as_tensor(rhs_p), False)
+        sys_t, ut, pt, pot, poot, act, torch.as_tensor(rhs_u),
+        torch.as_tensor(rhs_p), False)
     for a, b in ((du, du_j), (dp, dp_j)):
         b = np.asarray(b)
         rel = np.linalg.norm(_np(a) - b) / np.linalg.norm(b)
@@ -241,7 +245,7 @@ def test_solve_lattice_matches_jax_split_solve(newton_system):
     # a repeated solve at the same context reuses the cached operators
     jacs = sys_t._split_jac_cache[2]
     du2, _, _ = lattice.solve_lattice(
-        sys_t, ut, pt, pot, poot, sys_t.constraints(1.0), act,
-        torch.as_tensor(rhs_u), torch.as_tensor(rhs_p), False)
+        sys_t, ut, pt, pot, poot, act, torch.as_tensor(rhs_u),
+        torch.as_tensor(rhs_p), False)
     assert sys_t._split_jac_cache[2] is jacs
     torch.testing.assert_close(du2, du, rtol=0, atol=0)
