@@ -7,23 +7,28 @@ without printing the final line:
 
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and the torch/CUDA versions;
-2. build: compiles both stencil kernels from cracks_tpu_torch/csrc/
-   with nvcc, one compiler per source, all started together (timed);
+2. build: compiles the four stencil kernels from cracks_tpu_torch/csrc/
+   (2d and 3d, unsharded and row-slab sharded) with nvcc, one compiler
+   per source, all started together (timed), and prints what ptxas says
+   of each (registers, shared memory, spills);
 3. kernel vs plain, 2d and 3d: each kernel against its plain PyTorch
    version on the card, at the main paths' shapes (2d: refine-6 Sneddon,
    640x640 cells; 3d: refine-3 Sneddon, 80^3 cells) for the four
    stencil products the solve runs, from seeded numpy inputs.  The
    kernel, the plain version and the library yardstick (the same block
    assembled once as a torch.sparse CSR matrix, times X) are timed with
-   CUDA events, median of 25 runs, L2 flushed before each; the bound is
+   CUDA events around one call queued behind a device-side sleep (the
+   card's time alone, not the host's enqueue), median of 25 runs, L2
+   flushed before each; the bound is
    the bytes of J + X + Y over 3.35 TB/s or the flops over the card's
    peak rate, whichever is larger.  For the two f32 blocks of the CG
    pass (u and phi), the row-slab sharded product on D = 4 shards
-   (ops.stencil.stencil_matvec_sharded: the halo exchange and one launch
-   per shard) on the same inputs must equal the unsharded kernel bit for
-   bit (max |difference| 0) and the plain version within TOL; it is
-   timed the same way (the D launches plus the exchange), with its
-   plain version (the per-shard plain products) and a bound that adds
+   (ops.stencil.stencil_matvec_sharded: one launch of the sharded kernel
+   for all shards, which must be exactly one launch per product) on the
+   same inputs must equal the unsharded kernel bit for bit (max
+   |difference| 0) and the plain version within TOL; it is timed the
+   same way, beside its plain version (the per-shard plain products
+   with the halo exchange) and the same CSR call, with a bound that adds
    the halo bytes (the per-shard J halo rows and two X rows per shard)
    to J + X + Y;
 4. main paths, small: the port's Simulation on the card and on the CPU
@@ -39,8 +44,10 @@ without printing the final line:
    dof_sharding = lattice (the lattice-layout Newton, 4 row slabs on the
    one card); bulk and crack energy must agree with the replicated run
    of 5 or 6 to rel 1e-7 with equal Newton iterations per step, and the
-   sharded wrapper's per-shard launches must be a positive multiple of
-   4.
+   sharded kernel's launches plus the unsharded kernel's launches of the
+   sharded run must equal the unsharded kernel's launches of the
+   replicated run: every fine-level f32 product went through the
+   sharded kernel, once.
    In 5 to 7 every step must converge without a time-step cut, with
    finite statistics and positive bulk energy, and the path's kernels
    must be launched: their counts are set to 0 just before the run and
@@ -65,6 +72,7 @@ import torch
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+SLEEP_CYCLES = 400_000         # the device-side sleep before a timed call
 # non-tensor-core peak rates (H100 SXM data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # f32: the bounds of tests/test_pallas_stencil.py; f64: rounding-level
@@ -76,6 +84,7 @@ f32, f64 = torch.float32, torch.float64
 # f64 u block and J_pu coupling block of the refinement residual
 KERNELS = [
     dict(name="lattice_stencil", dim=2, cells=(640, 640),
+         sharded="lattice_stencil_sharded",
          replaces="cracks_tpu/ops/pallas_stencil.py:39",
          replaces_sharded="cracks_tpu/ops/pallas_stencil.py:171",
          shapes=[("f32 u block", f32, 0, 8, 0, 8, 2, 2),
@@ -83,6 +92,7 @@ KERNELS = [
                  ("f64 u block", f64, 0, 8, 0, 8, 2, 2),
                  ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1)]),
     dict(name="lattice_stencil3d", dim=3, cells=(80, 80, 80),
+         sharded="lattice_stencil3d_sharded",
          replaces="cracks_tpu/ops/pallas_stencil.py:232",
          replaces_sharded="cracks_tpu/ops/pallas_stencil.py:368",
          shapes=[("f32 u block", f32, 0, 24, 0, 24, 3, 3),
@@ -113,19 +123,25 @@ def device_phase():
 
 def build_phase():
     from cracks_tpu_torch import kernels
+    names = [k[key] for k in KERNELS for key in ("name", "sharded")]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = list(pool.map(kernels.build, [k["name"] for k in KERNELS]))
-    kernels.lattice_stencil()
-    kernels.lattice_stencil3d()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(kernels.build, names))
+    for name in names:
+        getattr(kernels, name)()
     print(f"build: {[path for path, _ in builds]} in "
           f"{time.perf_counter() - t0:.2f} s (in parallel)")
-    for _, log in builds:
+    for name, (_, log) in zip(names, builds):
         if log.strip():
-            print(log.strip())
+            print(f"{name}: ptxas\n" + "\n".join(
+                line for line in log.strip().splitlines()
+                if "ptxas" in line or "spill" in line))
 
 
 def _time_ms(fn, flush, reps=25, warmup=3):
+    """Median device time of fn: each call queued behind a device-side
+    sleep (about 0.2 ms, longer than the host's enqueue), so the events
+    bracket the card's work alone, with the L2 flushed before."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -133,6 +149,7 @@ def _time_ms(fn, flush, reps=25, warmup=3):
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -170,17 +187,22 @@ def _csr_block(jac, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 
 def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
     """The row-slab sharded product (D_SHARDS shards) of one f32 square
-    block on the kernel phase's inputs: bit for bit against the
-    unsharded kernel's Y, within TOL of the plain version, and timed;
-    returns its record."""
+    block on the kernel phase's inputs: one launch, bit for bit against
+    the unsharded kernel's Y, within TOL of the plain version, and
+    timed; returns its record."""
     from cracks_tpu_torch.ops.stencil import (
         pad_jac_sharded, stencil_matvec_reference, stencil_matvec_sharded,
         stencil_matvec_sharded_reference)
     from cracks_tpu_torch.parallel.sharding import make_shard_mesh
     mesh = make_shard_mesh(["cuda"] * D_SHARDS)
-    JPs = pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
-    ys = stencil_matvec_sharded(JPs, X, k, mesh)
+    JP = pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+    before = stencil_matvec_sharded.launches
+    ys = stencil_matvec_sharded(JP, X, k, mesh)
+    per_product = stencil_matvec_sharded.launches - before
     torch.cuda.synchronize()
+    if per_product != 1:
+        raise AssertionError(f"{spec['sharded']} {name}: {per_product} "
+                             "launches for one product")
     diff = float((ys - y).abs().max())
     if diff != 0.0 or not torch.equal(ys, y):
         raise AssertionError(f"{spec['name']} sharded {name}: differs from "
@@ -195,9 +217,9 @@ def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
                              f"with the plain version, max |err| "
                              f"{max_abs_err:.3e}")
     del err, y_ref, ys
-    ms = _time_ms(lambda: stencil_matvec_sharded(JPs, X, k, mesh), flush)
+    ms = _time_ms(lambda: stencil_matvec_sharded(JP, X, k, mesh), flush)
     plain_ms = _time_ms(
-        lambda: stencil_matvec_sharded_reference(JPs, X, k, mesh), flush)
+        lambda: stencil_matvec_sharded_reference(JP, X, k, mesh), flush)
     esz = jac.element_size()
     cells, grid = jac.shape[2:], X.shape[1:]
     kl = hi - lo
@@ -209,15 +231,17 @@ def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
     ops_ms = 2 * kl * kl * int(np.prod(cells)) / PEAK_FLOPS[jac.dtype] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"{spec['name']} sharded {name} (D={D_SHARDS} on "
-          f"{mesh.device}, {JPs[0].shape[2]} J rows per shard): max|sharded"
-          f" - unsharded kernel| {diff:.1e}; max|err| vs plain "
+    print(f"{spec['sharded']} {name} (D={D_SHARDS} on {mesh.device}, "
+          f"carrier {tuple(JP.shape)}): {per_product} launch per product; "
+          f"max|sharded - unsharded kernel| {diff:.1e}; max|err| vs plain "
           f"{max_abs_err:.3e}; sharded {ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.1f} us ({bound_by}, {nbytes / 1e6:.1f} MB), "
-          f"plain {plain_ms * 1e3:.1f} us")
-    del JPs
+          f"{100 * bound_ms / ms:.1f} % of bound; plain "
+          f"{plain_ms * 1e3:.1f} us; CSR {library_ms * 1e3:.1f} us")
+    del JP
     return dict(name=name, k_in=k, k_out=k, dtype="float32",
-                shards=D_SHARDS, max_abs_diff_unsharded=diff,
+                shards=D_SHARDS, launches_per_product=per_product,
+                max_abs_diff_unsharded=diff,
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 mb=nbytes / 1e6)
@@ -379,10 +403,11 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
                **overrides):
     """One full-size main path on the card.  Returns the energies,
     Newton iterations per step and the launch counts of the path's
-    kernel and of the sharded wrapper.  With `replicated` (that return
-    of the same case without sharding) the energies must agree to rel
-    1e-7 with equal Newton iterations, and the sharded wrapper must have
-    launched a positive multiple of D_SHARDS kernels."""
+    unsharded and sharded kernels.  With `replicated` (that return of
+    the same case without sharding) the energies must agree to rel 1e-7
+    with equal Newton iterations, and the sharded run's sharded plus
+    unsharded launches must equal the replicated run's unsharded
+    launches: one sharded launch for every fine-level f32 product."""
     from cracks_tpu_torch.driver import Simulation
     from cracks_tpu_torch.ops import stencil
     if refine is None:
@@ -425,7 +450,7 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         print(f"{label} step {step}: {secs:.2f} s, {newton_its} Newton its,"
               f" {lin_its} linear its, active set {n_active}")
     print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches}, "
-          f"sharded-wrapper launches {sharded}, peak device memory "
+          f"sharded-kernel launches {sharded}, peak device memory "
           f"{torch.cuda.max_memory_allocated()} B")
     if replicated is not None:
         mesh = sim.sys.shard_mesh
@@ -441,10 +466,13 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         if not rel <= 1e-7 or out["newton"] != replicated["newton"]:
             raise AssertionError(f"the {label} disagrees with the "
                                  "replicated run")
-        if sharded <= 0 or sharded % D_SHARDS:
-            raise AssertionError(f"the {label} launched {sharded} per-shard"
-                                 f" kernels, not a positive multiple of "
-                                 f"{D_SHARDS}")
+        print(f"{label}: {sharded} sharded + {launches} unsharded launches"
+              f" vs {replicated['launches']} unsharded launches replicated")
+        if sharded <= 0 or sharded + launches != replicated["launches"]:
+            raise AssertionError(
+                f"the {label} launched {sharded} sharded and {launches} "
+                f"unsharded kernels; the replicated run "
+                f"{replicated['launches']} unsharded")
     del sim
     torch.cuda.empty_cache()
     return out
@@ -472,8 +500,8 @@ def main():
             "shapes": records[k["name"]][0]})
         head = records[k["name"]][1][0]   # the sharded f32 u block
         entries.append({
-            "name": k["name"] + "_sharded", "route": "cuda",
-            "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
+            "name": k["sharded"], "route": "cuda",
+            "source": f"cracks_tpu_torch/csrc/{k['sharded']}.cu",
             "wrapper": "cracks_tpu_torch/ops/stencil.py:"
                        "stencil_matvec_sharded",
             "replaces": k["replaces_sharded"],

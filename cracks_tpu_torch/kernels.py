@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface in
 ``cracks_tpu_torch/build/`` (git-ignored), at first use, and loaded
-with ``ctypes``.  A library older than its source is rebuilt.  A failed
-build raises with the compiler's output; nothing is retried.
+with ``ctypes``.  A library older than its source, or than a header
+(``*.cuh``) in ``csrc/``, is rebuilt.  A failed build raises with the
+compiler's output; nothing is retried.
 """
 
 from __future__ import annotations
@@ -41,8 +42,10 @@ def build(name: str) -> tuple[str, str]:
     empty when nothing was compiled)."""
     src = os.path.join(SRC_DIR, name + ".cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(src)):
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                    if f.endswith(".cuh")]
+    if (os.path.exists(lib) and os.path.getmtime(lib)
+            >= max(os.path.getmtime(f) for f in deps)):
         return lib, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
@@ -56,9 +59,9 @@ def build(name: str) -> tuple[str, str]:
 
 
 class StencilLib(NamedTuple):
-    """A loaded stencil library and its two entry points, each
-    ``(J, X, Y, R, C, *cellgrid, lo_r, lo_c, k_in, k_out, stream) ->
-    cudaError_t``."""
+    """A loaded stencil library and its two entry points, f32 and f64:
+    three pointers, `n_ints` ints and the stream, returning a
+    cudaError_t (see each loader)."""
 
     name: str
     lib: ctypes.CDLL
@@ -66,14 +69,14 @@ class StencilLib(NamedTuple):
     f64: object
 
 
-def _load_stencil(name: str, dim: int) -> StencilLib:
+def _load_stencil(name: str, n_ints: int) -> StencilLib:
     path, _ = build(name)
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     fns = []
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"{name}_{dt}")
-        fn.argtypes = [p, p, p] + [i] * (dim + 6) + [p]
+        fn.argtypes = [p, p, p] + [i] * n_ints + [p]
         fn.restype = i
         fns.append(fn)
     return StencilLib(name, lib, *fns)
@@ -81,11 +84,28 @@ def _load_stencil(name: str, dim: int) -> StencilLib:
 
 @functools.cache
 def lattice_stencil() -> StencilLib:
-    """The 2d lattice-stencil library (csrc/lattice_stencil.cu)."""
-    return _load_stencil("lattice_stencil", 2)
+    """The 2d lattice-stencil library (csrc/lattice_stencil.cu):
+    ``(J, X, Y, R, C, GCY, GCX, lo_r, lo_c, k_in, k_out, stream)``."""
+    return _load_stencil("lattice_stencil", 8)
 
 
 @functools.cache
 def lattice_stencil3d() -> StencilLib:
-    """The 3d lattice-stencil library (csrc/lattice_stencil3d.cu)."""
-    return _load_stencil("lattice_stencil3d", 3)
+    """The 3d lattice-stencil library (csrc/lattice_stencil3d.cu):
+    ``(J, X, Y, R, C, GCZ, GCY, GCX, lo_r, lo_c, k_in, k_out, stream)``."""
+    return _load_stencil("lattice_stencil3d", 9)
+
+
+@functools.cache
+def lattice_stencil_sharded() -> StencilLib:
+    """The 2d row-slab sharded library (csrc/lattice_stencil_sharded.cu):
+    ``(JP, X, Y, D, rl, G0, GX, GCXp, k, stream)``."""
+    return _load_stencil("lattice_stencil_sharded", 6)
+
+
+@functools.cache
+def lattice_stencil3d_sharded() -> StencilLib:
+    """The 3d row-slab sharded library
+    (csrc/lattice_stencil3d_sharded.cu):
+    ``(JP, X, Y, D, rl, G0, GY, GX, GCXp, k, stream)``."""
+    return _load_stencil("lattice_stencil3d_sharded", 7)

@@ -23,9 +23,11 @@ device of X: a CUDA tensor goes to the kernel in
 CPU tensor goes to `stencil_matvec_reference`, the slice formulation of
 ``cracks_tpu/solvers/lattice.py::matvec_block``.
 
-`pad_jac_sharded` / `stencil_matvec_sharded` run the same kernels once
-per shard of a row-slab sharded lattice (``parallel/sharding.py``),
-replacing the ``shard_map`` wrappers of the Pallas kernels.
+`pad_jac_sharded` / `stencil_matvec_sharded` compute the same product
+on a row-slab sharded lattice (``parallel/sharding.py``), replacing the
+``shard_map`` wrappers of the Pallas kernels: one launch for all shards
+of ``csrc/lattice_stencil_sharded.cu`` or
+``csrc/lattice_stencil3d_sharded.cu``.
 """
 
 from __future__ import annotations
@@ -163,63 +165,103 @@ def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 # global vertex rows i*rows_loc - 1 .. (i+1)*rows_loc (local rows
 # 0 .. rows_loc+1) and global cell rows i*rows_loc - 1 .. (i+1)*rows_loc
 # - 1 (local rows 0 .. rows_loc); the stencil reaches one row, so the
-# kernel's local output rows 1 .. rows_loc see both of their cell rows
-# and every X neighbour and are complete.  Rows outside the lattice
-# (shard 0's lower halo, the pad rows past G0) are zero in J and X, and
-# a zero J entry adds nothing to a sum the unsharded kernel skips, so
-# on the card each output equals the unsharded kernel's bit for bit:
-# the kernel sums each output vertex in a fixed order.  The TPU's
-# (8, 128) tile padding (``:162``, ``:196``) is not carried over.
+# local output rows 1 .. rows_loc see both of their cell rows and every
+# X neighbour and are complete.  Rows outside the lattice (shard 0's
+# lower halo, the pad rows past G0) are zero in J and X.
+#
+# The plain version writes that out per shard: a halo'd X per shard, the
+# exchange (`ppermute_rows`), the unsharded plain product per shard.
+# The CUDA kernel does it in one launch: each CTA reads its shard's slab
+# of the carrier and its X rows, halo rows included, from the global X,
+# skips the cells outside the lattice as the unsharded kernel does and
+# sums each output vertex in the same order, so on the card it equals
+# the unsharded kernel bit for bit.  The TPU's (8, 128) tile padding
+# (``:162``, ``:196``) is not carried over; the carrier's innermost cell
+# extent is padded to a multiple of 4 values instead, the 16-byte rows
+# that the kernel's TMA copies need.
+
+CARRIER_ALIGN = 4
+_FLOAT_TYPES = frozenset((torch.float32, torch.float64))
+
+
+def _carrier_width(gcx):
+    """The carrier's innermost cell extent: gcx padded to a multiple of
+    CARRIER_ALIGN values."""
+    return -(-gcx // CARRIER_ALIGN) * CARRIER_ALIGN
+
 
 def pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh):
-    """Per-shard halo'd layout of the J block rows [lo_r, hi_r), columns
-    [lo_c, hi_c), built once per Newton solve.  jac (R, C, GC0, *rest);
-    returns D contiguous blocks (hi_r-lo_r, hi_c-lo_c, rows_loc+1,
-    *rest): local cell row 0 is the previous shard's last cell row (zero
-    on shard 0), rows 1..rows_loc the shard's own, rows past GC0 zero.
-    The halo row travels i -> i+1 by `ppermute_rows`, as the JAX
-    wrapper's one ``ppermute`` at prepare time."""
+    """The stacked per-shard J carrier of the block rows [lo_r, hi_r),
+    columns [lo_c, hi_c), built once per Newton solve.  jac (R, C, GC0,
+    *rest); returns one contiguous (D, hi_r-lo_r, hi_c-lo_c, rows_loc+1,
+    *rest) tensor with the innermost extent padded by `_carrier_width`:
+    shard i's slab JP[i] holds at local cell row 0 the previous shard's
+    last cell row (zero on shard 0), at rows 1..rows_loc the shard's
+    own; rows past GC0 and the pad columns are zero.  The halo row
+    travels i -> i+1 by `ppermute_rows`, as the JAX wrapper's one
+    ``ppermute`` at prepare time."""
     from ..parallel.sharding import ppermute_rows
     if jac.device != mesh.device:
         raise ValueError(f"jac on {jac.device}, shards on {mesh.device}")
     blk = jac[lo_r:hi_r, lo_c:hi_c]
-    gc0 = blk.shape[2]
+    gc0, gcx = blk.shape[2], blk.shape[-1]
     rl = mesh.rows_loc(gc0 + 1)
-    shards = []
-    for i in range(mesh.n_shards):
-        jl = blk.new_empty(blk.shape[:2] + (rl + 1,) + blk.shape[3:])
+    D = mesh.n_shards
+    JP = blk.new_zeros((D,) + blk.shape[:2] + (rl + 1,) + blk.shape[3:-1]
+                       + (_carrier_width(gcx),))
+    for i in range(D):
         n = max(0, min(rl, gc0 - i * rl))
-        jl[:, :, 1:1 + n] = blk[:, :, i * rl:i * rl + n]
-        jl[:, :, 1 + n:].zero_()
-        shards.append(jl)
-    ppermute_rows([jl[:, :, rl:] for jl in shards], 1,
-                  [jl[:, :, :1] for jl in shards])
-    return shards
+        JP[i, :, :, 1:1 + n, ..., :gcx] = blk[:, :, i * rl:i * rl + n]
+    ppermute_rows([JP[i, :, :, rl:] for i in range(D)], 1,
+                  [JP[i, :, :, :1] for i in range(D)])
+    return JP
 
 
-def _sharded_product(local, JPs, X, mesh):
-    """The per-shard part of the sharded product: the halo'd X_loc
-    (k, rows_loc+2, *rest) of every shard, one vertex row exchanged each
-    way (`ppermute_rows`), `local(JP_i, X_loc_i)` per shard, its rows
+def check_sharded(JP, X, k, mesh):
+    """Validate a sharded product: X (k, G0, *rest) and the carrier JP of
+    `pad_jac_sharded` on the mesh's device, f32 or f64 of one dtype,
+    both contiguous, JP shaped (D, 2**dim*k, 2**dim*k, rows_loc+1,
+    *cellrest) with the padded innermost extent."""
+    dim = X.dim() - 1
+    if not (JP.device == X.device == mesh.device):
+        raise ValueError(f"carrier on {JP.device}, X on {X.device}, shards "
+                         f"on {mesh.device}")
+    if X.dtype not in _FLOAT_TYPES or JP.dtype != X.dtype:
+        raise TypeError(f"stencil_matvec_sharded takes f32 or f64 of one "
+                        f"dtype, got carrier {JP.dtype}, X {X.dtype}")
+    if dim not in (2, 3) or k not in (1, dim) or X.shape[0] != k:
+        raise ValueError(f"k={k} does not fit X {tuple(X.shape)}")
+    if not (JP.is_contiguous() and X.is_contiguous()):
+        raise ValueError("stencil_matvec_sharded needs a contiguous carrier "
+                         "and X")
+    kl = 2 ** dim * k
+    shape = X.shape
+    want = ((mesh.n_shards, kl, kl, mesh.rows_loc(shape[1]) + 1)
+            + tuple(g - 1 for g in shape[2:-1])
+            + (_carrier_width(shape[-1] - 1),))
+    if JP.shape != want:
+        raise ValueError(f"carrier {tuple(JP.shape)} does not fit X "
+                         f"{tuple(X.shape)} with k={k} on {mesh.n_shards} "
+                         f"shards: want {want}")
+
+
+def stencil_matvec_sharded_reference(JP, X, k, mesh):
+    """Plain version of `stencil_matvec_sharded`, per shard: the halo'd
+    X_loc (k, rows_loc+2, *rest) of every shard, one vertex row
+    exchanged each way (`ppermute_rows`), the unsharded plain product of
+    JP[i] (pad columns dropped) and X_loc per shard, its rows
     1..rows_loc kept, the shards concatenated and cut back to G0."""
     from ..parallel.sharding import ppermute_rows
+    check_sharded(JP, X, k, mesh)
     D = mesh.n_shards
-    k, g0 = X.shape[:2]
+    g0, gcx = X.shape[1], X.shape[-1] - 1
     rl = mesh.rows_loc(g0)
-    if len(JPs) != D or any(
-            tuple(jp.shape[2:]) != (rl + 1,) + tuple(g - 1 for g in
-                                                     X.shape[2:])
-            for jp in JPs):
-        raise ValueError(f"per-shard J {[tuple(j.shape) for j in JPs]} "
-                         f"does not fit X {tuple(X.shape)} on {D} shards")
-    if any(jp.device != X.device for jp in JPs):
-        raise ValueError(f"per-shard J on {JPs[0].device}, X on {X.device}")
+    kl = JP.shape[1]
     xs = []
     for i in range(D):
-        xl = X.new_empty((k, rl + 2) + X.shape[2:])
+        xl = X.new_zeros((k, rl + 2) + X.shape[2:])
         n = max(0, min(rl, g0 - i * rl))
         xl[:, 1:1 + n] = X[:, i * rl:i * rl + n]
-        xl[:, 1 + n:rl + 1].zero_()
         xs.append(xl)
     # up: last owned row to the next shard's lower halo; down: first
     # owned row to the previous shard's upper halo
@@ -227,38 +269,39 @@ def _sharded_product(local, JPs, X, mesh):
                   [xl[:, :1] for xl in xs])
     ppermute_rows([xl[:, 1:2] for xl in xs], -1,
                   [xl[:, rl + 1:] for xl in xs])
-    ys = [local(jp, xl)[:, 1:rl + 1] for jp, xl in zip(JPs, xs)]
+    # a contiguous slab (a copy only where there are pad columns), so
+    # the einsum blocks its sums as for an unpadded per-shard block
+    ys = [stencil_matvec_reference(JP[i, ..., :gcx].contiguous(), xl, 0, kl,
+                                   0, kl, k, k)[:, 1:rl + 1]
+          for i, xl in enumerate(xs)]
     return torch.cat(ys, dim=1)[:, :g0]
 
 
-def stencil_matvec_sharded_reference(JPs, X, k, mesh):
-    """Plain version of `stencil_matvec_sharded`: the same per-shard
-    layout and exchange, `stencil_matvec_reference` per shard."""
-    kl = JPs[0].shape[0]
-    return _sharded_product(
-        lambda jp, xl: stencil_matvec_reference(jp, xl, 0, kl, 0, kl, k,
-                                                k),
-        JPs, X, mesh)
-
-
-def stencil_matvec_sharded(JPs, X, k, mesh):
+def stencil_matvec_sharded(JP, X, k, mesh):
     """Y = J_block X on a row-slab sharded lattice: X (k, G0, *rest), the
-    global view; JPs from `pad_jac_sharded`.  CPU tensors use the plain
-    version; on CUDA tensors each shard launches the 2d or 3d kernel
-    (`stencil_matvec2d/3d`, which count their own launches too), and
-    each per-shard launch adds one to
+    global view; JP from `pad_jac_sharded`.  CPU tensors use the plain
+    version; CUDA tensors launch the 2d or 3d sharded kernel once for
+    all shards, and each launch adds one to
     `stencil_matvec_sharded.launches`."""
+    check_sharded(JP, X, k, mesh)
     if X.device.type == "cpu":
-        return stencil_matvec_sharded_reference(JPs, X, k, mesh)
-    kernel = stencil_matvec3d if X.dim() == 4 else stencil_matvec2d
-    kl = JPs[0].shape[0]
-
-    def local(jp, xl):
-        Y = kernel(jp, xl, 0, kl, 0, kl, k, k)
-        stencil_matvec_sharded.launches += 1
-        return Y
-
-    return _sharded_product(local, JPs, X, mesh)
+        return stencil_matvec_sharded_reference(JP, X, k, mesh)
+    if X.device.type != "cuda":
+        raise ValueError(f"the sharded stencil kernel takes CUDA tensors, "
+                         f"got {X.device}")
+    dim = X.dim() - 1
+    lib = (kernels.lattice_stencil_sharded() if dim == 2
+           else kernels.lattice_stencil3d_sharded())
+    fn = lib.f32 if X.dtype == torch.float32 else lib.f64
+    Y = torch.empty_like(X)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(JP.data_ptr(), X.data_ptr(), Y.data_ptr(), mesh.n_shards,
+                 JP.shape[3] - 1, *X.shape[1:], JP.shape[-1], k, stream)
+    if err != 0:
+        raise RuntimeError(f"{lib.name} launch failed: error {err}")
+    stencil_matvec_sharded.launches += 1
+    return Y
 
 
 stencil_matvec_sharded.launches = 0

@@ -9,9 +9,11 @@ Execution model, the JAX package's own: one controller.  Code outside
 the two sharded stencil wrappers (`ops.stencil.pad_jac_sharded`,
 `ops.stencil.stencil_matvec_sharded`, JAX's two ``shard_map`` regions)
 is global-view torch code on whole tensors; under JAX, GSPMD partitions
-it.  Inside the wrappers the work is written per shard: D per-shard
-tensors, an explicit halo exchange (`ppermute_rows`) and one kernel
-launch per shard.
+it.  Inside the wrappers the work is per shard: the J carrier holds one
+slab per shard, built once per solve with an explicit halo exchange
+(`ppermute_rows`); the product's plain version writes out the per-shard
+X and its exchange, while its CUDA kernel is one launch for all shards
+that reads the halo rows from the neighbour slabs of the global X.
 
 Layout: a vertex lattice with G0 rows along its leading grid axis is
 padded with zero rows to gyp = ceil(G0/D)*D, and shard i owns rows

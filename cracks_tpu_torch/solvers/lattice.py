@@ -26,8 +26,9 @@ iterate with the stored f64 operator.  It runs on lattice-layout state
 (`solve_lattice_lat`, whose vectors may carry zero pad rows up to the
 sharded extent gyp, ``parallel/sharding.py``); `solve_lattice` is its
 flat-vector entry for the replicated Newton.  With a shard mesh the
-f32 fine-level operator of the CG loop and the V-cycle runs per shard
-(`ops.stencil.stencil_matvec_sharded`); everything else is global-view.
+f32 fine-level operator of the CG loop and the V-cycle is the sharded
+product (`ops.stencil.stencil_matvec_sharded`, one launch for all
+shards); everything else is global-view.
 """
 
 from __future__ import annotations
@@ -623,9 +624,9 @@ def _prepare_levels(jacs, dir_u, dir_p, active, *, grid, which, dim,
     lattice-layout active mask (1, gyp, ...), built once per Newton
     solve (JAX ``_prepare_levels_lat``).  The coarse Cholesky is
     factored in f64 and handed to the f32 CG pass as an f32 factor.
-    With a shard mesh the finest f32 block is also laid out per shard
-    (`pad_jac_sharded`) for the sharded fine operator of `_cg_pass32`;
-    fine_pad is None without one.  Returns (levels, coarse32,
+    With a shard mesh the finest f32 block is also laid out as the
+    stacked per-shard carrier (`pad_jac_sharded`) for the sharded fine
+    operator of `_cg_pass32`; fine_pad is None without one.  Returns (levels, coarse32,
     fine_pad)."""
     k, lo, hi = _blk(which, dim)
     levels = _build_block_levels(list(jacs), dir_u, dir_p, grid,
@@ -666,8 +667,8 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     lowers it to 96 above 600k DoFs only to bound one TPU execution's
     time.  With fine_pad (a shard mesh), the finest level's operator,
     the dominant product of both the CG loop and the V-cycle smoother,
-    runs per shard (`stencil_matvec_sharded`), as the JAX pass runs the
-    Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).  The
+    is the sharded product (`stencil_matvec_sharded`), as the JAX pass
+    runs the Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).  The
     exit test reads one scalar per iteration back to the host; the next
     iteration's work is queued before that read, so the card stays busy
     while the host waits."""
@@ -762,7 +763,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     stored-matrix residual.  U (dim, gyp, ...), the phase fields, the
     active mask and the right-hand sides (k, gyp, ...), with zero pad
     rows past the lattice's G0 rows (gyp = G0 without a shard mesh).
-    With `sys.shard_mesh` the f32 fine-level operator runs per shard.
+    With `sys.shard_mesh` the f32 fine-level operator is the sharded one.
     Returns padded (DU, DP, total CG iterations) on the free dofs."""
     hier: LatticeHierarchy = sys.lattice_hierarchy
     p = sys.params

@@ -170,15 +170,17 @@ def profiled(dim, refine, shards, out_path):
     dev_total = sum(t for t, _ in by_name.values())
     print(f"device busy {busy / 1e6:.3f} s of {wall:.3f} s wall: idle "
           f"share {100 * (1 - busy / 1e6 / wall):.1f} %; {len(kern)} "
-          f"device events; stencil launches {kernel.launches}, of them "
-          f"per-shard {stencil.stencil_matvec_sharded.launches}")
+          f"device events; unsharded stencil launches {kernel.launches}, "
+          f"sharded-product launches "
+          f"{stencil.stencil_matvec_sharded.launches} (one per fine-level "
+          f"product)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:
         print(f"  {t / 1e3:9.2f} ms {100 * t / dev_total:5.1f} % {n:7d}x  "
               f"{name[:90]}")
     print("stencil kernel variants (all levels, both load steps):")
     for name, (t, n) in sorted(by_name.items()):
-        if "lattice_stencil" in name:
+        if "lattice_stencil" in name or "sharded_kernel" in name:
             print(f"  {t / 1e3:9.2f} ms {n:7d}x  {name[:100]}")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:

@@ -8,9 +8,11 @@ The CUDA stencil kernels (2d and 3d) are held against their plain
 PyTorch version on the card, at small non-square lattices, for every
 block the lattice solve uses and both dtypes (f32: rtol 1e-5,
 atol 1e-4 * max|Y|, the bounds of tests/test_pallas_stencil.py; f64:
-rtol 1e-12, atol 1e-11 * max|Y|).  The row-slab sharded wrapper
-(D per-shard launches of the same kernels) equals the unsharded kernel
-bit for bit, for D in {2, 4}.  The main path at refine 3 on the card,
+rtol 1e-12, atol 1e-11 * max|Y|).  The row-slab sharded kernels (one
+launch for all D shards) equal the unsharded kernel bit for bit, for D
+in {1, 2, 3, 4, 8} (on D = 8 the last shard owns only pad rows), and
+the plain version within the same tolerances.  The main path at refine
+3 on the card,
 replicated and with dof_sharding = lattice on 4 shards, agrees with
 the CPU run (plain versions) to rel 1e-7 in the energies."""
 
@@ -94,9 +96,12 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_sharded_wrapper_matches_unsharded_kernel(cuda, dim, D, dtype):
+    """One launch per product, bit for bit equal to the unsharded kernel,
+    within tolerance of the plain version.  41 rows on D = 8: the last
+    shard owns rows 42-47, all pad; 10 planes on D = 8: shards 5-7."""
     from cracks_tpu_torch.parallel.sharding import make_shard_mesh
     rng = np.random.default_rng(4)
     if dim == 2:
@@ -110,30 +115,44 @@ def test_sharded_wrapper_matches_unsharded_kernel(cuda, dim, D, dtype):
     for k, lo, hi in blocks:
         X = torch.as_tensor(rng.normal(size=(k,) + grid), dtype=dtype,
                             device=cuda)
-        JPs = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+        JP = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
         before = stencil.stencil_matvec_sharded.launches
-        y = stencil.stencil_matvec_sharded(JPs, X, k, mesh)
-        assert stencil.stencil_matvec_sharded.launches == before + D
+        y = stencil.stencil_matvec_sharded(JP, X, k, mesh)
+        assert stencil.stencil_matvec_sharded.launches == before + 1
+        torch.cuda.synchronize()
         assert torch.equal(y, stencil.stencil_matvec(jac, X, lo, hi, lo, hi,
                                                      k, k))
-        ref = stencil.stencil_matvec_reference(jac, X, lo, hi, lo, hi, k, k)
         rtol, atol = ((1e-5, 1e-4) if dtype == torch.float32
                       else (1e-12, 1e-11))
-        torch.testing.assert_close(y, ref, rtol=rtol,
-                                   atol=atol * float(ref.abs().max()))
+        for ref in (stencil.stencil_matvec_reference(jac, X, lo, hi, lo, hi,
+                                                     k, k),
+                    stencil.stencil_matvec_sharded_reference(JP, X, k, mesh)):
+            torch.testing.assert_close(y, ref, rtol=rtol,
+                                       atol=atol * float(ref.abs().max()))
 
 
 @pytest.mark.cuda
 def test_sharded_wrapper_rejects_mixed_devices(cuda):
-    """A CUDA X with per-shard J on the CPU raises before any launch."""
+    """A CPU carrier with a CUDA X, a non-contiguous X, a wrong k and a
+    half-precision pair raise before any launch; none falls back to the
+    plain version."""
     from cracks_tpu_torch.parallel.sharding import make_shard_mesh
     cpu = torch.device("cpu")
-    JPs = stencil.pad_jac_sharded(torch.zeros((12, 12, 6, 7)), 0, 8, 0, 8,
-                                  make_shard_mesh([cpu] * 2))
+    mesh = make_shard_mesh([cuda] * 2)
+    JP_cpu = stencil.pad_jac_sharded(torch.zeros((12, 12, 6, 7)), 0, 8, 0, 8,
+                                     make_shard_mesh([cpu] * 2))
+    JP = JP_cpu.to(cuda)
     X = torch.zeros((2, 7, 8), device=cuda)
     before = stencil.stencil_matvec_sharded.launches
     with pytest.raises(ValueError):
-        stencil.stencil_matvec_sharded(JPs, X, 2, make_shard_mesh([cuda] * 2))
+        stencil.stencil_matvec_sharded(JP_cpu, X, 2, mesh)
+    with pytest.raises(ValueError):
+        stencil.stencil_matvec_sharded(
+            JP, X.transpose(1, 2).contiguous().transpose(1, 2), 2, mesh)
+    with pytest.raises(ValueError):
+        stencil.stencil_matvec_sharded(JP, X[:1].contiguous(), 1, mesh)
+    with pytest.raises(TypeError):
+        stencil.stencil_matvec_sharded(JP.half(), X.half(), 2, mesh)
     assert stencil.stencil_matvec_sharded.launches == before
 
 

@@ -9,12 +9,15 @@ package, on the CPU (the per-shard products use the plain version):
     runs D = 8 and D = 3.  f32: rtol 1e-5, atol 1e-4 (that file's
     bounds).
 (b) the port's sharded product against its unsharded plain product for
-    D in {1, 2, 3, 8}: rtol 1e-6 in f32, 1e-14 in f64 (the per-shard
-    einsums may block their sums differently by shape).
+    D in {1, 2, 3, 8}, and on a 10-row lattice where whole shards own
+    only pad rows (D in {6, 8}): rtol 1e-6 in f32, 1e-14 in f64 (the
+    per-shard einsums may block their sums differently by shape).
 (c) the gather-free lattice residual and element matrices against JAX
     (`lattice_residual`, `_prepare64_lat` on row-padded state) in 2d
     and 3d, f64, rel 1e-12.
-Plus the layout helpers of parallel/sharding.py."""
+Plus the stacked carrier's layout, the shared validation of a sharded
+product (which the CUDA path runs too) and the layout helpers of
+parallel/sharding.py."""
 
 import functools
 
@@ -104,32 +107,94 @@ def test_sharded_matches_unsharded_plain(dim, dtype, rtol, D):
     mesh = _mesh(D)
     for k, lo, hi in CASES[dim][1]:
         jac, X = (torch.as_tensor(a) for a in _inputs(7, dim, k, dtype))
-        JPs = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+        JP = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
         rl = mesh.rows_loc(X.shape[1])
-        assert len(JPs) == D and all(
-            j.is_contiguous() and tuple(j.shape) == (hi - lo, hi - lo, rl + 1)
-            + tuple(jac.shape[3:]) for j in JPs)
-        y = stencil.stencil_matvec_sharded(JPs, X, k, mesh)
+        gcx = jac.shape[-1]
+        assert JP.is_contiguous() and tuple(JP.shape) == (
+            (D, hi - lo, hi - lo, rl + 1) + tuple(jac.shape[3:-1])
+            + (-(-gcx // 4) * 4,))
+        y = stencil.stencil_matvec_sharded(JP, X, k, mesh)
         ref = stencil.stencil_matvec_reference(jac, X, lo, hi, lo, hi, k, k)
         assert y.dtype == ref.dtype and y.shape == ref.shape
         np.testing.assert_allclose(y.numpy(), ref.numpy(), rtol=rtol,
                                    atol=0)
 
 
-def test_pad_jac_sharded_layout():
-    """Local cell row 0 is the previous shard's last cell row (zero on
+@pytest.mark.parametrize("D", [6, 8])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sharded_with_pad_only_shards_matches_unsharded_plain(dim, D):
+    """G0 = 10 rows: rows_loc 2, so shards 5.. own only pad rows."""
+    grid = (10, 13) if dim == 2 else (10, 5, 7)
+    mesh = _mesh(D)
+    assert mesh.rows_loc(10) == 2 and (D - 1) * 2 >= 10
+    rng = np.random.default_rng(11)
+    ndl = 2 ** dim * (dim + 1)
+    jac = torch.as_tensor(rng.normal(size=(ndl, ndl) + tuple(
+        g - 1 for g in grid)))
+    for k, lo, hi in CASES[dim][1]:
+        X = torch.as_tensor(rng.normal(size=(k,) + grid))
+        JP = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+        assert not JP[5:].any()
+        y = stencil.stencil_matvec_sharded(JP, X, k, mesh)
+        ref = stencil.stencil_matvec_reference(jac, X, lo, hi, lo, hi, k, k)
+        np.testing.assert_allclose(y.numpy(), ref.numpy(), rtol=1e-14,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("rest", [(3,), (2, 5)], ids=["2d", "3d"])
+def test_pad_jac_sharded_layout(rest):
+    """One contiguous (D, kl, kl, rows_loc+1, *rest) carrier, the
+    innermost extent padded to a multiple of 4 with zeros: in slab i,
+    local cell row 0 is the previous shard's last cell row (zero on
     shard 0); rows past the lattice are zero."""
     G0, GC0 = 43, 42
-    jac = torch.arange(2 * 2 * GC0 * 3, dtype=torch.float64).reshape(
-        2, 2, GC0, 3) + 1.0
+    jac = torch.arange(2 * 2 * GC0 * int(np.prod(rest)),
+                       dtype=torch.float64).reshape(2, 2, GC0, *rest) + 1.0
     mesh = _mesh(8)                    # gyp 48, 6 rows per shard
     assert (mesh.padded(G0), mesh.rows_loc(G0)) == (48, 6)
-    JPs = stencil.pad_jac_sharded(jac, 0, 2, 0, 2, mesh)
-    for i, jl in enumerate(JPs):
+    JP = stencil.pad_jac_sharded(jac, 0, 2, 0, 2, mesh)
+    assert JP.is_contiguous()
+    assert tuple(JP.shape) == (8, 2, 2, 7) + rest[:-1] + (-(-rest[-1] // 4) * 4,)
+    assert not JP[..., rest[-1]:].any()
+    for i in range(8):
         for r in range(7):
             g = i * 6 - 1 + r           # global cell row of local row r
-            want = jac[:, :, g] if 0 <= g < GC0 else torch.zeros(2, 2, 3, dtype=torch.float64)
-            torch.testing.assert_close(jl[:, :, r], want, rtol=0, atol=0)
+            want = (jac[:, :, g] if 0 <= g < GC0
+                    else torch.zeros((2, 2) + rest, dtype=torch.float64))
+            torch.testing.assert_close(JP[i, :, :, r, ..., :rest[-1]], want,
+                                       rtol=0, atol=0)
+
+
+def test_sharded_validation_raises_on_cpu():
+    """`check_sharded`, which the CUDA path runs before its launch too,
+    refuses a carrier whose rows, width, k or device do not fit X or the
+    mesh, a dtype other than f32/f64 and a non-contiguous X."""
+    mesh = _mesh(4)
+    jac = torch.zeros((12, 12, 40, 36))
+    X = torch.zeros((2, 41, 37))
+    JP = stencil.pad_jac_sharded(jac, 0, 8, 0, 8, mesh)
+    stencil.check_sharded(JP, X, 2, mesh)
+    bad = {
+        "rows": (stencil.pad_jac_sharded(jac, 0, 8, 0, 8, _mesh(3)), X, 2,
+                 mesh),
+        "width": (JP[..., :-4].contiguous(), X, 2, mesh),
+        "k": (JP, X[:1].contiguous(), 1, mesh),
+        "block": (stencil.pad_jac_sharded(jac, 8, 12, 8, 12, mesh), X, 2,
+                  mesh),
+        "device": (JP.to("meta"), X, 2, mesh),
+        "mesh device": (JP, X, 2, sharding.ShardMesh(4, torch.device(
+            "meta"))),
+        "non-contiguous X": (JP, X.transpose(1, 2).contiguous()
+                             .transpose(1, 2), 2, mesh),
+    }
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            stencil.stencil_matvec_sharded(*args)
+    for dt in (torch.float16, torch.int32):
+        with pytest.raises(TypeError):
+            stencil.stencil_matvec_sharded(JP.to(dt), X.to(dt), 2, mesh)
+    with pytest.raises(TypeError):
+        stencil.stencil_matvec_sharded(JP, X.double(), 2, mesh)
 
 
 def test_ppermute_rows_and_row_padding():
