@@ -7,13 +7,15 @@ without printing the final line:
 
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and the torch/CUDA versions;
-2. build: compiles the four stencil kernels from cracks_tpu_torch/csrc/
-   (2d and 3d, unsharded and row-slab sharded) with nvcc, one compiler
-   per source, all started together (timed), and prints what ptxas says
-   of each (registers, shared memory, spills);
+2. build: compiles the four stencil libraries from cracks_tpu_torch/csrc/
+   (2d and 3d, unsharded and row-slab sharded; the 3d unsharded library
+   holds the one-thread-per-vertex kernel of its f32 entry point and the
+   streaming kernel of its f64 entry point) with nvcc, one compiler per
+   source, all started together (timed), and prints what ptxas says of
+   each (registers, shared memory, spills);
 3. kernel vs plain, 2d and 3d: each kernel against its plain PyTorch
    version on the card, at the main paths' shapes (2d: refine-6 Sneddon,
-   640x640 cells; 3d: refine-3 Sneddon, 80^3 cells) for the four
+   640x640 cells; 3d: refine-3 Sneddon, 80^3 cells) for the five
    stencil products the solve runs, from seeded numpy inputs.  The
    kernel, the plain version and the library yardstick (the same block
    assembled once as a torch.sparse CSR matrix, times X) are timed with
@@ -30,7 +32,9 @@ without printing the final line:
    same way, beside its plain version (the per-shard plain products
    with the halo exchange) and the same CSR call, with a bound that adds
    the halo bytes (the per-shard J halo rows and two X rows per shard)
-   to J + X + Y;
+   to J + X + Y.  The 3d f64 square blocks (u and phase field) of the
+   streaming kernel must equal the sharded kernel at D = 1 in f64 bit
+   for bit;
 4. main paths, small: the port's Simulation on the card and on the CPU
    (plain versions) at 2d refine 3 and 3d refine 1, replicated and with
    dof_sharding = lattice on 4 shards; the energies must agree to rel
@@ -50,8 +54,9 @@ without printing the final line:
    sharded kernel, once.
    In 5 to 7 every step must converge without a time-step cut, with
    finite statistics and positive bulk energy, and the path's kernels
-   must be launched: their counts are set to 0 just before the run and
-   read just after.
+   must be launched (in 3d the f32 one-thread-per-vertex kernel and the
+   f64 streaming kernel each): their counts are set to 0 just before
+   the run and read just after.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -78,10 +83,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # f32: the bounds of tests/test_pallas_stencil.py; f64: rounding-level
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
 f32, f64 = torch.float32, torch.float64
-# per kernel: its cell grid on the main path and the four products the
+# per kernel: its cell grid on the main path and the five products the
 # solve runs, (name, dtype, lo_r, hi_r, lo_c, hi_c, k_in, k_out): the u
 # block and the phase-field block of the f32 CG pass / V-cycle, and the
-# f64 u block and J_pu coupling block of the refinement residual
+# f64 u block, J_pu coupling block and phase-field block of the
+# refinement residual
 KERNELS = [
     dict(name="lattice_stencil", dim=2, cells=(640, 640),
          sharded="lattice_stencil_sharded",
@@ -90,7 +96,8 @@ KERNELS = [
          shapes=[("f32 u block", f32, 0, 8, 0, 8, 2, 2),
                  ("f32 phi block", f32, 8, 12, 8, 12, 1, 1),
                  ("f64 u block", f64, 0, 8, 0, 8, 2, 2),
-                 ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1)]),
+                 ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1),
+                 ("f64 phi block", f64, 8, 12, 8, 12, 1, 1)]),
     dict(name="lattice_stencil3d", dim=3, cells=(80, 80, 80),
          sharded="lattice_stencil3d_sharded",
          replaces="cracks_tpu/ops/pallas_stencil.py:232",
@@ -98,7 +105,11 @@ KERNELS = [
          shapes=[("f32 u block", f32, 0, 24, 0, 24, 3, 3),
                  ("f32 phi block", f32, 24, 32, 24, 32, 1, 1),
                  ("f64 u block", f64, 0, 24, 0, 24, 3, 3),
-                 ("f64 J_pu block", f64, 24, 32, 0, 24, 3, 1)]),
+                 ("f64 J_pu block", f64, 24, 32, 0, 24, 3, 1),
+                 ("f64 phi block", f64, 24, 32, 24, 32, 1, 1)],
+         f64_route=dict(name="lattice_stencil3d_stream",
+                        source="cracks_tpu_torch/csrc/"
+                               "lattice_stencil3d_stream.cuh")),
 ]
 # the main paths: small (dim, refine, DoFs) and full size dim -> (refine,
 # DoFs)
@@ -247,6 +258,29 @@ def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
                 mb=nbytes / 1e6)
 
 
+def sharded_d1_diff(spec, name, jac, X, lo, hi, k, y):
+    """The sharded kernel at D = 1 on one f64 square block of the kernel
+    phase's inputs must equal the unsharded kernel's Y bit for bit (the
+    same order of terms on the same values); returns max |difference|,
+    0.0."""
+    from cracks_tpu_torch.ops.stencil import (pad_jac_sharded,
+                                              stencil_matvec_sharded)
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    mesh = make_shard_mesh(["cuda"])
+    JP = pad_jac_sharded(jac, lo, hi, lo, hi, mesh)
+    ys = stencil_matvec_sharded(JP, X, k, mesh)
+    torch.cuda.synchronize()
+    diff = float((ys - y).abs().max())
+    if diff != 0.0 or not torch.equal(ys, y):
+        raise AssertionError(f"{spec['name']} {name}: differs from the "
+                             f"sharded kernel at D = 1, max |diff| "
+                             f"{diff:.3e}")
+    print(f"{spec['name']} {name}: max|kernel - sharded kernel at D=1| "
+          f"{diff:.1e}")
+    del JP, ys
+    return diff
+
+
 def kernel_phase(spec):
     """Kernel vs plain version vs CSR yardstick at one kernel's main-path
     shapes, and the sharded product of the f32 square blocks; returns
@@ -315,6 +349,9 @@ def kernel_phase(spec):
         if dt == f32 and (lo_r, k_in) == (lo_c, k_out):
             sharded.append(sharded_record(spec, name, jac, X, lo_r, hi_r,
                                           k_in, y, flush, library_ms))
+        if dt == f64 and dim == 3 and (lo_r, k_in) == (lo_c, k_out):
+            records[-1]["max_abs_diff_sharded_d1"] = sharded_d1_diff(
+                spec, name, jac, X, lo_r, hi_r, k_in, y)
         del jac, X, y, xf
         torch.cuda.empty_cache()
     del jac64, x64, flush
@@ -423,9 +460,11 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
     torch.cuda.reset_peak_memory_stats()
     stencil.stencil_matvec2d.launches = 0
     stencil.stencil_matvec3d.launches = 0
+    stencil.stencil_matvec3d.f64_launches = 0
     stencil.stencil_matvec_sharded.launches = 0
     sim.run()
     launches = kernel.launches
+    f64_launches = stencil.stencil_matvec3d.f64_launches
     sharded = stencil.stencil_matvec_sharded.launches
     torch.cuda.synchronize()
     steps = len(sim.solver_effort)
@@ -441,7 +480,12 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         raise AssertionError("bulk energy is not positive")
     if launches <= 0:
         raise AssertionError(f"the {label} never launched its kernel")
+    if dim == 3 and not 0 < f64_launches < launches:
+        raise AssertionError(f"the {label} launched the f64 streaming "
+                             f"kernel {f64_launches} times in {launches} "
+                             "3d launches")
     out = dict(energies=_energies(sim), launches=launches, sharded=sharded,
+               f64_launches=f64_launches,
                newton=[e[1] for e in sim.solver_effort])
     print(f"{label}: host setup (forest, mesh) {host_s:.2f} s, "
           f"setup system {sim.timer.wall['Setup system']:.2f} s")
@@ -449,9 +493,10 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
             sim.solver_effort, sim.step_times):
         print(f"{label} step {step}: {secs:.2f} s, {newton_its} Newton its,"
               f" {lin_its} linear its, active set {n_active}")
-    print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches}, "
-          f"sharded-kernel launches {sharded}, peak device memory "
-          f"{torch.cuda.max_memory_allocated()} B")
+    print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches} "
+          f"({f64_launches} f64), sharded-kernel launches {sharded}, peak "
+          f"device memory {torch.cuda.max_memory_allocated()} B, energies "
+          f"{[repr(float(e)) for e in out['energies'].ravel()]}")
     if replicated is not None:
         mesh = sim.sys.shard_mesh
         print(f"{label}: {mesh.n_shards} shards of the "
@@ -489,15 +534,32 @@ def main():
                     for dim in full}
     entries = []
     for k in KERNELS:
-        head = records[k["name"]][0][0]   # the f32 u block: the main product
+        shapes = records[k["name"]][0]
+        run = full[k["dim"]]
+        if "f64_route" in k:    # the f64 products: the streaming kernel
+            f64_shapes = [r for r in shapes if r["dtype"] == "float64"]
+            shapes = [r for r in shapes if r["dtype"] == "float32"]
+            head = f64_shapes[0]          # the f64 u block
+            entries.append({
+                "name": k["f64_route"]["name"], "route": "cuda",
+                "source": k["f64_route"]["source"],
+                "wrapper": "cracks_tpu_torch/ops/stencil.py:"
+                           "stencil_matvec3d (f64)",
+                "replaces": k["replaces"], "launches": run["f64_launches"],
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "shapes": f64_shapes})
+        head = shapes[0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
             "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
-            "replaces": k["replaces"], "launches": full[k["dim"]]["launches"],
+            "replaces": k["replaces"],
+            "launches": run["launches"] - run["f64_launches"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": records[k["name"]][0]})
+            "shapes": shapes})
         head = records[k["name"]][1][0]   # the sharded f32 u block
         entries.append({
             "name": k["sharded"], "route": "cuda",

@@ -38,13 +38,23 @@
 // (8, 128) margin, so no padded copy of J exists.  Every offset is
 // 64-bit: the full J tensor at refine 3 holds 5.2e8 values.  The TPU
 // schedule (64 double-buffered corner-pair DMAs into VMEM tiles) is
-// not carried over; shared-memory/TMA tiling is later work.
+// not carried over.
+//
+// That design serves the f32 entry point.  The f64 entry point, which
+// runs the refinement residual's products (the u block, the phase-field
+// block, J_pu), launches the streaming kernel of
+// lattice_stencil3d_stream.cuh instead: J through a ring of
+// shared-memory slots filled by TMA (cp.async on odd rows), threads
+// flattened over whole vertex rows.  Both sum in the same order and
+// give the same bits.
 //
 // The kernel allocates nothing and runs on the caller's stream; each
 // entry point returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "lattice_stencil3d_stream.cuh"
 
 namespace {
 
@@ -141,10 +151,30 @@ extern "C" int lattice_stencil3d_f32(const float* J, const float* X,
                          k_out, stream);
 }
 
+// Ring slots and tile rows of the streaming kernel per (k_in, k_out):
+// for the three blocks the main path launches, the fastest of the
+// variants scripts/tune_stencil3d_f64.py timed on an H100 at 80^3
+// cells; J_up, which it does not launch, within 2 % of its fastest.
 extern "C" int lattice_stencil3d_f64(const double* J, const double* X,
                                      double* Y, int R, int C, int GCZ,
                                      int GCY, int GCX, int lo_r, int lo_c,
-                                     int k_in, int k_out, void* stream) {
-  return dispatch<double>(J, X, Y, R, C, GCZ, GCY, GCX, lo_r, lo_c, k_in,
-                          k_out, stream);
+                                     int k_in, int k_out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (k_in == 3 && k_out == 3) {
+    return stream3d::launch<3, 3, 1>(J, X, Y, R, C, GCZ, GCY, GCX, lo_r,
+                                     lo_c, 3, stream);
+  }
+  if (k_in == 1 && k_out == 1) {
+    return stream3d::launch<1, 1, 1>(J, X, Y, R, C, GCZ, GCY, GCX, lo_r,
+                                     lo_c, 2, stream);
+  }
+  if (k_in == 3 && k_out == 1) {
+    return stream3d::launch<3, 1, 1>(J, X, Y, R, C, GCZ, GCY, GCX, lo_r,
+                                     lo_c, 3, stream);
+  }
+  if (k_in == 1 && k_out == 3) {
+    return stream3d::launch<1, 3, 2>(J, X, Y, R, C, GCZ, GCY, GCX, lo_r,
+                                     lo_c, 2, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

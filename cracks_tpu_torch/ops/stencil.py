@@ -19,9 +19,10 @@ or the rectangular J_pu coupling (k_in = dim, k_out = 1).
 device of X: a CUDA tensor goes to the kernel in
 ``csrc/lattice_stencil.cu`` (replacing the Pallas TPU kernel
 ``cracks_tpu/ops/pallas_stencil.py::_kernel``) or
-``csrc/lattice_stencil3d.cu`` (replacing ``::_kernel3d``), or raises; a
-CPU tensor goes to `stencil_matvec_reference`, the slice formulation of
-``cracks_tpu/solvers/lattice.py::matvec_block``.
+``csrc/lattice_stencil3d.cu`` (replacing ``::_kernel3d``; its f64
+products stream J through ``csrc/lattice_stencil3d_stream.cuh``), or
+raises; a CPU tensor goes to `stencil_matvec_reference`, the slice
+formulation of ``cracks_tpu/solvers/lattice.py::matvec_block``.
 
 `pad_jac_sharded` / `stencil_matvec_sharded` compute the same product
 on a row-slab sharded lattice (``parallel/sharding.py``), replacing the
@@ -131,15 +132,20 @@ def stencil_matvec2d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 def stencil_matvec3d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
     """The 3d CUDA kernel on CUDA tensors (jac (R, C, GCZ, GCY, GCX), X
     (k_in, GZ, GY, GX)); each launch adds one to
-    `stencil_matvec3d.launches`."""
+    `stencil_matvec3d.launches`, and an f64 launch (the streaming kernel
+    of ``csrc/lattice_stencil3d_stream.cuh``) also to
+    `stencil_matvec3d.f64_launches`."""
     Y = _launch(kernels.lattice_stencil3d, 3, jac, X, lo_r, hi_r, lo_c,
                 hi_c, k_in, k_out)
     stencil_matvec3d.launches += 1
+    if X.dtype == torch.float64:
+        stencil_matvec3d.f64_launches += 1
     return Y
 
 
 stencil_matvec2d.launches = 0
 stencil_matvec3d.launches = 0
+stencil_matvec3d.f64_launches = 0
 
 
 def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):

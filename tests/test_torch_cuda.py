@@ -8,7 +8,13 @@ The CUDA stencil kernels (2d and 3d) are held against their plain
 PyTorch version on the card, at small non-square lattices, for every
 block the lattice solve uses and both dtypes (f32: rtol 1e-5,
 atol 1e-4 * max|Y|, the bounds of tests/test_pallas_stencil.py; f64:
-rtol 1e-12, atol 1e-11 * max|Y|).  The row-slab sharded kernels (one
+rtol 1e-12, atol 1e-11 * max|Y|).  The f64 3d products (the streaming
+kernel of csrc/lattice_stencil3d_stream.cuh) are held against the plain
+version for all four (k_in, k_out) pairs on cell grids with odd rows
+(8-byte cp.async copies) and even rows (TMA boxes), rows cut into tiles
+(more than 256 vertices), row counts not a multiple of the tile's and a
+J whose first value is not 16-byte aligned, and the square blocks
+against the sharded kernel at D = 1 bit for bit.  The row-slab sharded kernels (one
 launch for all D shards) equal the unsharded kernel bit for bit, for D
 in {1, 2, 3, 4, 8} (on D = 8 the last shard owns only pad rows), and
 the plain version within the same tolerances.  The main path at refine
@@ -27,6 +33,11 @@ from cracks_tpu_torch.ops import stencil
 BLOCKS = [(0, 8, 0, 8, 2, 2), (8, 12, 8, 12, 1, 1), (8, 12, 0, 8, 2, 1)]
 BLOCKS3 = [(0, 24, 0, 24, 3, 3), (24, 32, 24, 32, 1, 1),
            (24, 32, 0, 24, 3, 1)]
+# the f64 streaming kernel's cell grids: odd rows (8-byte copies), even
+# rows (TMA boxes), rows of more than 256 vertices cut into tiles,
+# even and odd; 13, 10, 5 and 6 vertex rows leave a partial last tile
+# at 2 or 3 rows a tile
+GRIDS3_F64 = [(9, 12, 37), (7, 9, 38), (2, 4, 300), (3, 5, 301)]
 
 
 @pytest.fixture
@@ -72,6 +83,45 @@ def test_kernel3d_matches_plain_version(cuda, dtype, block):
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-11)
     torch.testing.assert_close(y, ref, rtol=rtol,
                                atol=atol * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", GRIDS3_F64 + [(5, 6, 38, "unaligned")],
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("block", BLOCKS3 + [(0, 24, 24, 32, 1, 3)])
+def test_kernel3d_f64_stream_matches_plain_version(cuda, cells, block):
+    """The f64 3d products against the plain version; the square blocks
+    also bit for bit against the sharded kernel at D = 1.  "unaligned":
+    J starts 8 bytes past a 16-byte boundary, so an even row takes the
+    8-byte copies."""
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    lo_r, hi_r, lo_c, hi_c, k_in, k_out = block
+    rng = np.random.default_rng(5)
+    cells, unaligned = tuple(cells[:3]), len(cells) > 3
+    values = rng.normal(size=(32, 32) + cells)
+    if unaligned:
+        buf = torch.empty(values.size + 1, dtype=torch.float64, device=cuda)
+        jac = buf[1:].view(values.shape)
+        jac.copy_(torch.as_tensor(values))
+        assert jac.data_ptr() % 16 == 8
+    else:
+        jac = torch.as_tensor(values, device=cuda)
+    X = torch.as_tensor(rng.normal(size=(k_in,) + tuple(c + 1 for c in cells)),
+                        device=cuda)
+    before = (stencil.stencil_matvec3d.launches,
+              stencil.stencil_matvec3d.f64_launches)
+    y = stencil.stencil_matvec(jac, X, *block)
+    assert (stencil.stencil_matvec3d.launches,
+            stencil.stencil_matvec3d.f64_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref = stencil.stencil_matvec_reference(jac, X, *block)
+    torch.testing.assert_close(y, ref, rtol=1e-12,
+                               atol=1e-11 * float(ref.abs().max()))
+    if (lo_r, k_in) == (lo_c, k_out):
+        mesh = make_shard_mesh([cuda])
+        JP = stencil.pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh)
+        assert torch.equal(y, stencil.stencil_matvec_sharded(JP, X, k_in,
+                                                             mesh))
 
 
 @pytest.mark.cuda

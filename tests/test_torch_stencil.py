@@ -46,6 +46,7 @@ def test_reference_matches_pallas_interpret(k, lo, hi):
     (0, 8, 0, 8, 2, 2),      # u block
     (8, 12, 8, 12, 1, 1),    # phase-field block
     (8, 12, 0, 8, 2, 1),     # J_pu coupling
+    (0, 8, 8, 12, 1, 2),     # J_up coupling
 ])
 def test_reference_matches_xla_matvec_block_f64(lo_r, hi_r, lo_c, hi_c,
                                                 k_in, k_out):
@@ -77,6 +78,7 @@ def test_reference_matches_pallas3d_interpret(k, lo, hi):
     (0, 24, 0, 24, 3, 3),      # u block
     (24, 32, 24, 32, 1, 1),    # phase-field block
     (24, 32, 0, 24, 3, 1),     # J_pu coupling
+    (0, 24, 24, 32, 1, 3),     # J_up coupling
 ])
 def test_reference3d_matches_xla_matvec_block_f64(lo_r, hi_r, lo_c, hi_c,
                                                   k_in, k_out):
