@@ -8,8 +8,10 @@ without printing the final line:
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and the torch/CUDA versions;
 2. build: compiles the four stencil libraries from cracks_tpu_torch/csrc/
-   (2d and 3d, unsharded and row-slab sharded; the 3d unsharded library
-   holds the one-thread-per-vertex kernel of its f32 entry point and the
+   (2d and 3d, unsharded and row-slab sharded; the 2d unsharded library
+   holds the one-thread-per-vertex kernel of its k = 2 products and the
+   phase-field kernel of lattice_stencil2d_phi.cuh for k = 1, the 3d one
+   the one-thread-per-vertex kernel of its f32 entry point and the
    streaming kernel of its f64 entry point) with nvcc, one compiler per
    source, all started together (timed), and prints what ptxas says of
    each (registers, shared memory, spills);
@@ -19,9 +21,11 @@ without printing the final line:
    stencil products the solve runs, from seeded numpy inputs.  The
    kernel, the plain version and the library yardstick (the same block
    assembled once as a torch.sparse CSR matrix, times X) are timed with
-   CUDA events around one call queued behind a device-side sleep (the
-   card's time alone, not the host's enqueue), median of 25 runs, L2
-   flushed before each; the bound is
+   cracks_tpu_torch/kernel_clock.py: CUDA events around one call queued
+   behind a device-side sleep (the card's time alone, not the host's
+   enqueue), median of 25 runs, the L2 flushed before each by reading
+   128 MB that nothing writes (no dirty line left to write back inside
+   the timed window); the bound is
    the bytes of J + X + Y over 3.35 TB/s or the flops over the card's
    peak rate, whichever is larger.  For the two f32 blocks of the CG
    pass (u and phi), the row-slab sharded product on D = 4 shards
@@ -32,8 +36,9 @@ without printing the final line:
    same way, beside its plain version (the per-shard plain products
    with the halo exchange) and the same CSR call, with a bound that adds
    the halo bytes (the per-shard J halo rows and two X rows per shard)
-   to J + X + Y.  The 3d f64 square blocks (u and phase field) of the
-   streaming kernel must equal the sharded kernel at D = 1 in f64 bit
+   to J + X + Y.  The 2d phase-field blocks (f32 and f64) of the
+   phase-field kernel and the 3d f64 square blocks (u and phase field)
+   of the streaming kernel must equal the sharded kernel at D = 1 bit
    for bit;
 4. main paths, small: the port's Simulation on the card and on the CPU
    (plain versions) at 2d refine 3 and 3d refine 1, replicated and with
@@ -54,9 +59,10 @@ without printing the final line:
    sharded kernel, once.
    In 5 to 7 every step must converge without a time-step cut, with
    finite statistics and positive bulk energy, and the path's kernels
-   must be launched (in 3d the f32 one-thread-per-vertex kernel and the
-   f64 streaming kernel each): their counts are set to 0 just before
-   the run and read just after.
+   must be launched (in 2d the one-thread-per-vertex kernel and the
+   phase-field kernel each, in 3d the f32 one-thread-per-vertex kernel
+   and the f64 streaming kernel each): their counts are set to 0 just
+   before the run and read just after.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -66,7 +72,6 @@ import concurrent.futures
 import json
 import multiprocessing
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -77,17 +82,17 @@ import torch
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-SLEEP_CYCLES = 400_000         # the device-side sleep before a timed call
 # non-tensor-core peak rates (H100 SXM data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # f32: the bounds of tests/test_pallas_stencil.py; f64: rounding-level
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
 f32, f64 = torch.float32, torch.float64
-# per kernel: its cell grid on the main path and the five products the
+# per library: its cell grid on the main path and the five products the
 # solve runs, (name, dtype, lo_r, hi_r, lo_c, hi_c, k_in, k_out): the u
 # block and the phase-field block of the f32 CG pass / V-cycle, and the
 # f64 u block, J_pu coupling block and phase-field block of the
-# refinement residual
+# refinement residual.  `route`: the second kernel of the library, the
+# products it takes and the wrapper's count of its launches
 KERNELS = [
     dict(name="lattice_stencil", dim=2, cells=(640, 640),
          sharded="lattice_stencil_sharded",
@@ -97,7 +102,13 @@ KERNELS = [
                  ("f32 phi block", f32, 8, 12, 8, 12, 1, 1),
                  ("f64 u block", f64, 0, 8, 0, 8, 2, 2),
                  ("f64 J_pu block", f64, 8, 12, 0, 8, 2, 1),
-                 ("f64 phi block", f64, 8, 12, 8, 12, 1, 1)]),
+                 ("f64 phi block", f64, 8, 12, 8, 12, 1, 1)],
+         route=dict(name="lattice_stencil2d_phi",
+                    source="cracks_tpu_torch/csrc/lattice_stencil2d_phi.cuh",
+                    wrapper="cracks_tpu_torch/ops/stencil.py:"
+                            "stencil_matvec2d (k_in = k_out = 1)",
+                    counter="phi_launches",
+                    takes=lambda r: r["k_in"] == r["k_out"] == 1)),
     dict(name="lattice_stencil3d", dim=3, cells=(80, 80, 80),
          sharded="lattice_stencil3d_sharded",
          replaces="cracks_tpu/ops/pallas_stencil.py:232",
@@ -107,9 +118,13 @@ KERNELS = [
                  ("f64 u block", f64, 0, 24, 0, 24, 3, 3),
                  ("f64 J_pu block", f64, 24, 32, 0, 24, 3, 1),
                  ("f64 phi block", f64, 24, 32, 24, 32, 1, 1)],
-         f64_route=dict(name="lattice_stencil3d_stream",
-                        source="cracks_tpu_torch/csrc/"
-                               "lattice_stencil3d_stream.cuh")),
+         route=dict(name="lattice_stencil3d_stream",
+                    source="cracks_tpu_torch/csrc/"
+                           "lattice_stencil3d_stream.cuh",
+                    wrapper="cracks_tpu_torch/ops/stencil.py:"
+                            "stencil_matvec3d (f64)",
+                    counter="f64_launches",
+                    takes=lambda r: r["dtype"] == "float64")),
 ]
 # the main paths: small (dim, refine, DoFs) and full size dim -> (refine,
 # DoFs)
@@ -149,26 +164,6 @@ def build_phase():
                 if "ptxas" in line or "spill" in line))
 
 
-def _time_ms(fn, flush, reps=25, warmup=3):
-    """Median device time of fn: each call queued behind a device-side
-    sleep (about 0.2 ms, longer than the host's enqueue), so the events
-    bracket the card's work alone, with the L2 flushed before."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _csr_block(jac, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
     """The J block assembled once as a (k_out*nvert, k_in*nvert) CSR
     matrix: rows d*nvert + v, columns e*nvert + w, the layout of Y and
@@ -196,7 +191,7 @@ def _csr_block(jac, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
     return A.coalesce().to_sparse_csr()
 
 
-def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
+def sharded_record(spec, name, jac, X, lo, hi, k, y, clock, library_ms):
     """The row-slab sharded product (D_SHARDS shards) of one f32 square
     block on the kernel phase's inputs: one launch, bit for bit against
     the unsharded kernel's Y, within TOL of the plain version, and
@@ -228,9 +223,9 @@ def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
                              f"with the plain version, max |err| "
                              f"{max_abs_err:.3e}")
     del err, y_ref, ys
-    ms = _time_ms(lambda: stencil_matvec_sharded(JP, X, k, mesh), flush)
-    plain_ms = _time_ms(
-        lambda: stencil_matvec_sharded_reference(JP, X, k, mesh), flush)
+    ms = clock.median_ms(lambda: stencil_matvec_sharded(JP, X, k, mesh))
+    plain_ms = clock.median_ms(
+        lambda: stencil_matvec_sharded_reference(JP, X, k, mesh))
     esz = jac.element_size()
     cells, grid = jac.shape[2:], X.shape[1:]
     kl = hi - lo
@@ -259,7 +254,7 @@ def sharded_record(spec, name, jac, X, lo, hi, k, y, flush, library_ms):
 
 
 def sharded_d1_diff(spec, name, jac, X, lo, hi, k, y):
-    """The sharded kernel at D = 1 on one f64 square block of the kernel
+    """The sharded kernel at D = 1 on one square block of the kernel
     phase's inputs must equal the unsharded kernel's Y bit for bit (the
     same order of terms on the same values); returns max |difference|,
     0.0."""
@@ -285,6 +280,7 @@ def kernel_phase(spec):
     """Kernel vs plain version vs CSR yardstick at one kernel's main-path
     shapes, and the sharded product of the f32 square blocks; returns
     (one record per shape, one sharded record per f32 square block)."""
+    from cracks_tpu_torch.kernel_clock import KernelClock
     from cracks_tpu_torch.ops.stencil import (stencil_matvec,
                                               stencil_matvec_reference)
     dev = torch.device("cuda")
@@ -298,7 +294,7 @@ def kernel_phase(spec):
                             device=dev).to(f64)
     x64 = torch.as_tensor(rng.standard_normal((dim,) + grid), dtype=f64,
                           device=dev)
-    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)  # 128 MB
+    clock = KernelClock(dev)
     records, sharded = [], []
     for name, dt, lo_r, hi_r, lo_c, hi_c, k_in, k_out in spec["shapes"]:
         jac = jac64.to(dt)
@@ -317,13 +313,13 @@ def kernel_phase(spec):
                                  f"with the plain version, max |err| "
                                  f"{max_abs_err:.3e}, max |Y| {scale:.3e}")
         del err, y_ref
-        ms = _time_ms(lambda: stencil_matvec(jac, X, *args), flush)
-        plain_ms = _time_ms(lambda: stencil_matvec_reference(jac, X, *args),
-                            flush)
+        ms = clock.median_ms(lambda: stencil_matvec(jac, X, *args))
+        plain_ms = clock.median_ms(
+            lambda: stencil_matvec_reference(jac, X, *args))
         A = _csr_block(jac, *args)
         xf = X.reshape(-1)
         csr_err = float((A @ xf - y.reshape(-1)).abs().max())
-        library_ms = _time_ms(lambda: A @ xf, flush)
+        library_ms = clock.median_ms(lambda: A @ xf)
         nnz = A.values().numel()
         del A
         nblock = (hi_r - lo_r) * (hi_c - lo_c) * int(np.prod(cells))
@@ -348,13 +344,14 @@ def kernel_phase(spec):
                             mb=nbytes / 1e6, gbps=nbytes / ms / 1e6))
         if dt == f32 and (lo_r, k_in) == (lo_c, k_out):
             sharded.append(sharded_record(spec, name, jac, X, lo_r, hi_r,
-                                          k_in, y, flush, library_ms))
-        if dt == f64 and dim == 3 and (lo_r, k_in) == (lo_c, k_out):
+                                          k_in, y, clock, library_ms))
+        if spec["route"]["takes"](records[-1]) and (lo_r, k_in) == (lo_c,
+                                                                   k_out):
             records[-1]["max_abs_diff_sharded_d1"] = sharded_d1_diff(
                 spec, name, jac, X, lo_r, hi_r, k_in, y)
         del jac, X, y, xf
         torch.cuda.empty_cache()
-    del jac64, x64, flush
+    del jac64, x64, clock
     torch.cuda.empty_cache()
     return records, sharded
 
@@ -440,7 +437,8 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
                **overrides):
     """One full-size main path on the card.  Returns the energies,
     Newton iterations per step and the launch counts of the path's
-    unsharded and sharded kernels.  With `replicated` (that return of
+    unsharded kernels (in all, and of the library's second kernel,
+    `route`) and of the sharded kernel.  With `replicated` (that return of
     the same case without sharding) the energies must agree to rel 1e-7
     with equal Newton iterations, and the sharded run's sharded plus
     unsharded launches must equal the replicated run's unsharded
@@ -451,6 +449,7 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         refine, n_dofs = FULL[dim]
     label = f"{dim}d{_label(overrides)} main path"
     kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
+    route = next(k["route"] for k in KERNELS if k["dim"] == dim)
     t0 = time.perf_counter()
     sim = Simulation(_params(dim, refine, **overrides), device="cuda",
                      verbose=True)
@@ -459,12 +458,13 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected {n_dofs}")
     torch.cuda.reset_peak_memory_stats()
     stencil.stencil_matvec2d.launches = 0
+    stencil.stencil_matvec2d.phi_launches = 0
     stencil.stencil_matvec3d.launches = 0
     stencil.stencil_matvec3d.f64_launches = 0
     stencil.stencil_matvec_sharded.launches = 0
     sim.run()
     launches = kernel.launches
-    f64_launches = stencil.stencil_matvec3d.f64_launches
+    route_launches = getattr(kernel, route["counter"])
     sharded = stencil.stencil_matvec_sharded.launches
     torch.cuda.synchronize()
     steps = len(sim.solver_effort)
@@ -480,12 +480,12 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         raise AssertionError("bulk energy is not positive")
     if launches <= 0:
         raise AssertionError(f"the {label} never launched its kernel")
-    if dim == 3 and not 0 < f64_launches < launches:
-        raise AssertionError(f"the {label} launched the f64 streaming "
-                             f"kernel {f64_launches} times in {launches} "
-                             "3d launches")
+    if not 0 < route_launches < launches:
+        raise AssertionError(f"the {label} launched {route['name']} "
+                             f"{route_launches} times in {launches} "
+                             f"{dim}d launches")
     out = dict(energies=_energies(sim), launches=launches, sharded=sharded,
-               f64_launches=f64_launches,
+               route_launches=route_launches,
                newton=[e[1] for e in sim.solver_effort])
     print(f"{label}: host setup (forest, mesh) {host_s:.2f} s, "
           f"setup system {sim.timer.wall['Setup system']:.2f} s")
@@ -494,7 +494,8 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
         print(f"{label} step {step}: {secs:.2f} s, {newton_its} Newton its,"
               f" {lin_its} linear its, active set {n_active}")
     print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches} "
-          f"({f64_launches} f64), sharded-kernel launches {sharded}, peak "
+          f"({route_launches} of {route['name']}), sharded-kernel launches "
+          f"{sharded}, peak "
           f"device memory {torch.cuda.max_memory_allocated()} B, energies "
           f"{[repr(float(e)) for e in out['energies'].ravel()]}")
     if replicated is not None:
@@ -536,26 +537,27 @@ def main():
     for k in KERNELS:
         shapes = records[k["name"]][0]
         run = full[k["dim"]]
-        if "f64_route" in k:    # the f64 products: the streaming kernel
-            f64_shapes = [r for r in shapes if r["dtype"] == "float64"]
-            shapes = [r for r in shapes if r["dtype"] == "float32"]
-            head = f64_shapes[0]          # the f64 u block
-            entries.append({
-                "name": k["f64_route"]["name"], "route": "cuda",
-                "source": k["f64_route"]["source"],
-                "wrapper": "cracks_tpu_torch/ops/stencil.py:"
-                           "stencil_matvec3d (f64)",
-                "replaces": k["replaces"], "launches": run["f64_launches"],
-                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "shapes": f64_shapes})
+        # the library's second kernel: the 2d phase-field products (head:
+        # the f32 phi block of the CG pass), the 3d f64 products (head:
+        # the f64 u block)
+        route = k["route"]
+        taken = [r for r in shapes if route["takes"](r)]
+        shapes = [r for r in shapes if not route["takes"](r)]
+        head = taken[0]
+        entries.append({
+            "name": route["name"], "route": "cuda",
+            "source": route["source"], "wrapper": route["wrapper"],
+            "replaces": k["replaces"], "launches": run["route_launches"],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shapes": taken})
         head = shapes[0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
             "source": f"cracks_tpu_torch/csrc/{k['name']}.cu",
             "replaces": k["replaces"],
-            "launches": run["launches"] - run["f64_launches"],
+            "launches": run["launches"] - run["route_launches"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -32,14 +32,18 @@
 // (row, col, cy, cx) belongs to the one vertex (cy+oy_a, cx+ox_a) of
 // its row corner a.  X's 16-fold reuse comes from L1/L2.  A bounds
 // check on the cell index replaces the TPU kernel's zero-pad ring, so
-// no padded copy of J exists.  Shared-memory tiling, TMA and wider
-// loads are later work.
+// no padded copy of J exists.  This kernel runs the k = 2 products
+// (the u block and the J_pu coupling); the phase-field block (k_in =
+// k_out = 1) goes to the kernel of lattice_stencil2d_phi.cuh (16-byte
+// J loads, X staged in shared memory), which sums in the same order.
 //
 // The kernel allocates nothing and runs on the caller's stream; each
 // entry point returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "lattice_stencil2d_phi.cuh"
 
 namespace {
 
@@ -108,7 +112,7 @@ int dispatch(const T* J, const T* X, T* Y, int R, int C, int GCY, int GCX,
   if (k_in == 2 && k_out == 2) {
     launch<T, 2, 2>(J, X, Y, C, GCY, GCX, lo_r, lo_c, stream);
   } else if (k_in == 1 && k_out == 1) {
-    launch<T, 1, 1>(J, X, Y, C, GCY, GCX, lo_r, lo_c, stream);
+    return phi2d::launch<T>(J, X, Y, C, GCY, GCX, lo_r, lo_c, stream);
   } else if (k_in == 2 && k_out == 1) {
     launch<T, 2, 1>(J, X, Y, C, GCY, GCX, lo_r, lo_c, stream);
   } else if (k_in == 1 && k_out == 2) {

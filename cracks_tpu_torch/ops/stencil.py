@@ -18,7 +18,8 @@ or the rectangular J_pu coupling (k_in = dim, k_out = 1).
 `stencil_matvec` dispatches on the rank of J (4: 2d, 5: 3d) and on the
 device of X: a CUDA tensor goes to the kernel in
 ``csrc/lattice_stencil.cu`` (replacing the Pallas TPU kernel
-``cracks_tpu/ops/pallas_stencil.py::_kernel``) or
+``cracks_tpu/ops/pallas_stencil.py::_kernel``; its phase-field products
+run the kernel of ``csrc/lattice_stencil2d_phi.cuh``) or
 ``csrc/lattice_stencil3d.cu`` (replacing ``::_kernel3d``; its f64
 products stream J through ``csrc/lattice_stencil3d_stream.cuh``), or
 raises; a CPU tensor goes to `stencil_matvec_reference`, the slice
@@ -122,10 +123,15 @@ def _launch(load, dim, jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 
 def stencil_matvec2d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
     """The 2d CUDA kernel on CUDA tensors (jac (R, C, GCY, GCX), X (k_in,
-    GY, GX)); each launch adds one to `stencil_matvec2d.launches`."""
+    GY, GX)); each launch adds one to `stencil_matvec2d.launches`, and a
+    phase-field launch (k_in = k_out = 1: the kernel of
+    ``csrc/lattice_stencil2d_phi.cuh``) also to
+    `stencil_matvec2d.phi_launches`."""
     Y = _launch(kernels.lattice_stencil, 2, jac, X, lo_r, hi_r, lo_c, hi_c,
                 k_in, k_out)
     stencil_matvec2d.launches += 1
+    if k_in == k_out == 1:
+        stencil_matvec2d.phi_launches += 1
     return Y
 
 
@@ -144,6 +150,7 @@ def stencil_matvec3d(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 
 
 stencil_matvec2d.launches = 0
+stencil_matvec2d.phi_launches = 0
 stencil_matvec3d.launches = 0
 stencil_matvec3d.f64_launches = 0
 

@@ -11,10 +11,12 @@ port's nvcc flags into two libraries, prints whether each f32 kernel's
 SASS (``cuobjdump -sass``) is the same in both, and for the five
 products at 80^3 cells (f32 u and phi blocks, f64 u, J_pu and phi
 blocks) checks that the two libraries give the same bits and times them
-in the order parent, this tree, this tree, parent, repeated 10 times:
-CUDA events around one launch queued behind a device-side sleep, 128 MB
-of L2 flushed before each (``chip_smoke.py``'s clock).  Prints the
-card's name and power limit first and the median of each side.
+in the order parent, this tree, this tree, parent, repeated 10 times on
+``cracks_tpu_torch/kernel_clock.py``'s clock (CUDA events around one
+launch queued behind a device-side sleep, the L2 flushed before each by
+reading 128 MB that nothing writes), as ``chip_smoke.py`` times.
+Prints the card's name and power limit first and the median of each
+side.
 """
 
 import ctypes
@@ -31,8 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cracks_tpu_torch import kernels  # noqa: E402
+from cracks_tpu_torch.kernel_clock import KernelClock  # noqa: E402
 
-SLEEP_CYCLES = 400_000
 CELLS = (80, 80, 80)
 # (name, dtype, lo_r, lo_c, k_in, k_out)
 PRODUCTS = [("f32 u block", torch.float32, 0, 0, 3, 3),
@@ -102,7 +104,7 @@ def main():
                                                 dtype=np.float32),
                             device=dev).to(torch.float64)
     x64 = torch.as_tensor(rng.standard_normal((3,) + grid), device=dev)
-    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)
+    clock = KernelClock(dev)
     stream = torch.cuda.current_stream().cuda_stream
     for name, dtype, lo_r, lo_c, k_in, k_out in PRODUCTS:
         jac = jac64.to(dtype)
@@ -129,15 +131,7 @@ def main():
                 call()
         for _ in range(10):
             for side in ("parent", "this tree", "this tree", "parent"):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                flush.zero_()
-                torch.cuda._sleep(SLEEP_CYCLES)
-                start.record()
-                calls[side]()
-                end.record()
-                torch.cuda.synchronize()
-                times[side].append(start.elapsed_time(end) * 1e3)
+                times[side].append(clock.once_ms(calls[side]) * 1e3)
         print(f"{name}: parent {statistics.median(times['parent']):.1f} us"
               f" (min {min(times['parent']):.1f}), this tree "
               f"{statistics.median(times['this tree']):.1f} us (min "

@@ -18,10 +18,18 @@ hierarchy) on its own:
    synchronizes add a little time of their own), and with a reset of
    the peak-memory counter, which gives each phase's peak device
    memory;
-3. torch.profiler trace without the wrappers: device time by kernel
-   name, the union of device-busy intervals against the wall time of
-   the run (the device's idle share), and the launches and time of
-   every stencil kernel variant (dtype, k_in, k_out).
+3. torch.profiler trace without the phase wrappers: device time by
+   kernel name, the union of device-busy intervals against the wall
+   time of the run (the device's idle share), the launches and time of
+   every stencil kernel variant (dtype, k_in, k_out), and the stencil
+   launches by product and GMG level: the unsharded wrapper's launches
+   are logged (dimension, dtype, k_in, k_out, cell grid) by a wrapper
+   around ``ops.stencil._launch``, the sharded product's by one around
+   the lattice solve's ``stencil_matvec_sharded``, and the i-th logged
+   unsharded launch is paired with the i-th stencil kernel on the
+   device (one stream, in order) for its device time; the median device
+   time per launch of each product at each level is printed, the
+   finest f32 phase-field product's on a line of its own.
 
 Prints the card's name and power limit first; writes the profiler's
 table to chiprun_out/profile_torch_sneddon{dim}d[_sharded{D}].txt.
@@ -30,6 +38,7 @@ table to chiprun_out/profile_torch_sneddon{dim}d[_sharded{D}].txt.
 import collections
 import functools
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -138,15 +147,88 @@ def phase_timing(dim, refine, shards):
           f"{wall - total:8.3f} s {100 * (wall - total) / wall:5.1f} %")
 
 
+def _is_stencil_kernel(name):
+    """A device kernel of the unsharded stencil libraries."""
+    return (("lattice_stencil" in name or "phi_kernel" in name)
+            and "sharded" not in name)
+
+
+def _logged_launches():
+    """Wrap the unsharded and the sharded stencil launches to log (dim,
+    dtype, k_in, k_out, cell grid) per launch; returns (unsharded log,
+    sharded log, undo)."""
+    unsharded, sharded = [], []
+    launch, matvec_sharded = stencil._launch, lattice.stencil_matvec_sharded
+
+    def logged(load, dim, jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
+        unsharded.append((dim, str(X.dtype).replace("torch.", ""), k_in,
+                          k_out, tuple(jac.shape[2:])))
+        return launch(load, dim, jac, X, lo_r, hi_r, lo_c, hi_c, k_in,
+                      k_out)
+
+    def logged_sharded(JP, X, k, mesh):
+        sharded.append((X.dim() - 1, str(X.dtype).replace("torch.", ""), k,
+                        k, tuple(g - 1 for g in X.shape[1:])))
+        return matvec_sharded(JP, X, k, mesh)
+
+    def undo():
+        stencil._launch = launch
+        lattice.stencil_matvec_sharded = matvec_sharded
+    stencil._launch = logged
+    lattice.stencil_matvec_sharded = logged_sharded
+    return unsharded, sharded, undo
+
+
+def _launches_by_level(unsharded, sharded, kern):
+    """Print the launches per (product, level), finest level first, with
+    the median device time of the unsharded ones (paired in order with
+    the stencil kernels of the trace)."""
+    events = sorted((e for e in kern if _is_stencil_kernel(e.name)),
+                    key=lambda e: e.time_range.start)
+    paired = len(events) == len(unsharded)
+    if not paired:
+        print(f"  ({len(events)} stencil kernels in the trace for "
+              f"{len(unsharded)} logged launches: no device times)")
+    times = collections.defaultdict(list)
+    for i, key in enumerate(unsharded):
+        times[key].append(events[i].time_range.elapsed_us() if paired
+                          else float("nan"))
+    print("stencil launches by product and level (both load steps; device "
+          "us per launch, median):")
+    for key in sorted(times, key=lambda k: (k[0], k[1], -k[2], -k[3],
+                                            tuple(-c for c in k[4]))):
+        d, dt, k_in, k_out, cells = key
+        t = times[key]
+        print(f"  {d}d {dt} k_in={k_in} k_out={k_out} "
+              f"{'x'.join(map(str, cells))} cells: {len(t):5d} launches, "
+              f"{statistics.median(t):8.1f} us")
+    for key, n in sorted(collections.Counter(sharded).items()):
+        d, dt, k, _, cells = key
+        print(f"  {d}d {dt} k={k} {'x'.join(map(str, cells))} cells, "
+              f"sharded product: {n:5d} launches")
+    finest = [k for k in times if k[1] == "float32" and k[2] == k[3] == 1]
+    if finest and paired:
+        key = max(finest, key=lambda k: k[4])
+        t = times[key]
+        print(f"finest f32 phase-field product "
+              f"({'x'.join(map(str, key[4]))} cells): median "
+              f"{statistics.median(t):.1f} us per launch (min {min(t):.1f},"
+              f" max {max(t):.1f}) over {len(t)} launches")
+
+
 def profiled(dim, refine, shards, out_path):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     kernel = stencil.stencil_matvec2d if dim == 2 else stencil.stencil_matvec3d
     kernel.launches = 0
     stencil.stencil_matvec_sharded.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sim, wall = _run(dim, refine, shards)
+    unsharded, sharded, undo = _logged_launches()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim, wall = _run(dim, refine, shards)
+    finally:
+        undo()
     _report(sim, wall, "profiled run")
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
@@ -180,8 +262,9 @@ def profiled(dim, refine, shards, out_path):
               f"{name[:90]}")
     print("stencil kernel variants (all levels, both load steps):")
     for name, (t, n) in sorted(by_name.items()):
-        if "lattice_stencil" in name or "sharded_kernel" in name:
+        if _is_stencil_kernel(name) or "sharded_kernel" in name:
             print(f"  {t / 1e3:9.2f} ms {n:7d}x  {name[:100]}")
+    _launches_by_level(unsharded, sharded, kern)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",

@@ -9,10 +9,12 @@ below (ring stages, tile rows) in one library built here with nvcc,
 then, for
 the four f32 products the sharded solve runs (2d u and phase-field
 blocks at 640² cells, 3d at 80³ cells, D = 4 shards), checks each
-variant bit for bit against the unsharded kernel and times it: CUDA
-events around one launch queued behind a device-side sleep, so the time
-is the card's alone (not the host's enqueue), 128 MB of L2 flushed
-before each, median of 15 rounds taken in turns over the variants.  The
+variant bit for bit against the unsharded kernel and times it on
+``cracks_tpu_torch/kernel_clock.py``'s clock (CUDA events around one
+launch queued behind a device-side sleep, so the time is the card's
+alone, not the host's enqueue; the L2 flushed before each by reading
+128 MB that nothing writes), median of 15 rounds taken in turns over
+the variants.  The
 unsharded kernel is timed the same way.  Prints the card's name and
 power limit first and one line per variant.  Last, the host time per
 call of the sharded and the unsharded wrapper (200 calls queued back
@@ -33,12 +35,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cracks_tpu_torch import kernels  # noqa: E402
+from cracks_tpu_torch.kernel_clock import KernelClock  # noqa: E402
 from cracks_tpu_torch.ops import stencil  # noqa: E402
 from cracks_tpu_torch.parallel.sharding import make_shard_mesh  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 D_SHARDS = 4
-SLEEP_CYCLES = 400_000         # about 0.2 ms: longer than the enqueue
 # (dim, k, lo, hi, cells) -> variants (ring stages, tile rows); the
 # first of each is the one the kernel's source launches
 CASES = {
@@ -83,18 +85,6 @@ def build_variants():
     return ctypes.CDLL(lib)
 
 
-def _time_ms(fn, flush, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    flush.zero_()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    reps.append(start.elapsed_time(end))
-
-
 def _host_us(jac, X, JP, k, mesh, calls=200):
     """Host time per call of the sharded and the unsharded wrapper, and
     of the sharded wrapper's validation alone: `calls` calls queued
@@ -128,7 +118,7 @@ def main():
     lib = build_variants()
     dev = torch.device("cuda")
     mesh = make_shard_mesh([dev] * D_SHARDS)
-    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)
+    clock = KernelClock(dev)
     stream = torch.cuda.current_stream().cuda_stream
     for (dim, k, lo, hi, cells), variants in CASES.items():
         rng = np.random.default_rng(0)
@@ -175,7 +165,7 @@ def main():
                 fn()
         for _ in range(15):
             for name, fn in fns.items():
-                _time_ms(fn, flush, times[name])
+                times[name].append(clock.once_ms(fn))
         times.update(_host_us(jac, X, JP, k, mesh))
         for name, t in times.items():
             if name.startswith("host"):

@@ -15,7 +15,8 @@ refinement residual at 80^3 cells (the u block, the phase-field block,
 J_pu and J_up), checks every variant and the library's own entry point
 bit for bit against that kernel and times them: CUDA events around one
 launch queued behind a device-side sleep, so the time is the card's
-alone, 128 MB of L2 flushed before each, median of 15 rounds taken in
+alone, the L2 flushed before each by reading 128 MB that nothing
+writes (``cracks_tpu_torch/kernel_clock.py``), median of 15 rounds taken in
 turns over the variants.  Prints the card's name and power limit
 first, then one line per variant with its bound (the bytes of the J
 block, X and Y over 3.35 TB/s), and the host time per call of the f64
@@ -46,10 +47,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cracks_tpu_torch import kernels  # noqa: E402
+from cracks_tpu_torch.kernel_clock import KernelClock  # noqa: E402
 from cracks_tpu_torch.ops import stencil  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-SLEEP_CYCLES = 400_000         # about 0.2 ms: longer than the enqueue
 CELLS = (80, 80, 80)
 BLOCKS = {}                    # f64 launches per (k_in, k_out) of a run
 # (name, lo_r, hi_r, lo_c, hi_c, k_in, k_out) -> variants (ring slots,
@@ -134,22 +135,10 @@ def _entry(lib, name, n_ints):
     return fn
 
 
-def _time_ms(fn, flush, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    flush.zero_()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    reps.append(start.elapsed_time(end))
-
-
 def sweep(lib):
     """Check every variant bit for bit and time it."""
     dev = torch.device("cuda")
-    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)
+    clock = KernelClock(dev)
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(0)
     ndl = 32
@@ -199,7 +188,7 @@ def sweep(lib):
                 fn()
         for _ in range(15):
             for n, fn in fns.items():
-                _time_ms(fn, flush, times[n])
+                times[n].append(clock.once_ms(fn))
         for n, t in times.items():
             us = statistics.median(t) * 1e3
             print(f"{name} {n}: {us:.1f} us (min {min(t) * 1e3:.1f}), bound "
@@ -216,7 +205,7 @@ def sweep(lib):
               f"{host_us:.1f} us")
         del fns, y_ref, X
         torch.cuda.empty_cache()
-    del jac, x, flush
+    del jac, x, clock
     torch.cuda.empty_cache()
 
 

@@ -8,7 +8,15 @@ The CUDA stencil kernels (2d and 3d) are held against their plain
 PyTorch version on the card, at small non-square lattices, for every
 block the lattice solve uses and both dtypes (f32: rtol 1e-5,
 atol 1e-4 * max|Y|, the bounds of tests/test_pallas_stencil.py; f64:
-rtol 1e-12, atol 1e-11 * max|Y|).  The f64 3d products (the streaming
+rtol 1e-12, atol 1e-11 * max|Y|).  The 2d square blocks are also held
+bit for bit against the sharded kernel at D = 1, on cell grids whose
+rows take the phase-field kernel's 16-byte J loads (36 cells), its
+8-byte (f32, 10 cells) or single-value loads (37 cells, or a J that
+starts 4 or 8 bytes past a 16-byte boundary), whose vertex rows span
+several of its 64-item CTAs (1100 cells: 276 items of 4 vertices in
+f32) or whose CTAs span several rows (the others), and whose items do
+not fill the last CTA; the phase-field block also at the main path's
+640 x 640 cells.  The f64 3d products (the streaming
 kernel of csrc/lattice_stencil3d_stream.cuh) are held against the plain
 version for all four (k_in, k_out) pairs on cell grids with odd rows
 (8-byte cp.async copies) and even rows (TMA boxes), rows cut into tiles
@@ -31,6 +39,9 @@ import torch
 from cracks_tpu_torch.ops import stencil
 
 BLOCKS = [(0, 8, 0, 8, 2, 2), (8, 12, 8, 12, 1, 1), (8, 12, 0, 8, 2, 1)]
+# 2d cell grids (GCY, GCX[, "unaligned": J one value past its buffer's
+# start])
+GRIDS2 = [(40, 36), (40, 37), (10, 10), (3, 1100), (9, 36, "unaligned")]
 BLOCKS3 = [(0, 24, 0, 24, 3, 3), (24, 32, 24, 32, 1, 1),
            (24, 32, 0, 24, 3, 1)]
 # the f64 streaming kernel's cell grids: odd rows (8-byte copies), even
@@ -47,23 +58,70 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("block", BLOCKS)
-def test_kernel_matches_plain_version(cuda, dtype, block):
+def _jac_on(values, dtype, device, unaligned=False):
+    """values as a contiguous J on the device; `unaligned`: one value past
+    the start of its buffer."""
+    if not unaligned:
+        return torch.as_tensor(values, dtype=dtype, device=device)
+    buf = torch.empty(values.size + 1, dtype=dtype, device=device)
+    jac = buf[1:].view(values.shape)
+    jac.copy_(torch.as_tensor(values))
+    return jac
+
+
+def _check_2d_product(jac, X, block, dtype):
+    """One 2d product on the card: one launch (and one of the phase-field
+    kernel for k = 1), within tolerance of the plain version, and for a
+    square block bit for bit equal to the sharded kernel at D = 1."""
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
     lo_r, hi_r, lo_c, hi_c, k_in, k_out = block
-    rng = np.random.default_rng(2)
-    jac = torch.as_tensor(rng.normal(size=(12, 12, 40, 36)), dtype=dtype,
-                          device=cuda)
-    X = torch.as_tensor(rng.normal(size=(k_in, 41, 37)), dtype=dtype,
-                        device=cuda)
-    before = stencil.stencil_matvec2d.launches
+    kernel = stencil.stencil_matvec2d
+    before = (kernel.launches, kernel.phi_launches)
     y = stencil.stencil_matvec(jac, X, *block)
-    assert stencil.stencil_matvec2d.launches == before + 1
+    phi = int(k_in == k_out == 1)
+    assert (kernel.launches, kernel.phi_launches) == (before[0] + 1,
+                                                      before[1] + phi)
     ref = stencil.stencil_matvec_reference(jac, X, *block)
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-11)
     torch.testing.assert_close(y, ref, rtol=rtol,
                                atol=atol * float(ref.abs().max()))
+    if (lo_r, k_in) == (lo_c, k_out):
+        mesh = make_shard_mesh([jac.device])
+        JP = stencil.pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh)
+        assert torch.equal(y, stencil.stencil_matvec_sharded(JP, X, k_in,
+                                                             mesh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", GRIDS2,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block", BLOCKS)
+def test_kernel_matches_plain_version(cuda, dtype, block, cells):
+    k_in = block[4]
+    rng = np.random.default_rng(2)
+    gcy, gcx = cells[:2]
+    jac = _jac_on(rng.normal(size=(12, 12, gcy, gcx)), dtype, cuda,
+                  unaligned=len(cells) > 2)
+    if len(cells) > 2:
+        assert jac.data_ptr() % 16 == jac.element_size()
+    X = torch.as_tensor(rng.normal(size=(k_in, gcy + 1, gcx + 1)),
+                        dtype=dtype, device=cuda)
+    _check_2d_product(jac, X, block, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_phi_kernel_at_main_path_shape(cuda, dtype):
+    """The phase-field block at the 2d main path's finest level, 640 x
+    640 cells."""
+    rng = np.random.default_rng(6)
+    jac = torch.as_tensor(rng.standard_normal((12, 12, 640, 640),
+                                              dtype=np.float32),
+                          device=cuda).to(dtype)
+    X = torch.as_tensor(rng.standard_normal((1, 641, 641)), dtype=dtype,
+                        device=cuda)
+    _check_2d_product(jac, X, BLOCKS[1], dtype)
 
 
 @pytest.mark.cuda
@@ -98,14 +156,10 @@ def test_kernel3d_f64_stream_matches_plain_version(cuda, cells, block):
     lo_r, hi_r, lo_c, hi_c, k_in, k_out = block
     rng = np.random.default_rng(5)
     cells, unaligned = tuple(cells[:3]), len(cells) > 3
-    values = rng.normal(size=(32, 32) + cells)
+    jac = _jac_on(rng.normal(size=(32, 32) + cells), torch.float64, cuda,
+                  unaligned)
     if unaligned:
-        buf = torch.empty(values.size + 1, dtype=torch.float64, device=cuda)
-        jac = buf[1:].view(values.shape)
-        jac.copy_(torch.as_tensor(values))
         assert jac.data_ptr() % 16 == 8
-    else:
-        jac = torch.as_tensor(values, device=cuda)
     X = torch.as_tensor(rng.normal(size=(k_in,) + tuple(c + 1 for c in cells)),
                         device=cuda)
     before = (stencil.stencil_matvec3d.launches,
