@@ -62,18 +62,50 @@ without printing the final line:
    must be launched (in 2d the one-thread-per-vertex kernel and the
    phase-field kernel each, in 3d the f32 one-thread-per-vertex kernel
    and the f64 streaming kernel each): their counts are set to 0 just
-   before the run and read just after.
+   before the run and read just after;
+8. golden 2d: params/tests/sneddon_2d_1.prm on the card (local
+   pre-refinement, hanging nodes, the dense direct solve, one Sneddon
+   refinement cycle): its statistics table against
+   tests/golden/sneddon_2d_1.statistics under the numdiff rule of
+   tests/regression.py (|d| <= 1e-6 or rel <= 1e-8), TCV 0.0418879
+   +- 1e-6, phi L2 error 0.978645 +- 1e-5, the cod-04b.txt value at
+   x = 0 0.00296695 +- 1e-8, 777 final DoFs;
+9. golden 3d, first step: params/tests/sneddon_3d_1.prm with
+   max_no_timesteps = 0 (5,324 DoFs, dense direct) against the first
+   row of tests/golden/sneddon_3d_1.mpirun=4.statistics (atol 1e-6 or
+   rtol 1e-8);
+10. the shipped file: params/parameters_sneddon_2d.prm as shipped (four
+   mesh epochs, 777 -> 12,993 DoFs, the dense direct solve and then
+   the stored-element-matrix Jacobi CG) against the JAX package's table
+   tests/torch_reference/parameters_sneddon_2d.statistics (written by
+   scripts/torch_reference.py): the same rows and DoFs, every other
+   value within rel 1e-7, no time-step cut; per epoch the DoFs, the
+   solve taken, Newton and linear iterations per step beside the JAX
+   run's (parameters_sneddon_2d.effort.json) and seconds per step;
+11. the production run: the shipped file with n_global_pre_refine = 2
+   and cg_maxiter = 20000 (last epoch 168,609 DoFs on the assembled f64
+   Jacobi CG): no time-step cut, finite statistics, positive bulk
+   energy, and the TCV error against the closed form falling from each
+   epoch to the next; per epoch the DoFs, the solve, seconds per step,
+   Newton and linear iterations, host seconds of refinement + system
+   setup and the peak device memory.
+   Phases 8-11 run no hand-written kernel (dense LU through
+   torch.linalg, the stored-matrix CG through torch ops); the stencil
+   kernels' counts are set to 0 before each and printed after it.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import gc
 import json
+import math
 import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -524,6 +556,267 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
     return out
 
 
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+REFERENCE_DIR = os.path.join(ROOT, "tests", "torch_reference")
+PRM_TESTS = os.path.join(ROOT, "params", "tests")
+SHIPPED_PRM = os.path.join(ROOT, "params", "parameters_sneddon_2d.prm")
+# the production run: 4x finer than the shipped file; Jacobi CG needs
+# about 1/h_min times more iterations, so the cap grows with it
+PRODUCTION = dict(n_global_pre_refine=2, cg_maxiter=20000)
+
+
+def parse_statistics(text):
+    """A statistics table as (column names, rows of floats; "" -> nan):
+    the reader of tests/regression.py."""
+    names, rows = [], []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            names.append(line.split(":", 1)[1].strip())
+        else:
+            rows.append([float(x) if x != '""' else np.nan
+                         for x in line.split()])
+    return names, np.array(rows)
+
+
+def table_failures(ours, ref, atol, rtol):
+    """The numdiff rule of tests/regression.py: a value passes if
+    |d| <= atol or its relative difference is <= rtol; two empty cells
+    pass.  Returns the failing cells."""
+    if ours.shape != ref.shape:
+        return [f"shape {ours.shape} != {ref.shape}"]
+    fails = []
+    for (i, j), g in np.ndenumerate(ref):
+        o = ours[i, j]
+        if np.isnan(g) and np.isnan(o):
+            continue
+        d = abs(g - o)
+        if not (d <= atol or d / max(abs(g), abs(o), 1e-300) <= rtol):
+            fails.append(f"row {i} col {j}: {o!r} vs {g!r}")
+    return fails
+
+
+def _zero_stencil_counts():
+    from cracks_tpu_torch.ops import stencil
+    for fn, counters in ((stencil.stencil_matvec2d,
+                          ("launches", "phi_launches")),
+                         (stencil.stencil_matvec3d,
+                          ("launches", "f64_launches")),
+                         (stencil.stencil_matvec_sharded, ("launches",))):
+        for c in counters:
+            setattr(fn, c, 0)
+
+
+def _stencil_counts():
+    from cracks_tpu_torch.ops import stencil
+    return (stencil.stencil_matvec2d.launches,
+            stencil.stencil_matvec3d.launches,
+            stencil.stencil_matvec_sharded.launches)
+
+
+def _run_quiet(prm, **overrides):
+    """A .prm run on the card with the Newton trace off."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    sim = Simulation(config.load_parameters(prm, **overrides), device="cuda",
+                     verbose=False)
+    sim.run()
+    return sim
+
+
+def golden2d_phase():
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    with tempfile.TemporaryDirectory() as out:
+        sim = _run_quiet(os.path.join(PRM_TESTS, "sneddon_2d_1.prm"),
+                         output_dir=out)
+        with open(os.path.join(out, "statistics")) as f:
+            names, ours = parse_statistics(f.read())
+        sweep = np.loadtxt(os.path.join(out, "cod-04b.txt"))
+    with open(os.path.join(GOLDEN_DIR, "sneddon_2d_1.statistics")) as f:
+        g_names, golden = parse_statistics(f.read())
+    if names[:len(g_names)] != g_names:
+        raise AssertionError(f"columns {names} vs golden {g_names}")
+    fails = table_failures(ours[:, :len(g_names)], golden, 1e-6, 1e-8)
+    data = sim.statistics.data
+    tcv, l2 = data["TCV"][-1], data["phi_L2_error"][-1]
+    cod0 = sweep[np.isclose(sweep[:, 0], 0.0), 1]
+    print(f"golden 2d (sneddon_2d_1) on cuda: {time.perf_counter() - t0:.2f}"
+          f" s, {len(golden)} rows, DoFs {data['DoFs']} -> "
+          f"{sim.mesh.n_dofs}, Newton/linear its per step "
+          f"{[(e[1], e[2]) for e in sim.solver_effort]}, TCV {tcv!r}, "
+          f"phi L2 error {l2!r}, COD(0) {cod0.tolist()}, stencil launches "
+          f"{_stencil_counts()}, {len(fails)} cells off the golden")
+    if fails:
+        raise AssertionError("golden 2d:\n" + "\n".join(fails))
+    if not (abs(tcv - 0.0418879) <= 1e-6 and abs(l2 - 0.978645) <= 1e-5
+            and len(cod0) == 1 and abs(cod0[0] - 0.00296695) <= 1e-8
+            and sim.mesh.n_dofs == 777 and sim.step_cuts == 0):
+        raise AssertionError("golden 2d: TCV, phi L2 error, COD(0) or the "
+                             "final DoFs off their pins")
+
+
+def golden3d_phase():
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = _run_quiet(os.path.join(PRM_TESTS, "sneddon_3d_1.prm"),
+                     max_no_timesteps=0, output_dir="")
+    ours = parse_statistics(sim.statistics.write_text())[1][:1]
+    with open(os.path.join(GOLDEN_DIR,
+                           "sneddon_3d_1.mpirun=4.statistics")) as f:
+        golden = parse_statistics(f.read())[1][:1]
+    fails = table_failures(ours, golden, 1e-6, 1e-8)
+    print(f"golden 3d first step (sneddon_3d_1) on cuda: "
+          f"{time.perf_counter() - t0:.2f} s, {sim.mesh.n_dofs} DoFs, "
+          f"Newton/linear its {[(e[1], e[2]) for e in sim.solver_effort]},"
+          f" row {ours[0].tolist()} vs golden {golden[0].tolist()}, "
+          f"stencil launches {_stencil_counts()}")
+    if fails or sim.mesh.n_dofs != 5324 or sim.step_cuts:
+        raise AssertionError("golden 3d first step: " + "; ".join(fails))
+
+
+def _fresh_memory_baseline():
+    """Collect what earlier phases left to Python's cycle collector (the
+    first torch.func.jvp of a process keeps its callers' frames in a
+    cycle), reset the peak counter and return the bytes still
+    allocated: the baseline under this phase's per-epoch peaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _instrument_epochs(sim):
+    """Wrap sim.refine_mesh to record, per call: the DoFs after it, its
+    host seconds (refinement + system setup), the solve the new mesh
+    takes and the device-memory peak of the epoch it ended."""
+    from cracks_tpu_torch.solvers import newton
+    records = []
+    refine = sim.refine_mesh
+
+    def timed(state):
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        changed = refine(state)
+        torch.cuda.synchronize()
+        records.append(dict(dofs=sim.mesh.n_dofs,
+                            host_s=time.perf_counter() - t0,
+                            solve=newton.check_linear_solver(sim.sys),
+                            peak_before=peak))
+        return changed
+
+    sim.refine_mesh = timed
+    return records
+
+
+def _epochs(sim, records, label, reference=None):
+    """Print and return one summary per mesh epoch of a finished run."""
+    steps = [(e[0], n, s, e[1], e[2]) for e, (_, n, s) in
+             zip(sim.solver_effort, sim.step_times)]
+    peaks = [r["peak_before"] for r in records[1:]] + [
+        torch.cuda.max_memory_allocated()]
+    epochs = []
+    for dofs in dict.fromkeys(n for _, n, _, _, _ in steps):
+        mine = [s for s in steps if s[1] == dofs]
+        k = max(i for i, r in enumerate(records) if r["dofs"] == dofs)
+        timed = [s[2] for s in mine if s[0] != 0]   # the first step apart
+        ep = dict(dofs=dofs, solve=records[k]["solve"],
+                  host_setup_s=records[k]["host_s"], peak_bytes=peaks[k],
+                  step_s=[s[2] for s in mine],
+                  its=[(s[3], s[4]) for s in mine],
+                  s_per_step=(sum(timed) / len(timed) if timed
+                              else float("nan")))
+        epochs.append(ep)
+        ref = ""
+        if reference is not None:
+            ref = (f" (JAX run: "
+                   f"{[(r['newton'], r['linear']) for r in reference if r['dofs'] == dofs]})")
+        print(f"{label} epoch {len(epochs)}: {dofs} DoFs, solve "
+              f"{ep['solve']}, refinement + setup {ep['host_setup_s']:.3f}"
+              f" s, s/step {[round(x, 3) for x in ep['step_s']]} "
+              f"(mean without the run's first step "
+              f"{ep['s_per_step']:.3f}), Newton/linear its per step "
+              f"{ep['its']}{ref}, peak device memory {ep['peak_bytes']} B")
+    return epochs
+
+
+def shipped_phase():
+    """The shipped Sneddon 2d file against the JAX package's table."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    with open(os.path.join(REFERENCE_DIR,
+                           "parameters_sneddon_2d.effort.json")) as f:
+        effort = json.load(f)
+    with open(os.path.join(REFERENCE_DIR,
+                           "parameters_sneddon_2d.statistics")) as f:
+        ref_names, ref = parse_statistics(f.read())
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    with tempfile.TemporaryDirectory() as out:
+        sim = Simulation(config.load_parameters(SHIPPED_PRM, output_dir=out),
+                         device="cuda", verbose=False)
+        records = _instrument_epochs(sim)
+        base = _fresh_memory_baseline()
+        sim.run()
+        with open(os.path.join(out, "statistics")) as f:
+            names, ours = parse_statistics(f.read())
+    secs = time.perf_counter() - t0
+    _epochs(sim, records, "shipped", effort)
+    dofs_col = ref_names.index("DoFs")
+    fails = table_failures(ours, ref, 0.0, 1e-7)
+    print(f"shipped file on cuda: {secs:.2f} s, {len(ours)} rows vs "
+          f"{len(ref)}, {sim.step_cuts} time-step cuts, device memory "
+          f"allocated at its start {base} B, stencil launches "
+          f"{_stencil_counts()}, {len(fails)} cells off the JAX table "
+          f"(rel 1e-7)")
+    if (names != ref_names or ours.shape != ref.shape
+            or not np.array_equal(ours[:, dofs_col], ref[:, dofs_col])
+            or fails or sim.step_cuts):
+        raise AssertionError("shipped file vs the JAX table:\n"
+                             + "\n".join(fails[:20]))
+
+
+def production_phase():
+    """The shipped file four times finer (last epoch 168,609 DoFs)."""
+    from cracks_tpu_torch import config, qoi
+    from cracks_tpu_torch.driver import Simulation
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    p = config.load_parameters(SHIPPED_PRM, output_dir="", **PRODUCTION)
+    sim = Simulation(p, device="cuda", verbose=False)
+    records = _instrument_epochs(sim)
+    base = _fresh_memory_baseline()
+    sim.run()
+    secs = time.perf_counter() - t0
+    epochs = _epochs(sim, records, "production")
+    data = sim.statistics.data
+    tcv = [v for v in data["TCV"] if v != ""]
+    exact = qoi.tcv_exact(2, p.pressure(time=1.0), p.poisson_ratio_nu)
+    errors = [abs(v - exact) for v in tcv]
+    values = [v for col in data.values() for v in col
+              if isinstance(v, float)]
+    print(f"production (n_global_pre_refine=2, cg_maxiter=20000) on cuda: "
+          f"{secs:.2f} s, DoFs per epoch {[e['dofs'] for e in epochs]}, "
+          f"bulk energy {data['Bulk Energy']!r}, crack energy "
+          f"{data['Crack Energy']!r}, "
+          f"{sim.step_cuts} time-step cuts, device memory allocated at its "
+          f"start {base} B, TCV per epoch {tcv} (exact "
+          f"{exact!r}), errors {errors}, stencil launches "
+          f"{_stencil_counts()}")
+    if sim.step_cuts or not all(math.isfinite(v) for v in values):
+        raise AssertionError("production run: a time-step cut or a "
+                             "non-finite statistic")
+    if not min(data["Bulk Energy"]) > 0:
+        raise AssertionError("production run: bulk energy not positive")
+    if len(tcv) != len(epochs) or not all(
+            b < a for a, b in zip(errors, errors[1:])):
+        raise AssertionError("production run: the TCV error does not fall "
+                             "from epoch to epoch")
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -533,6 +826,10 @@ def main():
     full = {k["dim"]: main_phase(k["dim"]) for k in KERNELS}
     full_sharded = {dim: main_phase(dim, replicated=full[dim], **SHARDED)
                     for dim in full}
+    golden2d_phase()
+    golden3d_phase()
+    shipped_phase()
+    production_phase()
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.constraints import Constraints
+from .ops.constraints import Constraints, from_arrays
 from .ops.physics import CellArrays, Scalars
 from .solvers.lattice import LatticeHierarchy
 
@@ -42,8 +42,10 @@ def scalars(src, *, device) -> Scalars:
 
 
 def constraints(src, *, device) -> Constraints:
-    return Constraints(*(_tensor(getattr(src, f), device)
-                         for f in Constraints._fields))
+    """Constraints from a JAX Constraints (the port derives the
+    masters' scatter tables itself)."""
+    return from_arrays(**{f: _tensor(getattr(src, f), device)
+                          for f in src._fields})
 
 
 def lattice_hierarchy(src, *, device) -> LatticeHierarchy:

@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .scatter import ScatterTable, scatter_add, scatter_table
+
 
 class Constraints(NamedTuple):
     """Device-side constraint data (flat dof indexing).  The hanging
@@ -38,6 +40,18 @@ class Constraints(NamedTuple):
     dirichlet_p: torch.Tensor     # (n_v,) bool
     hang_mask_u: torch.Tensor     # (n_v*dim,) bool
     hang_mask_p: torch.Tensor     # (n_v,) bool
+    # scatter tables of hang_masters_u / _p (the condensation's sum
+    # order; derived, see `from_arrays`)
+    hang_scatter_u: ScatterTable
+    hang_scatter_p: ScatterTable
+
+
+def from_arrays(**arrays) -> Constraints:
+    """Constraints from its array fields (those of the JAX package's
+    Constraints), with the masters' scatter tables."""
+    return Constraints(
+        **arrays, hang_scatter_u=scatter_table(arrays["hang_masters_u"]),
+        hang_scatter_p=scatter_table(arrays["hang_masters_p"]))
 
 
 def make_constraints(mesh, dirichlet_u: np.ndarray, dirichlet_p: np.ndarray,
@@ -60,7 +74,7 @@ def make_constraints(mesh, dirichlet_u: np.ndarray, dirichlet_p: np.ndarray,
     i64 = dict(dtype=torch.int64, device=device)
     flt = dict(dtype=dtype, device=device)
     b = dict(dtype=torch.bool, device=device)
-    return Constraints(
+    return from_arrays(
         hang_child_p=torch.as_tensor(child, **i64),
         hang_masters_p=torch.as_tensor(masters, **i64),
         hang_child_u=torch.as_tensor(child_u, **i64),
@@ -82,13 +96,13 @@ def _interp(x, child, masters, weights):
     return x.index_put((child,), vals)
 
 
-def _transpose(r, child, masters, weights):
+def _transpose(r, child, weights, st: ScatterTable):
+    """r with each hanging child's value added to its masters (in the
+    masters' index order) and the child zeroed; out-of-place."""
     if child.numel() == 0:
         return r
-    child_vals = r[child]
-    r = r.index_add(0, masters.reshape(-1),
-                    (weights.to(r.dtype) * child_vals[:, None]).reshape(-1))
-    return r.index_fill(0, child, 0.0)
+    vals = weights.to(r.dtype) * r[child][:, None]
+    return scatter_add(st, vals, r.clone()).index_fill(0, child, 0.0)
 
 
 def hanging_interpolate_u(x, con: Constraints):
@@ -102,13 +116,13 @@ def hanging_interpolate_p(x, con: Constraints):
 
 
 def hanging_transpose_u(r, con: Constraints):
-    return _transpose(r, con.hang_child_u, con.hang_masters_u,
-                      con.hang_weights_u)
+    return _transpose(r, con.hang_child_u, con.hang_weights_u,
+                      con.hang_scatter_u)
 
 
 def hanging_transpose_p(r, con: Constraints):
-    return _transpose(r, con.hang_child_p, con.hang_masters_p,
-                      con.hang_weights)
+    return _transpose(r, con.hang_child_p, con.hang_weights,
+                      con.hang_scatter_p)
 
 
 def zero_constrained(ru, rp, con: Constraints, active):

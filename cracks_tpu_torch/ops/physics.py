@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import fem
+from .scatter import CellScatter, scatter_add
 
 ALPHA_BIOT = 0.0  # reference cracks.cc:1497
 
@@ -249,22 +250,20 @@ def _cell_values(u, phi, phi_old, phi_oold, ca: CellArrays, dim: int):
 
 
 def assemble_residual(u, phi, phi_old, phi_oold, ca: CellArrays,
-                      sc: Scalars, *, dim: int, with_split: bool,
-                      monolithic: bool):
+                      sc: Scalars, cs: CellScatter, *, dim: int,
+                      with_split: bool, monolithic: bool):
     """Global Newton right-hand side (the *negative* residual, the
     reference's local_rhs sign convention, cracks.cc:2404/2423).
-    Returns (ru (n_v*dim,), rp (n_v,)), raw scatter-add, no
-    constraints."""
+    Returns (ru (n_v*dim,), rp (n_v,)), raw scatter-add through `cs`
+    (the scatter tables of `ca`), no constraints."""
     nvc = ca.gather_p.shape[0]
     u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
                                              ca, dim)
     ru_e, rp_e = _element_residual_cl(u_e, phi_e, pfo_e, pfoo_e, ca, sc,
                                       dim=dim, with_split=with_split,
                                       monolithic=monolithic)
-    ru = torch.zeros_like(u).index_add_(
-        0, ca.gather_u.reshape(-1), ru_e.reshape(nvc * dim, -1).reshape(-1))
-    rp = torch.zeros_like(phi).index_add_(
-        0, ca.gather_p.reshape(-1), rp_e.reshape(-1))
+    ru = scatter_add(cs.u, ru_e.reshape(nvc * dim, -1), torch.zeros_like(u))
+    rp = scatter_add(cs.p, rp_e, torch.zeros_like(phi))
     return ru, rp
 
 

@@ -23,8 +23,7 @@ import torch
 
 from ..parallel.sharding import pad_rows, unpad_rows
 from . import lattice
-from .newton import (NewtonLog, NoConvergence, _flips_within_band,
-                     check_linear_solver)
+from .newton import NewtonLog, NoConvergence, _flips_within_band
 
 
 def _condensed_residual(U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc,
@@ -132,8 +131,9 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
     """PDAS Newton on lattice-layout state.  Same contract as
     `newton.newton_active_set`: sets state.u/state.phi (flat, at the
     boundary), state.active_mask and state.last_log, and returns the
-    last residual reduction."""
-    check_linear_solver(sys)
+    last residual reduction.  Like the JAX lattice Newton it never reads
+    `linear_solver`: the driver selects it only where the lattice
+    hierarchy exists, and its solve is the lattice one."""
     p = sys.params
     hier: lattice.LatticeHierarchy = sys.lattice_hierarchy
     grid = hier.grid

@@ -4,12 +4,15 @@ Port of ``newton_active_set`` from ``cracks_tpu/solvers/newton.py``
 (reference cracks.cc:2780-2994): host control flow around device
 tensor work.  The active set is a boolean mask over phase-field
 vertices; convergence logic, cycle detection and the backtracking line
-search follow the reference step for step.  The penalized monolithic
-``newton_iteration`` is not ported yet.
+search follow the reference step for step.  The linear solve is routed
+as in the JAX package: the dense direct solve, the lattice GMG
+mixed-precision CG or the stored-element-matrix Jacobi CG.  The
+penalized monolithic ``newton_iteration`` is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -18,11 +21,7 @@ from ..ops import physics
 from ..ops.constraints import (condense_residual, expand_update,
                                hanging_interpolate_p, hanging_interpolate_u,
                                hanging_transpose_p, residual_norm)
-from . import lattice
-
-# linear_solver="auto" picks the dense direct solve up to this size
-# (cracks_tpu/solvers/linear.py)
-DENSE_DIRECT_MAX_DOFS = 8000
+from . import assembled, lattice, linear
 
 
 class NoConvergence(Exception):
@@ -44,43 +43,151 @@ class NewtonLog:
             print(line)
 
 
-def check_linear_solver(sys) -> None:
-    """Raise for a configured linear solve other than the lattice GMG
-    mixed-precision CG, the only one ported (both Newtons call it)."""
+def krylov_path(sys) -> str:
+    """The iterative solve of a configuration, in the JAX package's
+    order (cracks_tpu/solvers/newton.py:70-148): "lattice" (the lattice
+    GMG mixed-precision CG; its hierarchy exists only under gmg +
+    assembled_matvec + mixed precision on a uniform lattice) or
+    "assembled" (the stored-element-matrix Jacobi CG).  Raises for the
+    ones not ported."""
     p = sys.params
-    mode = p.linear_solver
-    if mode == "auto":
-        mode = ("direct" if sys.mesh.n_dofs <= DENSE_DIRECT_MAX_DOFS
-                else "cg")
-    if mode == "direct":
-        raise NotImplementedError("direct linear solve: ROADMAP A3")
+    if sys.lattice_hierarchy is not None:
+        return "lattice"
+    if p.preconditioner == "gmg":
+        raise NotImplementedError(
+            "preconditioner=gmg without the lattice hierarchy (a "
+            "hanging-node or non-lattice mesh, or no mixed_precision_cg): "
+            "the Galerkin and multigrid GMG are not ported, ROADMAP A10")
     if not p.assembled_matvec:
         raise NotImplementedError(
-            "matrix-free jvp CG (assembled_matvec=False) is not ported")
-    if not sys.mixed_precision:
-        raise NotImplementedError(
-            "the lattice solve needs mixed_precision_cg with float64; "
-            "the generic GMG/CG paths are not ported")
-    if sys.lattice_hierarchy is None:
-        raise NotImplementedError(
-            "Galerkin/assembled GMG on non-lattice meshes: ROADMAP A10")
+            "the matrix-free jvp CG (assembled_matvec=False) is not "
+            "ported: ROADMAP A12")
+    return "assembled"
+
+
+def uses_direct(sys) -> bool:
+    """Whether the configured solve is the dense direct one: `direct`,
+    or `auto` up to DENSE_DIRECT_MAX_DOFS, whatever the
+    preconditioner."""
+    mode = sys.params.linear_solver
+    return mode == "direct" or (
+        mode == "auto"
+        and sys.mesh.n_dofs <= linear.DENSE_DIRECT_MAX_DOFS)
+
+
+def check_linear_solver(sys) -> str:
+    """The linear solve a replicated Newton will take ("direct",
+    "lattice" or "assembled"); raises NotImplementedError for the
+    unported ones before any work.  A singular direct factor falls
+    through to `krylov_path`, checked then."""
+    return "direct" if uses_direct(sys) else krylov_path(sys)
 
 
 def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
            with_split):
-    """The configured linear solve. Returns (du, dp, iterations)."""
-    check_linear_solver(sys)
+    """The configured linear solve. Returns (du, dp, iterations).
+
+    A configuration whose displacement block is exactly singular inside
+    a fully developed crack (K reg = 0) makes the dense factor singular;
+    the reference solves those with a Krylov method whose iterates stay
+    in the range space (GMRES, cracks.cc:2762-2771), so a singular
+    factor -- or `linear_solver=direct` above the dense cap -- falls
+    through to the Krylov path, which has the same property."""
+    if uses_direct(sys):
+        try:
+            return linear.solve_direct(
+                u, phi, phi_old, phi_oold, sys.ca, sys.scalars, con, active,
+                rhs_u, rhs_p, dim=sys.dim, with_split=with_split,
+                monolithic=False)
+        except linear.DirectSolveRefused:
+            pass
+    if krylov_path(sys) == "assembled":
+        return _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active,
+                                rhs_u, rhs_p, with_split)
     du, dp, its = lattice.solve_lattice(sys, u, phi, phi_old, phi_oold,
                                         active, rhs_u, rhs_p, with_split)
     du, dp = expand_update(du, dp, con, active)
     return du, dp, its
 
 
+def _norm(ru, rp) -> float:
+    return math.sqrt(float(torch.dot(ru, ru) + torch.dot(rp, rp)))
+
+
+def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
+                     rhs_p, with_split):
+    """Stored-element-matrix solve (`assembled`, JAX
+    ``newton._solve_assembled`` without its Galerkin branches): the
+    element Jacobians are built once per Newton iteration and the
+    Krylov iterations are batched dense matvecs with Jacobi CG.  With
+    mixed precision, iterative refinement: up to 8 capped f32 passes,
+    each accepted if it cuts the f64 residual below 0.2x, the first
+    stalled one replaced by an f64 Jacobi-CG finish.  Returns
+    (du, dp, iterations) with the constraints distributed."""
+    p = sys.params
+    kw = dict(dim=sys.dim, with_split=with_split, monolithic=False)
+    cs = sys.cell_scatter
+    bnorm0 = _norm(rhs_u, rhs_p)
+
+    def krylov(jac_, ca_, con_, bu, bp, rtol, atol, maxiter):
+        d_u, d_p = assembled.diagonals(jac_, ca_, cs, dim=sys.dim)
+        return assembled.solve_cg_block(
+            jac_, ca_, con_, active, bu, bp, d_u, d_p, rtol, atol, cs,
+            dim=sys.dim, maxiter=maxiter, stall_window=p.cg_chunk)
+
+    jac = assembled.build_jacobians(u, phi, phi_old, phi_oold, sys.ca,
+                                    sys.scalars, **kw)
+    if not sys.mixed_precision:
+        du, dp, its = krylov(jac, sys.ca, con, rhs_u, rhs_p, p.cg_rtol,
+                             1e-300, p.cg_maxiter)
+        return (*expand_update(du, dp, con, active), its)
+
+    f32 = lambda x: x.to(torch.float32)
+    con32 = con._replace(hang_weights=f32(con.hang_weights),
+                         hang_weights_u=f32(con.hang_weights_u))
+    sc32 = physics.Scalars(*(f32(v) for v in sys.scalars))
+    jac32 = assembled.build_jacobians(
+        f32(u), f32(phi), f32(phi_old), f32(phi_oold), sys.ca32, sc32, **kw)
+    target = max(p.cg_rtol * bnorm0, 1e-300)
+    du = torch.zeros_like(u)
+    dp = torch.zeros_like(phi)
+    ru, rp = rhs_u, rhs_p
+    rnorm = bnorm0
+    total_its = 0
+    for _ in range(8):
+        cu32, cp32, its = krylov(jac32, sys.ca32, con32, f32(ru), f32(rp),
+                                 max(p.cg_rtol, 1e-4), 1e-300,
+                                 min(p.cg_maxiter, 4 * p.cg_chunk))
+        total_its += its
+        du_try = du + cu32.to(u.dtype)
+        dp_try = dp + cp32.to(u.dtype)
+        ru2, rp2 = assembled.residual_update(jac, sys.ca, con, active, cs,
+                                             du_try, dp_try, rhs_u, rhs_p,
+                                             dim=sys.dim)
+        rnorm2 = _norm(ru2, rp2)
+        if rnorm2 < 0.2 * rnorm:        # False for a non-finite rnorm2
+            du, dp, ru, rp, rnorm = du_try, dp_try, ru2, rp2, rnorm2
+            if rnorm <= target:
+                break
+            continue
+        # the f32 floor, or overflow on a noise-level rhs (Newton going
+        # on past the f64 residual floor while the active set still
+        # changes): drop the pass and finish with f64 Jacobi CG
+        cu, cp, it64 = krylov(jac, sys.ca, con, ru, rp, p.cg_rtol, target,
+                              p.cg_maxiter)
+        total_its += it64
+        du = du + cu
+        dp = dp + cp
+        break
+    return (*expand_update(du, dp, con, active), total_its)
+
+
 def _assemble(sys, u, phi, phi_old, phi_oold, con, active, with_split):
     """(tot_p, pde_u, pde_p): the hanging-condensed raw phase-field
     residual (the indicator's input) and the condensed Newton rhs."""
     ru, rp = physics.assemble_residual(u, phi, phi_old, phi_oold, sys.ca,
-                                       sys.scalars, dim=sys.dim,
+                                       sys.scalars, sys.cell_scatter,
+                                       dim=sys.dim,
                                        with_split=with_split,
                                        monolithic=False)
     tot_p = hanging_transpose_p(rp, con)
@@ -179,6 +286,7 @@ def newton_active_set(sys, state, time: float, verbose: bool = True):
     `sys` is a driver.System; `state` a driver.SolutionState with
     tensors u, phi (current) and u_old, phi_old, phi_oold.  Sets
     state.u/state.phi and returns the last residual reduction."""
+    check_linear_solver(sys)
     p = sys.params
     log = NewtonLog()
     log.print_line("It.", "#A.Set", "#CycDoF", "Residual", "Reduction",

@@ -66,19 +66,62 @@ def test_device_is_explicit():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(n_local_pre_refine=2), "A5"),
-    (dict(n_refinement_cycles=1), "A5"),
-    (dict(write_vtu=True), "A5"),
-    (dict(checkpoint_every=1), "A5"),
+    (dict(n_local_pre_refine=1), "A10"),
+    (dict(assembled_matvec=False, preconditioner="jacobi"), "A12"),
+    (dict(test_case="miehe tension"), "A1"),
+    (dict(n_local_pre_refine=1, n_devices=4, dof_sharding="lattice"),
+     "A11b"),
     (dict(decompose_stress_matrix=1.0), "A1"),
     (dict(outer_solver="simple monolithic"), "A4"),
     (dict(test_case="miehe shear"), "A9"),
     (dict(n_devices=2), "A11"),
 ])
 def test_unported_configurations_raise(override, item):
+    """Each raises before any Newton work: at construction, or for the
+    linear solve and the halo pool at the first setup or solve of
+    run()."""
     p = config.load_parameters(PRM, **{**BENCH, **override})
     with pytest.raises(NotImplementedError, match=item):
-        Simulation(p, device="cpu", verbose=False)
+        Simulation(p, device="cpu", verbose=False).run()
+
+
+# formerly refused (refinement, VTU, checkpoints, the direct solve),
+# now admitted: one step at global refine 1 on the CPU
+ONE_STEP = dict(n_global_pre_refine=1, n_local_pre_refine=0,
+                n_refinement_cycles=0, max_no_timesteps=0,
+                linear_solver="auto", preconditioner="jacobi",
+                mixed_precision_cg=False)
+
+
+@pytest.mark.parametrize("override", [
+    dict(n_local_pre_refine=2),
+    dict(n_refinement_cycles=1),
+    dict(write_vtu=True),
+    dict(checkpoint_every=1),
+    dict(linear_solver="direct"),
+    dict(linear_solver="direct", preconditioner="gmg",
+         mixed_precision_cg=True, n_devices=4, dof_sharding="lattice"),
+], ids=["local-pre-refine", "refinement-cycles", "vtu", "checkpoint",
+        "direct", "direct-ignored-by-lattice-newton"])
+def test_formerly_refused_configurations_run(override, tmp_path):
+    p = config.load_parameters(PRM, **{**BENCH, **ONE_STEP, **override,
+                                       "output_dir": str(tmp_path)})
+    sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert len(sim.solver_effort) == 1 and sim.step_cuts == 0
+    assert sim.statistics.data["Bulk Energy"][0] > 0
+    if "n_local_pre_refine" in override:
+        assert len(sim.mesh.hang_child) > 0
+        assert sim.sys.lattice_hierarchy is None
+    if override.get("write_vtu"):
+        assert (tmp_path / "solution_00000.vtu").exists()
+        assert "solution_00001.vtu" in (tmp_path / "solution.pvd").read_text()
+    if "checkpoint_every" in override:
+        assert (tmp_path / "checkpoint.npz").exists()
+    if override.get("dof_sharding") == "lattice":
+        assert sim.sys.use_lattice_state
+    elif override.get("linear_solver") == "direct":
+        assert all(e[2] == e[1] for e in sim.solver_effort)
 
 
 def test_sneddon_3d_is_accepted():
@@ -96,11 +139,16 @@ def test_sneddon_3d_is_accepted():
     dict(), dict(n_devices=4, dof_sharding="lattice")],
     ids=["replicated", "lattice"])
 @pytest.mark.parametrize("override,item", [
-    (dict(linear_solver="direct"), "A3"),
+    (dict(linear_solver="cg", n_global_pre_refine=1, preconditioner="jacobi",
+          assembled_matvec=False), "not ported"),
     (dict(linear_solver="cg", n_global_pre_refine=1,
           mixed_precision_cg=False), "not ported"),
 ])
 def test_unported_linear_solvers_raise(override, item, sharding):
+    """Without mixed precision or the stored element matrices there is
+    no lattice hierarchy: the replicated Newton refuses the Galerkin GMG
+    (A10) and the matrix-free CG (A12), the sharded mode the halo pool
+    (A11b)."""
     p = config.load_parameters(PRM, **{**BENCH, **override, **sharding})
     sim = Simulation(p, device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match=item):

@@ -1,7 +1,9 @@
 """The port's own copies of the numpy host modules (configuration, coarse
-meshes, the forest with its native key core, problem definitions) and
-its constraint handling, against the JAX package's originals on the 2d
-and 3d Sneddon forests (10 roots per axis, refine 1).  The copies must
+meshes, the forest with its native key core, problem definitions, the
+Kelly estimator, VTU/PVD output) and its constraint handling, against
+the JAX package's originals on the 2d and 3d Sneddon forests (10 roots
+per axis, refine 1; Kelly and output also with a refined box, i.e.
+hanging vertices).  The copies must
 agree exactly: vertex identity, Dirichlet masks and parameters are
 integer or bit-for-bit data."""
 
@@ -13,10 +15,12 @@ import pytest
 import torch
 
 from cracks_tpu import config as jconfig, meshio as jmeshio
+from cracks_tpu import kelly as jkelly, output as joutput
 from cracks_tpu import problems as jproblems
 from cracks_tpu.mesh import Forest as JForest
 from cracks_tpu.ops import constraints as jcon
-from cracks_tpu_torch import config, mesh, meshio, native, problems
+from cracks_tpu_torch import (config, kelly, mesh, meshio, native, output,
+                              problems)
 from cracks_tpu_torch.ops import constraints
 
 torch.set_num_threads(1)
@@ -134,7 +138,7 @@ def test_constraints_match_jax(forests):
     con_t = constraints.make_constraints(mt, mask_u, mask_p,
                                          dtype=torch.float64,
                                          device=torch.device("cpu"))
-    for name in constraints.Constraints._fields:
+    for name in jcon.Constraints._fields:
         np.testing.assert_array_equal(getattr(con_t, name).numpy(),
                                       np.asarray(getattr(con_j, name)),
                                       err_msg=name)
@@ -151,3 +155,39 @@ def test_constraints_match_jax(forests):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert int(con_t.dirichlet_u.sum()) == int(mask_u.sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hanging"])
+def test_kelly_and_output_match_jax(forests, kind, tmp_path):
+    """kelly_estimate equal bit for bit, and write_vtu / PvdWriter
+    writing the same bytes, on the refine-1 mesh and on a copy with the
+    cells near the origin refined once more (hanging vertices)."""
+    dim, fj, ft, mj, mt = forests
+    if kind == "hanging":
+        args = ([-10] * dim, [10] * dim, [10] * dim)
+        fj, ft = JForest(jmeshio.rect_mesh(*args)), mesh.Forest(
+            meshio.rect_mesh(*args))
+        mj, mt = fj.extract(), ft.extract()
+        flags = np.all(np.abs(mt.cell_coords.mean(axis=1)) < 4, axis=1)
+        mj, _, _ = fj.refine_and_transfer(flags, mj, [np.zeros(mj.n_vertices)])
+        mt, _, _ = ft.refine_and_transfer(flags, mt, [np.zeros(mt.n_vertices)])
+        assert len(mt.hang_child) > 0
+    rng = np.random.default_rng(dim)
+    u = rng.normal(size=mt.n_vertices * dim)
+    eta = kelly.kelly_estimate(mt, u)
+    assert eta.shape == (mt.n_cells,) and eta.max() > 0
+    np.testing.assert_array_equal(eta, jkelly.kelly_estimate(mj, u))
+
+    point = {"displacement": u.reshape(-1, dim),
+             "phasefield": rng.uniform(size=mt.n_vertices)}
+    cell = {"level": mt.cell_level.astype(float)}
+    for pkg, m, sub in ((output, mt, "port"), (joutput, mj, "jax")):
+        d = tmp_path / sub
+        d.mkdir()
+        pkg.write_vtu(str(d / "solution_00000.vtu"), m, point, cell)
+        pvd = pkg.PvdWriter(str(d))
+        pvd.add(1.0, "solution_00000.vtu")
+        pvd.add(2.0, "solution_00001.vtu")
+    for name in ("solution_00000.vtu", "solution.pvd", "solution.visit"):
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name

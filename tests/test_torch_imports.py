@@ -20,11 +20,14 @@ PORT_MODULES = [
     "cracks_tpu_torch.mesh", "cracks_tpu_torch.native",
     "cracks_tpu_torch.fem", "cracks_tpu_torch.problems",
     "cracks_tpu_torch.statistics", "cracks_tpu_torch.profiling",
+    "cracks_tpu_torch.kelly", "cracks_tpu_torch.output",
+    "cracks_tpu_torch.checkpoint",
     "cracks_tpu_torch.ops.physics", "cracks_tpu_torch.ops.constraints",
-    "cracks_tpu_torch.ops.stencil",
+    "cracks_tpu_torch.ops.stencil", "cracks_tpu_torch.ops.scatter",
     "cracks_tpu_torch.parallel", "cracks_tpu_torch.parallel.sharding",
     "cracks_tpu_torch.solvers.galerkin", "cracks_tpu_torch.solvers.multigrid",
     "cracks_tpu_torch.solvers.lattice", "cracks_tpu_torch.solvers.newton",
+    "cracks_tpu_torch.solvers.linear", "cracks_tpu_torch.solvers.assembled",
     "cracks_tpu_torch.solvers.lattice_newton",
     "cracks_tpu_torch.qoi", "cracks_tpu_torch.driver",
     "cracks_tpu_torch.__main__",

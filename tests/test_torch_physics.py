@@ -19,6 +19,7 @@ from cracks_tpu.ops import physics as jphys
 from cracks_tpu.solvers import lattice as jlat
 from cracks_tpu_torch import interop, qoi
 from cracks_tpu_torch.ops import physics
+from cracks_tpu_torch.ops.scatter import cell_scatter
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -90,9 +91,10 @@ def test_assemble_residual_matches_jax(setup, monolithic):
         st["u"], st["phi"], st["phi_old"], st["phi_oold"], s["ca"], s["sc"],
         dim=s["dim"], with_split=False, monolithic=monolithic)
     t, ca, sc = _port_inputs(s)
+    cs = cell_scatter(ca, t["u"].numel(), t["phi"].numel())
     ru, rp = physics.assemble_residual(
-        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=s["dim"],
-        with_split=False, monolithic=monolithic)
+        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, cs,
+        dim=s["dim"], with_split=False, monolithic=monolithic)
     _close(ru, ru_j)
     _close(rp, rp_j)
 
@@ -116,10 +118,12 @@ def test_element_matrices_match_jax(setup, monolithic):
 
 def test_spectral_split_raises(setup):
     t, ca, sc = _port_inputs(setup)
+    cs = cell_scatter(ca, t["u"].numel(), t["phi"].numel())
     with pytest.raises(NotImplementedError, match="A1"):
         physics.assemble_residual(t["u"], t["phi"], t["phi_old"],
-                                  t["phi_oold"], ca, sc, dim=setup["dim"],
-                                  with_split=True, monolithic=False)
+                                  t["phi_oold"], ca, sc, cs,
+                                  dim=setup["dim"], with_split=True,
+                                  monolithic=False)
 
 
 def test_energy_tcv_and_linf_match_jax(setup):
