@@ -89,7 +89,28 @@ without printing the final line:
    epoch to the next; per epoch the DoFs, the solve, seconds per step,
    Newton and linear iterations, host seconds of refinement + system
    setup and the peak device memory.
-   Phases 8-11 run no hand-written kernel (dense LU through
+12. the goldens of the other test cases, in full: params/tests/
+   miehe_shear_1.prm (the split, the predictor-corrector loop, 891 ->
+   1,506 DoFs), miehe_shear_2.prm (a fixed mesh, 25 steps),
+   miehe_tension_adaptive_1.prm (33 steps, K reg = 0) and
+   threepoint_1.prm (the gmsh mesh, 975 -> 1,347 DoFs), each against its
+   table in tests/golden/ under the tolerances of the JAX package's full
+   tests (tests/test_regression_miehe.py, test_regression_adaptive.py,
+   test_regression_threepoint.py: the numdiff rule with their
+   phase-aware column overrides) and with an equal DoF column; each
+   prints its time, time-step cuts, redone steps and Newton iterations
+   per solve;
+13. the shipped Miehe shear file: params/parameters_miehe_shear_adaptive
+   .prm as shipped (200 steps, the split, one adaptive cycle under the
+   level cap, 3,315 DoFs until the crack grows) against the JAX
+   package's table of its first 100 steps (tests/torch_reference/
+   parameters_miehe_shear_adaptive.statistics, written by
+   scripts/torch_reference.py) to rel 1e-7 with equal DoFs, then finite
+   statistics, positive bulk energy, at least one redone step and a
+   "Load x" that peaks and then falls; per epoch the DoFs, the solve,
+   seconds per step, Newton and linear iterations, host seconds of
+   refinement + system setup and the peak device memory.
+   Phases 8-13 run no hand-written kernel (dense LU through
    torch.linalg, the stored-matrix CG through torch ops); the stencil
    kernels' counts are set to 0 before each and printed after it.
 
@@ -689,54 +710,71 @@ def _fresh_memory_baseline():
 
 
 def _instrument_epochs(sim):
-    """Wrap sim.refine_mesh to record, per call: the DoFs after it, its
-    host seconds (refinement + system setup), the solve the new mesh
-    takes and the device-memory peak of the epoch it ended."""
+    """Wrap sim.setup_system, which starts every mesh epoch, and
+    sim._refine_and_transfer, which comes before it, to record per
+    epoch: its DoFs, the host seconds of the refinement and system setup
+    that started it, the solve the mesh takes and, once the next epoch
+    starts, the device-memory peak of this one."""
     from cracks_tpu_torch.solvers import newton
     records = []
-    refine = sim.refine_mesh
+    refine, setup = sim._refine_and_transfer, sim.setup_system
+    refine_s = [0.0]
 
-    def timed(state):
-        peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+    def timed_refine(state):
         t0 = time.perf_counter()
         changed = refine(state)
-        torch.cuda.synchronize()
-        records.append(dict(dofs=sim.mesh.n_dofs,
-                            host_s=time.perf_counter() - t0,
-                            solve=newton.check_linear_solver(sim.sys),
-                            peak_before=peak))
+        refine_s[0] = time.perf_counter() - t0
         return changed
 
-    sim.refine_mesh = timed
+    def timed_setup():
+        if records:
+            records[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        setup()
+        torch.cuda.synchronize()
+        records.append(dict(dofs=sim.mesh.n_dofs,
+                            host_s=refine_s[0] + time.perf_counter() - t0,
+                            solve=newton.check_linear_solver(sim.sys)))
+        refine_s[0] = 0.0
+
+    sim._refine_and_transfer = timed_refine
+    sim.setup_system = timed_setup
     return records
 
 
 def _epochs(sim, records, label, reference=None):
-    """Print and return one summary per mesh epoch of a finished run."""
-    steps = [(e[0], n, s, e[1], e[2]) for e, (_, n, s) in
-             zip(sim.solver_effort, sim.step_times)]
-    peaks = [r["peak_before"] for r in records[1:]] + [
-        torch.cuda.max_memory_allocated()]
+    """Print and return one summary per mesh epoch of a finished run.
+    A step's Newton and linear iterations are summed over its solves (a
+    step the predictor-corrector loop redoes on a refined mesh solves
+    twice); the step belongs to the epoch it ended on."""
+    records[-1].setdefault("peak_bytes", torch.cuda.max_memory_allocated())
+    effort = {}
+    for step, newton_its, lin_its, *_ in sim.solver_effort:
+        n, lin, solves = effort.get(step, (0, 0, 0))
+        effort[step] = (n + newton_its, lin + lin_its, solves + 1)
+    steps = [(step, n, secs) + effort[step]
+             for step, n, secs in sim.step_times]
     epochs = []
-    for dofs in dict.fromkeys(n for _, n, _, _, _ in steps):
+    for dofs in dict.fromkeys(n for _, n, *_ in steps):
         mine = [s for s in steps if s[1] == dofs]
-        k = max(i for i, r in enumerate(records) if r["dofs"] == dofs)
+        rec = [r for r in records if r["dofs"] == dofs][-1]
         timed = [s[2] for s in mine if s[0] != 0]   # the first step apart
-        ep = dict(dofs=dofs, solve=records[k]["solve"],
-                  host_setup_s=records[k]["host_s"], peak_bytes=peaks[k],
-                  step_s=[s[2] for s in mine],
+        ep = dict(dofs=dofs, solve=rec["solve"], host_setup_s=rec["host_s"],
+                  peak_bytes=rec["peak_bytes"], step_s=[s[2] for s in mine],
                   its=[(s[3], s[4]) for s in mine],
+                  redone=sum(s[5] - 1 for s in mine),
                   s_per_step=(sum(timed) / len(timed) if timed
                               else float("nan")))
         epochs.append(ep)
         ref = ""
         if reference is not None:
-            ref = (f" (JAX run: "
+            ref = (f" (JAX run, per solve: "
                    f"{[(r['newton'], r['linear']) for r in reference if r['dofs'] == dofs]})")
         print(f"{label} epoch {len(epochs)}: {dofs} DoFs, solve "
               f"{ep['solve']}, refinement + setup {ep['host_setup_s']:.3f}"
-              f" s, s/step {[round(x, 3) for x in ep['step_s']]} "
+              f" s, {len(mine)} steps ({ep['redone']} redone), s/step "
+              f"{[round(x, 3) for x in ep['step_s']]} "
               f"(mean without the run's first step "
               f"{ep['s_per_step']:.3f}), Newton/linear its per step "
               f"{ep['its']}{ref}, peak device memory {ep['peak_bytes']} B")
@@ -817,6 +855,162 @@ def production_phase():
                              "from epoch to epoch")
 
 
+# the goldens of the other test cases: (file, golden table, column
+# overrides, first softening row, softening overrides), the tolerances
+# of the JAX package's full tests
+# (tests/test_regression_{adaptive,miehe,threepoint}.py)
+GOLDENS = [
+    ("miehe_shear_1", "miehe_shear_1.statistics", {}, None, {}),
+    ("miehe_shear_2", "miehe_shear_2.statistics",
+     {"Energy": (1e-3, 3e-4), "Load": (1e-6, 1e-5)}, 19,
+     {"Energy": (1e-3, 1e-3), "Load": (1e-6, 1.3e-3)}),
+    ("miehe_tension_adaptive_1", "miehe_tension_adaptive_1.statistics",
+     {"Energy": (1e-5, 1.5e-3), "Load": (1e-6, 3e-4)}, 27,
+     {"Energy": (1e-3, 1e-2), "Load": (1e-6, 1e-2)}),
+    ("threepoint_1", "threepoint_1.mpirun=2.statistics",
+     {"Load": (1e-6, 5e-5)}, None, {}),
+]
+SHIPPED_MIEHE_PRM = os.path.join(ROOT, "params",
+                                 "parameters_miehe_shear_adaptive.prm")
+
+
+def golden_cells(names, ours, g_names, golden, overrides, softening_from,
+                 softening):
+    """tests/regression.py's compare_statistics: the numdiff rule (|d| <=
+    1e-6 or rel <= 1e-8, rel against the larger magnitude), a column's
+    (atol, rtol) replaced by the override whose key its name contains,
+    from row `softening_from` on by the softening override.  Yields
+    (row, column, ours, golden, |d|, atol, rel, rtol) of every compared
+    cell."""
+    for j, name in enumerate(g_names):
+        pick = lambda table, default: next(
+            (v for k, v in table.items() if k in name), default)
+        tol = pick(overrides, (1e-6, 1e-8))
+        soft = pick(softening, tol)
+        for i, (g, o) in enumerate(zip(golden[:, j], ours[:, j])):
+            if np.isnan(g) and np.isnan(o):
+                continue
+            a, r = (soft if softening_from is not None
+                    and i >= softening_from else tol)
+            d = abs(g - o)
+            yield i, name, o, g, d, a, d / max(abs(g), abs(o), 1e-300), r
+
+
+def golden_failures(names, ours, g_names, golden, overrides, softening_from,
+                    softening):
+    """The failing cells of golden_cells: |d| > atol and rel > rtol."""
+    if names[:len(g_names)] != g_names:
+        return [f"columns {names} vs {g_names}"]
+    if len(ours) != len(golden):
+        return [f"{len(ours)} rows vs {len(golden)}"]
+    return [f"row {i} col '{name}': {o!r} vs {g!r}"
+            for i, name, o, g, d, a, rel, r in golden_cells(
+                names, ours, g_names, golden, overrides, softening_from,
+                softening)
+            if d > a and rel > r]
+
+
+def golden_margins(names, ours, g_names, golden, overrides, softening_from,
+                   softening):
+    """Per row, its cells' largest min(|d| / atol, rel / rtol) and that
+    cell's column: a cell fails above 1."""
+    worst = {}
+    for i, name, _, _, d, a, rel, r in golden_cells(
+            names, ours, g_names, golden, overrides, softening_from,
+            softening):
+        m = min(d / a, rel / r)
+        if i not in worst or m > worst[i][0]:
+            worst[i] = (m, name)
+    return [worst[i] for i in sorted(worst)]
+
+
+def goldens_phase():
+    """The four goldens of the non-Sneddon cases, in full, on the card."""
+    for name, table, overrides, softening_from, softening in GOLDENS:
+        t0 = time.perf_counter()
+        _zero_stencil_counts()
+        sim = _run_quiet(os.path.join(PRM_TESTS, f"{name}.prm"),
+                         output_dir="")
+        secs = time.perf_counter() - t0
+        names, ours = parse_statistics(sim.statistics.write_text())
+        with open(os.path.join(GOLDEN_DIR, table)) as f:
+            g_names, golden = parse_statistics(f.read())
+        fails = golden_failures(names, ours, g_names, golden, overrides,
+                                softening_from, softening)
+        margins = (golden_margins(names, ours, g_names, golden, overrides,
+                                  softening_from, softening)
+                   if len(ours) == len(golden) else [])
+        dofs = sim.statistics.data["DoFs"]
+        g_dofs = golden[:, g_names.index("DoFs")].astype(int).tolist()
+        print(f"golden {name} on cuda: {secs:.2f} s, {len(ours)} rows vs "
+              f"{len(golden)}, DoFs {sorted(set(dofs))} (golden "
+              f"{sorted(set(g_dofs))}), {sim.step_cuts} time-step cuts, "
+              f"{sim.old_pf_retries} old-phase-field retries, {sim.redos} "
+              f"redone steps, Newton its per solve "
+              f"{[e[1] for e in sim.solver_effort]}, stencil launches "
+              f"{_stencil_counts()}, {len(fails)} cells off the golden")
+        soft = "" if softening_from is None else (
+            f"; softening tolerances from row {softening_from}")
+        print(f"golden {name} margins, per row the largest min(|d| / atol, "
+              f"rel / rtol) of its cells (a cell fails above 1){soft}: "
+              + ", ".join(f"{i}: {m:.2g} {col}"
+                          for i, (m, col) in enumerate(margins)))
+        if fails or dofs != g_dofs:
+            raise AssertionError(f"golden {name}:\n" + "\n".join(fails[:20]))
+
+
+def shipped_miehe_phase():
+    """The shipped Miehe shear file as shipped against the JAX package's
+    table of its first 100 steps, then its own checks to the end."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    name = "parameters_miehe_shear_adaptive"
+    with open(os.path.join(REFERENCE_DIR, f"{name}.effort.json")) as f:
+        effort = json.load(f)
+    with open(os.path.join(REFERENCE_DIR, f"{name}.statistics")) as f:
+        ref_names, ref = parse_statistics(f.read())
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = Simulation(config.load_parameters(SHIPPED_MIEHE_PRM,
+                                            output_dir=""),
+                     device="cuda", verbose=False)
+    records = _instrument_epochs(sim)
+    base = _fresh_memory_baseline()
+    sim.run()
+    secs = time.perf_counter() - t0
+    _epochs(sim, records, "shipped Miehe", effort)
+    names, ours = parse_statistics(sim.statistics.write_text())
+    dofs_col = ref_names.index("DoFs")
+    fails = table_failures(ours[:len(ref)], ref, 0.0, 1e-7)
+    data = sim.statistics.data
+    load = np.asarray(data["Load x"])
+    peak = int(np.argmax(load))
+    values = [v for col in data.values() for v in col
+              if isinstance(v, float)]
+    n_steps = len(sim.step_times)
+    print(f"shipped Miehe shear on cuda: {secs:.2f} s, {n_steps} steps "
+          f"({secs / n_steps:.3f} s/step), DoFs {data['DoFs'][0]} -> "
+          f"{data['DoFs'][-1]}, {sim.redos} redone steps (MESH CHANGED), "
+          f"{sim.step_cuts} time-step cuts, Load x peak {load[peak]!r} at "
+          f"step {peak}, last {load[-1]!r}, device memory allocated at its "
+          f"start {base} B, stencil launches {_stencil_counts()}, "
+          f"{len(fails)} cells of the first {len(ref)} rows off the JAX "
+          f"table (rel 1e-7)")
+    if (names != ref_names or len(ours) < len(ref) or fails
+            or not np.array_equal(ours[:len(ref), dofs_col],
+                                  ref[:, dofs_col])):
+        raise AssertionError("shipped Miehe vs the JAX table:\n"
+                             + "\n".join(fails[:20]))
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("shipped Miehe: a non-finite statistic")
+    if not min(data["Bulk Energy"]) > 0:
+        raise AssertionError("shipped Miehe: bulk energy not positive")
+    if sim.redos < 1:
+        raise AssertionError("shipped Miehe: the mesh never changed")
+    if not (peak < len(load) - 1 and load[-1] < load[peak]):
+        raise AssertionError("shipped Miehe: Load x does not peak and fall")
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -830,6 +1024,8 @@ def main():
     golden3d_phase()
     shipped_phase()
     production_phase()
+    goldens_phase()
+    shipped_miehe_phase()
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]

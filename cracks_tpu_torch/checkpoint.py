@@ -63,6 +63,10 @@ def load_checkpoint(path: str, params, *, device, verbose: bool = True):
 
     sim = Simulation(params.replace(n_global_pre_refine=0), device=device,
                      verbose=verbose)
+    # the run's own parameters from here on: the level cap and the
+    # mesh-dependent h of the non-Sneddon cases count the global
+    # refinements (the JAX loader keeps the zero)
+    sim.p = params
     sim.forest.root = arrays["forest_root"]
     sim.forest.level = arrays["forest_level"]
     sim.forest.anchor = arrays["forest_anchor"]

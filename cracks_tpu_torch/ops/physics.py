@@ -22,8 +22,9 @@ Weak form (Heister/Wheeler/Wick 2015), as in the JAX module:
       + G_c eps grad(pf) . grad(w)
       - 2 (alpha_b - 1) p pf div(u) w
 
-Only the undecomposed stress (``with_split=False``) is ported; the
-spectral split raises (ROADMAP A1).
+With ``with_split=True`` (2d only) sigma+ and sigma- are the Miehe
+spectral split (ops/spectral.py); without it sigma+ is the full stress
+and sigma- is zero.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from .. import fem
 from .scatter import CellScatter, scatter_add
+from .spectral import stress_split_components
 
 ALPHA_BIOT = 0.0  # reference cracks.cc:1497
 
@@ -107,8 +109,6 @@ def _element_residual_cl(u_e, phi_e, pf_old_e, pf_oold_e, ca: CellArrays,
 
     u_e (nvc, dim, c); phi_e/pf_old_e/pf_oold_e (nvc, c).
     Returns (ru_e (nvc, dim, c), rp_e (nvc, c))."""
-    if with_split:
-        raise NotImplementedError("spectral split: ROADMAP A1")
     grad_u = torch.einsum("adc,qaec->qdec", u_e, ca.grads)
     pf = torch.einsum("qa,ac->qc", ca.shape_v, phi_e)
     grad_pf = torch.einsum("ac,qaec->qec", phi_e, ca.grads)
@@ -128,12 +128,23 @@ def _element_residual_cl(u_e, phi_e, pf_old_e, pf_oold_e, ca: CellArrays,
             strain[(i, j)] = 0.5 * (grad_u[:, i, j] + grad_u[:, j, i])
     div_u = sum(grad_u[:, d, d] for d in range(dim))
 
-    sp, _ = _full_stress_components(strain, ca.lam[None, :],
-                                    ca.mu[None, :], dim)
-
+    lam_q = ca.lam[None, :]
+    mu_q = ca.mu[None, :]
     degr = (1.0 - sc.constant_k) * pf_extra**2 + sc.constant_k   # (q, c)
-    # sigma- is identically zero without the split, so M = degr sigma+
-    M = {k: degr * v for k, v in sp.items()}
+    if with_split:
+        if dim != 2:
+            raise ValueError("the stress split is 2d-only, as in the "
+                             "reference")
+        (spxx, spxy, spyy), (smxx, smxy, smyy) = stress_split_components(
+            strain[(0, 0)], strain[(0, 1)], strain[(1, 1)], lam_q, mu_q)
+        sp = {(0, 0): spxx, (0, 1): spxy, (1, 1): spyy}
+        sm = {(0, 0): smxx, (0, 1): smxy, (1, 1): smyy}
+        # M = degr sigma+ + chi sigma-
+        M = {k: degr * sp[k] + sc.decompose_rhs * sm[k] for k in sp}
+    else:
+        sp, _ = _full_stress_components(strain, lam_q, mu_q, dim)
+        # sigma- is identically zero without the split: M = degr sigma+
+        M = {k: degr * v for k, v in sp.items()}
     p_term = (ALPHA_BIOT - 1.0) * sc.pressure * pf_extra**2       # (q, c)
 
     gw = ca.grads * ca.JxW[:, None, None, :]      # (q, a, e, c)
@@ -282,6 +293,14 @@ def element_matrices(u, phi, phi_old, phi_oold, ca: CellArrays,
         with_split=with_split, monolithic=monolithic)
 
 
+# (cell, tangent) pairs per vmapped pass of the element-matrix build: a
+# small mesh takes all its ndl one-hot tangents in one pass (there the
+# host's cost per operation, not the arithmetic, sets the time); from
+# 2^18 cells on, a pass takes one tangent, which keeps its
+# intermediates at one tangent's size
+JVP_BATCH_CELL_TANGENTS = 1 << 19
+
+
 def element_matrices_from_cellvals(u_e, phi_e, pf_old_e, pf_oold_e,
                                    ca: CellArrays, sc: Scalars, *, dim: int,
                                    with_split: bool, monolithic: bool):
@@ -299,18 +318,15 @@ def element_matrices_from_cellvals(u_e, phi_e, pf_old_e, pf_oold_e,
             with_split=with_split, monolithic=monolithic)
         return torch.cat([ru_e.reshape(nvc * dim, n_c), rp_e], dim=0)
 
-    zu = torch.zeros_like(u_e)
-    zp = torch.zeros_like(phi_e)
-    cols = []
-    for j in range(ndl):
-        du_t, dp_t = zu, zp
-        if j < nvc * dim:
-            a, d = divmod(j, dim)
-            du_t = zu.clone()
-            du_t[a, d] = 1.0
-        else:
-            dp_t = zp.clone()
-            dp_t[j - nvc * dim] = 1.0
-        _, dcol = torch.func.jvp(f, (u_e, phi_e), (du_t, dp_t))
-        cols.append(-dcol)                        # J = -d(rhs)
-    return torch.stack(cols, dim=1)
+    # J = -d(rhs): one one-hot jvp per column, `step` of them per pass
+    step = max(1, min(ndl, JVP_BATCH_CELL_TANGENTS // max(n_c, 1)))
+    eye = torch.eye(ndl, dtype=u_e.dtype, device=u_e.device)
+    du = eye[:, :nvc * dim].reshape(ndl, nvc, dim, 1).expand(-1, -1, -1, n_c)
+    dp = eye[:, nvc * dim:].reshape(ndl, nvc, 1).expand(-1, -1, n_c)
+    cols = torch.func.vmap(
+        lambda a, b: torch.func.jvp(f, (u_e, phi_e), (a, b))[1])
+    out = u_e.new_empty(ndl, ndl, n_c)
+    for j in range(0, ndl, step):
+        out[:, j:j + step] = -cols(du[j:j + step],
+                                   dp[j:j + step]).transpose(0, 1)
+    return out

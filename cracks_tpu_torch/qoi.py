@@ -1,13 +1,13 @@
 """Quantities of interest (torch device reductions + host numpy).
 
-Port of ``cracks_tpu/qoi.py`` for the Sneddon case: bulk/crack energy
-and total crack volume as one device reduction over the resident cell
-arrays, the stationarity distance, and copies of the host-numpy
-functionals (the closed-form TCV and phase field, the phi L2 error and
-the crack-opening sweeps `compute_cod`, `compute_cod_array`,
-`compute_cod_sweep`), copied because ``cracks_tpu/qoi.py`` imports jax.
-The boundary load and point stress of the other test cases are not
-ported yet.
+Port of ``cracks_tpu/qoi.py``: bulk/crack energy and total crack
+volume as one device reduction over the resident cell arrays, the
+stationarity distance, and copies of the host-numpy functionals (the
+closed-form TCV and phase field, the phi L2 error, the crack-opening
+sweeps `compute_cod`, `compute_cod_array`, `compute_cod_sweep`, the
+boundary load `compute_load` and the point evaluations
+`compute_point_stress`, `compute_point_value`), copied because
+``cracks_tpu/qoi.py`` imports jax.
 """
 
 from __future__ import annotations
@@ -252,3 +252,83 @@ def sneddon_phi_l2_error(mesh, phi, alpha_eps: float):
     pf = np.einsum("qa,ca->cq", t.shape_v, phi[mesh.cell2vert])
     exact = sneddon_exact_phi(qx, alpha_eps)
     return float(np.sqrt(np.sum((pf - exact) ** 2 * JxW)))
+
+
+def compute_load(mesh: MeshData, u, lam_cells, mu_cells, boundary_id=3):
+    """Boundary traction integral int sigma(u) n ds over the faces with
+    the given boundary id (cracks.cc:3728-3789), with the full
+    (undecomposed) stress; `u` is the (n_v, dim) host displacement.
+    Returns the load vector with the reference's flip of its first
+    component (cracks.cc:3789)."""
+    sel = mesh.bface_id == boundary_id
+    cells = mesh.bface_cell[sel]
+    faces = mesh.bface_face[sel]
+    if len(cells) == 0:
+        return np.zeros(mesh.dim)
+    _, grad_real, normal, JxW_f, _ = _face_geometry(mesh, cells, faces)
+    u_e = u[mesh.cell2vert[cells]]
+    grad_u = np.einsum("nad,nqae->nqde", u_e, grad_real)
+    E = 0.5 * (grad_u + np.swapaxes(grad_u, -1, -2))
+    trE = np.trace(E, axis1=-2, axis2=-1)
+    lam = lam_cells[cells][:, None]
+    mu = mu_cells[cells][:, None]
+    eye = np.eye(mesh.dim)
+    sigma = (lam[..., None, None] * trE[..., None, None] * eye
+             + 2 * mu[..., None, None] * E)
+    traction = np.einsum("nqde,nqe->nqd", sigma, normal)
+    load = np.einsum("nqd,nq->d", traction, JxW_f)
+    load[0] *= -1.0
+    return load
+
+
+def _locate(mesh: MeshData, point):
+    """(cell, reference coordinates) of the first cell whose bounding box
+    holds `point`, the bilinear map inverted by 20 clipped Newton steps;
+    None outside the mesh."""
+    pt = np.asarray(point)
+    lo = mesh.cell_coords.min(axis=1)
+    hi = mesh.cell_coords.max(axis=1)
+    inside = ((pt >= lo - 1e-12) & (pt <= hi + 1e-12)).all(axis=1)
+    cells = np.where(inside)[0]
+    if len(cells) == 0:
+        return None
+    c = cells[0]
+    X = mesh.cell_coords[c]
+    xi = np.full(mesh.dim, 0.5)
+    for _ in range(20):
+        svs = q1_shape_values(xi[None], mesh.dim)[0]
+        sgs = q1_shape_grads(xi[None], mesh.dim)[0]
+        r = svs @ X - pt
+        Jm = X.T @ sgs
+        xi = xi - np.linalg.solve(Jm, r)
+        xi = np.clip(xi, 0.0, 1.0)
+    return c, xi
+
+
+def compute_point_stress(mesh: MeshData, u, point=(0.0, 2.0)):
+    """-du_y/dy at the given point (three-point bending,
+    cracks.cc:3285-3320); -1e100 outside the mesh."""
+    found = _locate(mesh, point)
+    if found is None:
+        return -1e100
+    c, xi = found
+    X = mesh.cell_coords[c]
+    sgs = q1_shape_grads(xi[None], mesh.dim)[0]
+    Jm = X.T @ sgs
+    grads = sgs @ np.linalg.inv(Jm)
+    grad_u = np.einsum("ad,ae->de", u[mesh.cell2vert[c]], grads)
+    return float(-grad_u[1][1])
+
+
+def compute_point_value(mesh: MeshData, field, point, component=None):
+    """A nodal field at a point (cracks.cc:3264-3283); -1e100 outside
+    the mesh."""
+    found = _locate(mesh, point)
+    if found is None:
+        return -1e100
+    c, xi = found
+    svs = q1_shape_values(xi[None], mesh.dim)[0]
+    out = svs @ field[mesh.cell2vert[c]]
+    if component is not None and np.ndim(out) > 0:
+        return float(out[component])
+    return out

@@ -3,6 +3,8 @@
 matrix Jacobi CG) on one CUDA card.
 
     python3 scripts/profile_torch_adaptive.py [n_global_pre_refine]
+    python3 scripts/profile_torch_adaptive.py [n_global_pre_refine] \
+        --tangents-per-pass
 
 Runs ``params/parameters_sneddon_2d.prm`` with the given global
 pre-refinement (default 2: the production run of chip_smoke.py, last
@@ -18,6 +20,13 @@ epoch 168,609 DoFs) and ``cg_maxiter=20000`` twice on the card:
 
 Prints the card's name and power limit first; writes the profiler's
 table to chiprun_out/profile_torch_adaptive.txt.
+
+With --tangents-per-pass: the element build's cost by how many one-hot
+tangents a vmapped pass takes (ops/physics.JVP_BATCH_CELL_TANGENTS).
+The phase-timed run, without an output directory (chip_smoke.py's
+production run), four times in turns: the default (all ndl tangents
+per pass below 2^18 cells), one tangent per pass, one, the default;
+each with its phases and its peak device memory per epoch.
 """
 
 import collections
@@ -33,6 +42,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cracks_tpu_torch import config, driver  # noqa: E402
+from cracks_tpu_torch.ops import physics  # noqa: E402
 from cracks_tpu_torch.solvers import assembled, linear, newton  # noqa: E402
 
 PHASES = [
@@ -72,8 +82,9 @@ def _report(sim, wall, label):
               f"{[(n, l) for _, _, n, l in steps]}")
 
 
-def phase_timing(refine):
+def phase_timing(refine, output=True):
     acc = collections.defaultdict(lambda: collections.defaultdict(float))
+    peaks = []
     originals = []
     depth = [0]
     epoch = [0]
@@ -99,11 +110,16 @@ def phase_timing(refine):
 
     for owner, name, label in PHASES:
         wrap(owner, name, label)
-    sim = driver.Simulation(_params(refine), device="cuda", verbose=False)
+    p = _params(refine)
+    sim = driver.Simulation(p if output else p.replace(output_dir=""),
+                            device="cuda", verbose=False)
     epoch_dofs = []
 
     def current_epoch(sys_, state, time_, verbose=True):
         if not epoch_dofs or epoch_dofs[-1] != sys_.mesh.n_dofs:
+            if epoch_dofs:
+                peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             epoch_dofs.append(sys_.mesh.n_dofs)
         epoch[0] = len(epoch_dofs) - 1
         return solve(sys_, state, time_, verbose=verbose)
@@ -120,12 +136,15 @@ def phase_timing(refine):
         newton.newton_active_set = solve
         for owner, name, fn in originals:
             setattr(owner, name, fn)
+    peaks.append(torch.cuda.max_memory_allocated())
     _report(sim, wall, "phase-timed run")
     walls = collections.defaultdict(float)
     for _, dofs, secs in sim.step_times:
         walls[epoch_dofs.index(dofs)] += secs
     for k, dofs in enumerate(epoch_dofs):
-        print(f"  epoch {k + 1} ({dofs} DoFs), load steps {walls[k]:.3f} s:")
+        print(f"  epoch {k + 1} ({dofs} DoFs), load steps {walls[k]:.3f} s, "
+              f"peak device memory {peaks[k]} B (the epoch's Newton "
+              "solves):")
         for label in sorted(acc, key=lambda lb: -acc[lb][k]):
             if acc[label][k] > 0:
                 print(f"    {label:40s} {acc[label][k]:8.3f} s")
@@ -206,13 +225,27 @@ def profiled_step(refine, last_dofs, out_path):
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    refine = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    refine = int(args[0]) if args else 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip())
     print(f"Sneddon 2d shipped file, n_global_pre_refine={refine}, "
           "cg_maxiter=20000")
+    if "--tangents-per-pass" in sys.argv[1:]:
+        default = physics.JVP_BATCH_CELL_TANGENTS
+        for label, per_pass in (("all", None), ("one", 1), ("one", 1),
+                                ("all", None)):
+            physics.JVP_BATCH_CELL_TANGENTS = (default if per_pass is None
+                                               else 1)
+            print(f"element build with {label} tangents per pass "
+                  f"(JVP_BATCH_CELL_TANGENTS = "
+                  f"{physics.JVP_BATCH_CELL_TANGENTS}), no output "
+                  "directory:")
+            phase_timing(refine, output=False)
+        physics.JVP_BATCH_CELL_TANGENTS = default
+        return
     torch.cuda.reset_peak_memory_stats()
     last_dofs = phase_timing(refine)
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")

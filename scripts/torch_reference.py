@@ -1,18 +1,29 @@
-"""Write the JAX package's reference for the port's shipped-file check.
+"""Write the JAX package's references for the port's shipped-file checks.
 
-    JAX_PLATFORMS=cpu python scripts/torch_reference.py
+    JAX_PLATFORMS=cpu python scripts/torch_reference.py [name ...]
 
-Runs ``params/parameters_sneddon_2d.prm`` as shipped through the JAX
-package (``cracks_tpu.driver.run_prm``) on the CPU, in float64, and
-writes into ``tests/torch_reference/``:
+Runs shipped files through the JAX package (``cracks_tpu.driver.run_prm``)
+on the CPU, in float64, and writes into ``tests/torch_reference/``, for
+each run `name`:
 
-- ``parameters_sneddon_2d.statistics``: the statistics table the run
-  writes (16 load steps over four mesh epochs, 777 -> 12,993 DoFs);
-- ``parameters_sneddon_2d.effort.json``: per load step, the step
-  number, DoFs and the Newton and linear iterations.
+- ``<name>.statistics``: the statistics table the run writes;
+- ``<name>.effort.json``: per Newton solve (a step the predictor-corrector
+  loop redoes on a refined mesh has one entry per solve), the step
+  number, the DoFs the step ended on and the Newton and linear
+  iterations.
 
-``chip_smoke.py`` holds the port's run of the same file on the card
-against both (the card's machine has no JAX).  Takes about two minutes.
+The runs (all of them without arguments, else the named ones):
+
+- ``parameters_sneddon_2d``: ``params/parameters_sneddon_2d.prm`` as
+  shipped (16 load steps over four mesh epochs, 777 -> 12,993 DoFs;
+  about two minutes);
+- ``parameters_miehe_shear_adaptive``:
+  ``params/parameters_miehe_shear_adaptive.prm`` as shipped, its first
+  100 steps (``max_no_timesteps=99``; 3,315 DoFs before the crack grows;
+  about ten minutes).
+
+``chip_smoke.py`` holds the port's runs of the same files on the card
+against these (the card's machine has no JAX).
 """
 
 import json
@@ -20,34 +31,45 @@ import os
 import shutil
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "torch_reference")
-PRM = os.path.join(ROOT, "params", "parameters_sneddon_2d.prm")
+RUNS = {
+    "parameters_sneddon_2d": dict(),
+    "parameters_miehe_shear_adaptive": dict(max_no_timesteps=99),
+}
 
 
-def main():
+def write_reference(name, overrides):
+    from cracks_tpu.driver import run_prm
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, _ = run_prm(os.path.join(ROOT, "params", f"{name}.prm"),
+                         output_dir=tmp, **overrides)
+        shutil.copy(os.path.join(tmp, "statistics"),
+                    os.path.join(OUT, f"{name}.statistics"))
+    dofs = {step: n for step, n, _ in sim.step_times}
+    effort = [dict(step=step, dofs=dofs[step], newton=newton, linear=lin)
+              for step, newton, lin in sim.solver_effort]
+    with open(os.path.join(OUT, f"{name}.effort.json"), "w") as f:
+        json.dump(effort, f, indent=1)
+        f.write("\n")
+    print(f"{name}: {time.perf_counter() - t0:.1f} s, "
+          f"{len(sim.step_times)} steps, final DoFs {sim.mesh.n_dofs}")
+
+
+def main(names):
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     jax.config.update("jax_enable_x64", True)
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ROOT)
-    from cracks_tpu.driver import run_prm
-
     os.makedirs(OUT, exist_ok=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        sim, _ = run_prm(PRM, output_dir=tmp)
-        shutil.copy(os.path.join(tmp, "statistics"),
-                    os.path.join(OUT, "parameters_sneddon_2d.statistics"))
-    dofs = {step: n for step, n, _ in sim.step_times}
-    effort = [dict(step=step, dofs=dofs[step], newton=newton, linear=lin)
-              for step, newton, lin in sim.solver_effort]
-    with open(os.path.join(OUT, "parameters_sneddon_2d.effort.json"),
-              "w") as f:
-        json.dump(effort, f, indent=1)
-        f.write("\n")
-    print(json.dumps(effort))
+    for name in names or RUNS:
+        write_reference(name, RUNS[name])
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

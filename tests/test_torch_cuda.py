@@ -33,7 +33,13 @@ direct solve and the stored-element-matrix block CG on the first Newton
 system of the Sneddon 2d golden (params/tests/sneddon_2d_1.prm, a
 hanging-node mesh) agree between the card and the CPU (direct: rel
 1e-10; CG: iteration counts within 2, updates within rel 1e-8), and
-repeat bit for bit on the card (the deterministic scatter)."""
+repeat bit for bit on the card (the deterministic scatter).  The
+element build gives the same matrices (rel 1e-13) in one vmapped pass
+of all its tangents as in passes of one.  On the dense systems of the first load
+steps of the three-point golden and the shipped Miehe shear file, the
+card's refined LU solve (solvers/linear.py) has a smaller backward
+error than the unrefined one and lies no farther from the host's LAPACK
+solution."""
 
 import os
 
@@ -366,3 +372,113 @@ def test_assembled_cg_on_card_matches_cpu(cuda, monkeypatch):
     for a, b, c in zip(out[:2], ref[:2], again[:2]):
         assert _rel(a, b) <= 1e-8
         assert torch.equal(a, c)
+
+
+def _seeded_element_inputs(reps, refine, device):
+    """Per-cell arrays of a uniform 2d mesh over the Sneddon box (reps^2
+    coarse cells refined `refine` times) and seeded u and phase fields,
+    f64."""
+    from cracks_tpu_torch import meshio, problems
+    from cracks_tpu_torch.config import Parameters
+    from cracks_tpu_torch.mesh import Forest
+    from cracks_tpu_torch.ops import physics
+    f = Forest(meshio.rect_mesh([-10, -10], [10, 10], [reps] * 2))
+    f.refine_global(refine)
+    mesh = f.extract()
+    p = Parameters(test_case="sneddon", pressure_expr="1.0e-3", G_c=1.0,
+                   poisson_ratio_nu=0.2, E_modulus=1.0)
+    lam, mu = problems.cell_lame_fields(p, mesh, None)
+    ca = physics.cell_arrays_from_core(
+        physics.build_cell_core(mesh, lam, mu, device=device),
+        torch.float64)
+    rng = np.random.default_rng(7)
+    n_v = mesh.n_vertices
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    fields = (t(rng.normal(size=n_v * 2) * 1e-2),
+              *(t(rng.uniform(-0.2, 1.0, n_v)) for _ in range(3)))
+    sc = physics.make_scalars(0.5, 1e-2, 0.7, 1.0, 3.0, 1.5, 0.0, 0.0,
+                              dtype=torch.float64, device=device)
+    return fields, ca, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps,refine", [(16, 0), (25, 3)],
+                         ids=["256-cells", "40000-cells"])
+def test_element_build_for_any_tangents_per_pass_on_card(
+        cuda, monkeypatch, reps, refine):
+    """The element build on the card with the split: one vmapped pass of
+    all 12 one-hot tangents (the default below 2^18 / 12 cells) and
+    passes of one (a mesh of 2^18 cells or more) give the same element
+    matrices within rel 1e-13 (not bit for bit: the card's batched
+    contractions may sum in another order)."""
+    from cracks_tpu_torch.ops import physics
+    (u, phi, phi_old, phi_oold), ca, sc = _seeded_element_inputs(
+        reps, refine, cuda)
+    build = lambda: physics.element_matrices(
+        u, phi, phi_old, phi_oold, ca, sc, dim=2, with_split=True,
+        monolithic=False)
+    whole = build()
+    n_c = whole.shape[-1]
+    assert physics.JVP_BATCH_CELL_TANGENTS // n_c >= len(whole)
+    monkeypatch.setattr(physics, "JVP_BATCH_CELL_TANGENTS", n_c)
+    one = build()
+    torch.testing.assert_close(one, whole, rtol=1e-13,
+                               atol=1e-13 * float(whole.abs().max()))
+
+
+def _backward_error(A, b, x):
+    """The normwise backward error |b - A x| / (|A| |x| + |b|) in the
+    infinity norm, on the host."""
+    r = (b - A @ x).abs().max()
+    return float(r / (A.abs().sum(dim=1).max() * x.abs().max()
+                      + b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prm,steps", [
+    (("params", "tests", "threepoint_1.prm"), 1),
+    (("params", "parameters_miehe_shear_adaptive.prm"), 1)],
+    ids=["threepoint_1", "shipped_miehe_shear"])
+def test_card_refinement_reduces_dense_solve_error(cuda, monkeypatch, prm,
+                                                   steps):
+    """On every dense Newton system of the first load steps of the
+    three-point golden and the shipped Miehe shear file, as the card
+    meets them: cuSOLVER's LU solve refined CARD_REFINEMENT_STEPS times
+    has a smaller largest and median backward error than the unrefined
+    solve, and its largest distance to the host's LAPACK solution is no
+    larger.  (The median distance is not smaller on the Miehe systems:
+    at ~2e-15 both solves sit at LAPACK's own rounding.)"""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.solvers import linear
+    systems = []
+    reduced = linear._reduced_system
+
+    def capture(*args, **kw):
+        A_red, b, C = reduced(*args, **kw)
+        systems.append((A_red.cpu(), b.cpu()))
+        return A_red, b, C
+
+    monkeypatch.setattr(linear, "_reduced_system", capture)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = config.load_parameters(os.path.join(root, *prm),
+                               max_no_timesteps=steps, output_dir="")
+    Simulation(p, device=cuda, verbose=False).run()
+    assert systems
+    eta, dist = {0: [], 1: []}, {0: [], 1: []}
+    for A, b in systems:
+        x_host = torch.linalg.solve(A, b)
+        for k, n in ((0, 0), (1, linear.CARD_REFINEMENT_STEPS)):
+            x = linear._lu_solve(A.to(cuda), b.to(cuda), n)[0].cpu()
+            eta[k].append(_backward_error(A, b, x))
+            dist[k].append(float((x - x_host).abs().max()
+                                 / x_host.abs().max()))
+    print(f"{len(systems)} systems of {A.shape[0]} DoFs or fewer; backward "
+          f"error unrefined / refined: max {max(eta[0]):.3e} / "
+          f"{max(eta[1]):.3e}, median {np.median(eta[0]):.3e} / "
+          f"{np.median(eta[1]):.3e}; distance to LAPACK: max "
+          f"{max(dist[0]):.3e} / {max(dist[1]):.3e}, median "
+          f"{np.median(dist[0]):.3e} / {np.median(dist[1]):.3e}")
+    assert max(eta[1]) < max(eta[0])
+    assert np.median(eta[1]) < np.median(eta[0])
+    assert max(dist[1]) <= max(dist[0])

@@ -68,13 +68,14 @@ def test_device_is_explicit():
 @pytest.mark.parametrize("override,item", [
     (dict(n_local_pre_refine=1), "A10"),
     (dict(assembled_matvec=False, preconditioner="jacobi"), "A12"),
-    (dict(test_case="miehe tension"), "A1"),
+    (dict(test_case="multiple homo"), "A1"),
     (dict(n_local_pre_refine=1, n_devices=4, dof_sharding="lattice"),
      "A11b"),
-    (dict(decompose_stress_matrix=1.0), "A1"),
+    (dict(test_case="multiple het"), "A1"),
     (dict(outer_solver="simple monolithic"), "A4"),
     (dict(test_case="miehe shear"), "A9"),
     (dict(n_devices=2), "A11"),
+    (dict(test_case="three point bending"), "A10"),
 ])
 def test_unported_configurations_raise(override, item):
     """Each raises before any Newton work: at construction, or for the

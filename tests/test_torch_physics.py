@@ -116,14 +116,46 @@ def test_element_matrices_match_jax(setup, monolithic):
     _close(jac, jac_j)
 
 
+@pytest.mark.parametrize("per_pass", [1, 5])
+def test_element_matrices_equal_for_any_tangents_per_pass(setup, per_pass,
+                                                          monkeypatch):
+    """The element build's vmapped passes of `per_pass` one-hot tangents
+    (one, as a mesh of 2^18 cells or more takes them, or five, which
+    leaves a short last pass) give the same bits as one pass of all
+    ndl (this mesh's default); with the split in 2d."""
+    s = setup
+    t, ca, sc = _port_inputs(s)
+    n_c = s["mesh"].n_cells
+    build = lambda: physics.element_matrices(
+        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, dim=s["dim"],
+        with_split=s["dim"] == 2, monolithic=False)
+    ndl = 2 ** s["dim"] * (s["dim"] + 1)
+    assert physics.JVP_BATCH_CELL_TANGENTS // n_c >= ndl
+    whole = build()
+    monkeypatch.setattr(physics, "JVP_BATCH_CELL_TANGENTS", per_pass * n_c)
+    torch.testing.assert_close(build(), whole, rtol=0, atol=0)
+
+
 def test_spectral_split_raises(setup):
-    t, ca, sc = _port_inputs(setup)
+    """The split is 2d-only, as in the reference: in 3d it raises; in
+    2d the split residual equals the JAX package's."""
+    s = setup
+    t, ca, sc = _port_inputs(s)
     cs = cell_scatter(ca, t["u"].numel(), t["phi"].numel())
-    with pytest.raises(NotImplementedError, match="A1"):
-        physics.assemble_residual(t["u"], t["phi"], t["phi_old"],
-                                  t["phi_oold"], ca, sc, cs,
-                                  dim=setup["dim"], with_split=True,
-                                  monolithic=False)
+    run = lambda: physics.assemble_residual(
+        t["u"], t["phi"], t["phi_old"], t["phi_oold"], ca, sc, cs,
+        dim=s["dim"], with_split=True, monolithic=False)
+    if s["dim"] == 3:
+        with pytest.raises(ValueError, match="2d-only"):
+            run()
+        return
+    st = {k: jnp.asarray(v) for k, v in s["state"].items()}
+    ru_j, rp_j = jphys.assemble_residual(
+        st["u"], st["phi"], st["phi_old"], st["phi_oold"], s["ca"], s["sc"],
+        dim=2, with_split=True, monolithic=False)
+    ru, rp = run()
+    _close(ru, ru_j)
+    _close(rp, rp_j)
 
 
 def test_energy_tcv_and_linf_match_jax(setup):
