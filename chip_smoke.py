@@ -110,9 +110,37 @@ without printing the final line:
    "Load x" that peaks and then falls; per epoch the DoFs, the solve,
    seconds per step, Newton and linear iterations, host seconds of
    refinement + system setup and the peak device memory.
-   Phases 8-13 run no hand-written kernel (dense LU through
-   torch.linalg, the stored-matrix CG through torch ops); the stencil
-   kernels' counts are set to 0 before each and printed after it.
+14. the hetero goldens: params/tests/hetero_3d_1.prm (3d, the bitmap
+   material of test.pgm, one local pre-refinement, 5,288 DoFs) as
+   shipped against tests/golden/hetero_3d_1.mpirun-4.statistics (the
+   JAX package's full-test tolerances: Energy columns |d| <= 1e-6 or
+   rel <= 3e-3) with an equal DoF column; with cg + gmg (the f64
+   Galerkin block CG, first step) against the golden's first row at
+   the same tolerances, at most 60 linear iterations per Newton
+   iteration, twice, bit-equal; with mixed precision (the Galerkin
+   split solve) within rel 1e-6 of the CPU port (a spawned worker
+   process) with equal Newton counts;
+15. the full-width hetero-3d run: params/parameters_hetero_3d.prm with
+   bench.py's hetero_3d overrides (global refinement 5 + local 5, cg +
+   gmg + mixed precision, cg_rtol 1e-8, cg_maxiter 3000, 3 load steps):
+   no time-step cut, finite statistics, positive bulk energy, at most
+   60 linear iterations per Newton iteration; it prints the DoFs, s,
+   Newton and linear iterations per step, the seconds of the f32
+   element build, the level operators (RAP chain, diagonals, spectra),
+   the f32 CG passes and the f64 refinement passes (each timed between
+   synchronizations), the peak device memory and the device's idle
+   share during one solve (torch.profiler: summed kernel time against
+   the solve's wall time);
+16. the production run of phase 11 under preconditioner = gmg (the
+   Galerkin hierarchy on every epoch above the dense cap), with and
+   without mixed precision: per epoch the DoFs, s/step, linear
+   iterations per step and TCV beside phase 11's Jacobi numbers; the
+   TCV within rel 1e-6 of phase 11's in every epoch and its error
+   falling from epoch to epoch.
+   Phases 8-16 run no hand-written kernel (dense LU through
+   torch.linalg, the stored-matrix CG and the Galerkin GMG through
+   torch ops); the stencil kernels' counts are set to 0 before each and
+   printed after it.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -817,26 +845,30 @@ def shipped_phase():
                              + "\n".join(fails[:20]))
 
 
-def production_phase():
-    """The shipped file four times finer (last epoch 168,609 DoFs)."""
+def production_phase(label="production", **overrides):
+    """The shipped file four times finer (last epoch 168,609 DoFs), on
+    the Jacobi CG or, with `overrides`, another solve (phase 16).
+    Returns the epochs, the TCV per epoch and the seconds."""
     from cracks_tpu_torch import config, qoi
     from cracks_tpu_torch.driver import Simulation
     t0 = time.perf_counter()
     _zero_stencil_counts()
-    p = config.load_parameters(SHIPPED_PRM, output_dir="", **PRODUCTION)
+    p = config.load_parameters(SHIPPED_PRM, output_dir="",
+                               **{**PRODUCTION, **overrides})
     sim = Simulation(p, device="cuda", verbose=False)
     records = _instrument_epochs(sim)
     base = _fresh_memory_baseline()
     sim.run()
     secs = time.perf_counter() - t0
-    epochs = _epochs(sim, records, "production")
+    epochs = _epochs(sim, records, label)
     data = sim.statistics.data
     tcv = [v for v in data["TCV"] if v != ""]
     exact = qoi.tcv_exact(2, p.pressure(time=1.0), p.poisson_ratio_nu)
     errors = [abs(v - exact) for v in tcv]
     values = [v for col in data.values() for v in col
               if isinstance(v, float)]
-    print(f"production (n_global_pre_refine=2, cg_maxiter=20000) on cuda: "
+    print(f"{label} (n_global_pre_refine=2, cg_maxiter=20000"
+          f"{''.join(f', {k}={v}' for k, v in overrides.items())}) on cuda: "
           f"{secs:.2f} s, DoFs per epoch {[e['dofs'] for e in epochs]}, "
           f"bulk energy {data['Bulk Energy']!r}, crack energy "
           f"{data['Crack Energy']!r}, "
@@ -845,14 +877,15 @@ def production_phase():
           f"{exact!r}), errors {errors}, stencil launches "
           f"{_stencil_counts()}")
     if sim.step_cuts or not all(math.isfinite(v) for v in values):
-        raise AssertionError("production run: a time-step cut or a "
+        raise AssertionError(f"{label}: a time-step cut or a "
                              "non-finite statistic")
     if not min(data["Bulk Energy"]) > 0:
-        raise AssertionError("production run: bulk energy not positive")
+        raise AssertionError(f"{label}: bulk energy not positive")
     if len(tcv) != len(epochs) or not all(
             b < a for a, b in zip(errors, errors[1:])):
-        raise AssertionError("production run: the TCV error does not fall "
+        raise AssertionError(f"{label}: the TCV error does not fall "
                              "from epoch to epoch")
+    return dict(epochs=epochs, tcv=tcv, secs=secs)
 
 
 # the goldens of the other test cases: (file, golden table, column
@@ -1011,6 +1044,256 @@ def shipped_miehe_phase():
         raise AssertionError("shipped Miehe: Load x does not peak and fall")
 
 
+HETERO_PRM = os.path.join(PRM_TESTS, "hetero_3d_1.prm")
+GMG_CG = dict(linear_solver="cg", preconditioner="gmg")
+# phase 15: the parameters_hetero_3d.prm physics on its production mesh
+# with bench.py's overrides (_make_params("hetero_3d", 5, "float64",
+# "gmg", 3))
+HETERO3D_PRM = os.path.join(ROOT, "params", "parameters_hetero_3d.prm")
+HETERO3D = dict(n_global_pre_refine=5, n_local_pre_refine=5,
+                n_refinement_cycles=0, max_no_timesteps=2, output_dir="",
+                cg_rtol=1e-8, cg_maxiter=3000, dtype="float64",
+                mixed_precision_cg=True, **GMG_CG)
+
+
+def _run_hetero_cpu(overrides, n_threads):
+    """hetero_3d_1 on the CPU with `overrides` (a worker process of
+    phase 14): (energies, Newton its per step, linear its per step)."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    torch.set_num_threads(n_threads)
+    sim = Simulation(config.load_parameters(HETERO_PRM, output_dir="",
+                                            **overrides),
+                     device="cpu", verbose=False)
+    sim.run()
+    return (_energies(sim), [e[1] for e in sim.solver_effort],
+            [e[2] for e in sim.solver_effort])
+
+
+def _lin_per_newton(sim):
+    return max(e[2] / e[1] for e in sim.solver_effort)
+
+
+def hetero_goldens_phase():
+    """Phase 14: hetero_3d_1 (3d, bitmap material, hanging nodes) as
+    shipped against its golden; under cg + gmg (the Galerkin GMG, f64)
+    against the golden's first row, twice, bit for bit; with mixed
+    precision (the split solve) against the CPU port."""
+    mixed = dict(mixed_precision_cg=True, **GMG_CG)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        cpu = pool.submit(_run_hetero_cpu, mixed,
+                          max(1, (os.cpu_count() or 2) - 1))
+        t0 = time.perf_counter()
+        _zero_stencil_counts()
+        sim = _run_quiet(HETERO_PRM, output_dir="")
+        names, ours = parse_statistics(sim.statistics.write_text())
+        with open(os.path.join(GOLDEN_DIR,
+                               "hetero_3d_1.mpirun-4.statistics")) as f:
+            g_names, golden = parse_statistics(f.read())
+        fails = golden_failures(names, ours, g_names, golden,
+                                {"Energy": (1e-6, 3e-3)}, None, {})
+        dofs_ok = np.array_equal(ours[:, g_names.index("DoFs")],
+                                 golden[:, g_names.index("DoFs")])
+        print(f"hetero_3d_1 as shipped on cuda: "
+              f"{time.perf_counter() - t0:.2f} s, {len(ours)} rows, DoFs "
+              f"{sim.statistics.data['DoFs']}, Newton/linear its per step "
+              f"{[(e[1], e[2]) for e in sim.solver_effort]}, stencil "
+              f"launches {_stencil_counts()}, {len(fails)} cells off the "
+              "golden (Energy columns |d| <= 1e-6 or rel <= 3e-3)")
+        if fails or not dofs_ok or sim.step_cuts:
+            raise AssertionError("hetero_3d_1 as shipped:\n"
+                                 + "\n".join(fails))
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sim = _run_quiet(HETERO_PRM, output_dir="", max_no_timesteps=0,
+                             **GMG_CG)
+            names, ours = parse_statistics(sim.statistics.write_text())
+            fails = table_failures(ours[:1], golden[:1], 1e-6, 3e-3)
+            runs.append((_energies(sim), sim.solver_effort))
+            levels = [int(lv.inject_p.numel())
+                      for lv in sim.sys.galerkin_hierarchy.levels]
+            print(f"hetero_3d_1 cg + gmg (f64 Galerkin block CG) on cuda: "
+                  f"{time.perf_counter() - t0:.2f} s, Galerkin levels of "
+                  f"{levels} vertices, Newton/linear its "
+                  f"{[(e[1], e[2]) for e in sim.solver_effort]} (at most "
+                  f"{_lin_per_newton(sim):.1f} per Newton iteration, bound "
+                  f"60), energies "
+                  f"{[repr(float(e)) for e in runs[-1][0].ravel()]}"
+                  f", {len(fails)} cells of the first row off the golden")
+            if fails or _lin_per_newton(sim) > 60 or sim.step_cuts:
+                raise AssertionError("hetero_3d_1 cg + gmg:\n"
+                                     + "\n".join(fails))
+        if not (np.array_equal(runs[0][0], runs[1][0])
+                and runs[0][1] == runs[1][1]):
+            raise AssertionError(f"two card runs of hetero_3d_1 cg + gmg "
+                                 f"differ: {runs}")
+        print("hetero_3d_1 cg + gmg: two card runs bit-equal")
+        t0 = time.perf_counter()
+        sim = _run_quiet(HETERO_PRM, output_dir="", **mixed)
+        e_cpu, newton_cpu, lin_cpu = cpu.result()
+    rel = float(np.max(np.abs(_energies(sim) - e_cpu) / np.abs(e_cpu)))
+    newton = [e[1] for e in sim.solver_effort]
+    print(f"hetero_3d_1 cg + gmg + mixed precision (the split solve) on "
+          f"cuda: {time.perf_counter() - t0:.2f} s, Newton/linear its "
+          f"{[(e[1], e[2]) for e in sim.solver_effort]} (CPU port: "
+          f"{list(zip(newton_cpu, lin_cpu))}), max relative energy "
+          f"difference to the CPU port {rel:.3e} (bound 1e-6)")
+    if not rel <= 1e-6 or newton != newton_cpu or sim.step_cuts:
+        raise AssertionError("hetero_3d_1 mixed precision: the card and "
+                             "the CPU port disagree")
+
+
+def _phase_timers():
+    """Wrap the Galerkin split solve's stages with a synchronizing
+    timer: the f32 element build, the level operators (RAP chain,
+    diagonals, spectra), the f32 CG passes and the f64 refinement
+    passes.  Returns (the seconds per stage, a function that undoes
+    the wrapping)."""
+    from cracks_tpu_torch.solvers import galerkin
+    secs = {}
+    saved = {}
+    for name, key in (("_g_jac32", "element build"),
+                      ("build_level_ops", "level operators"),
+                      ("_g_cg_pass32", "f32 CG passes"),
+                      ("_g_pass_apply", "f64 refinement passes")):
+        fn = saved[name] = getattr(galerkin, name)
+
+        def timed(*args, _fn=fn, _key=key, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[_key] = secs.get(_key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(galerkin, name, timed)
+    return secs, lambda: [setattr(galerkin, n, f) for n, f in saved.items()]
+
+
+def _profile_solve(calls):
+    """Wrap galerkin.solve_split so that its `calls`-th call runs under
+    torch.profiler: returns (a dict that receives that call's wall
+    seconds and summed device-kernel seconds, an undo)."""
+    from cracks_tpu_torch.solvers import galerkin
+    out = {}
+    fn = galerkin.solve_split
+    n = [0]
+
+    def wrapped(*args, **kw):
+        n[0] += 1
+        if n[0] != calls:
+            return fn(*args, **kw)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+        out["device_s"] = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in prof.key_averages()) * 1e-6
+        return res
+    galerkin.solve_split = wrapped
+    return out, lambda: setattr(galerkin, "solve_split", fn)
+
+
+def hetero3d_phase():
+    """Phase 15: the full-width hetero-3d run (global refinement 5 +
+    local pre-refinement 5, the split solve, 3 load steps)."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = Simulation(config.load_parameters(HETERO3D_PRM, **HETERO3D),
+                     device="cuda", verbose=False)
+    base = _fresh_memory_baseline()
+    secs, undo = _phase_timers()
+    # the second Newton solve of the run (step 0, Newton iteration 2)
+    # runs under the profiler: step 0's time includes its tracing
+    prof, undo_prof = _profile_solve(calls=2)
+    try:
+        sim.run()
+    finally:
+        undo()
+        undo_prof()
+    total = time.perf_counter() - t0
+    data = sim.statistics.data
+    values = [v for col in data.values() for v in col
+              if isinstance(v, float)]
+    hier = sim.sys.galerkin_hierarchy
+    print(f"hetero-3d production (parameters_hetero_3d.prm, global 5 + "
+          f"local 5, cg + gmg + mixed precision, cg_rtol 1e-8) on cuda: "
+          f"{total:.2f} s in all, {sim.mesh.n_dofs} DoFs ({sim.mesh.n_cells}"
+          f" cells, {len(sim.mesh.hang_child)} hanging vertices), Galerkin "
+          f"levels of {[int(lv.inject_p.numel()) for lv in hier.levels]} "
+          f"vertices, setup system {sim.timer.wall['Setup system']:.2f} s, "
+          f"device memory allocated at its start {base} B, peak "
+          f"{torch.cuda.max_memory_allocated()} B")
+    for step, dofs, s_step in sim.step_times:
+        solves = [e for e in sim.solver_effort if e[0] == step]
+        newton_its = sum(e[1] for e in solves)
+        lin_its = sum(e[2] for e in solves)
+        print(f"hetero-3d step {step}: {dofs} DoFs, {s_step:.2f} s, "
+              f"{len(solves)} solves (Newton/linear its "
+              f"{[(e[1], e[2]) for e in solves]}), {newton_its} Newton its, "
+              f"{lin_its} linear its ({lin_its / newton_its:.1f} per Newton "
+              f"iteration), active set {solves[-1][3]}")
+    print("hetero-3d stage seconds (synchronized): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; bulk energy {data['Bulk Energy']!r}, crack energy "
+          f"{data['Crack Energy']!r}, stencil launches {_stencil_counts()}")
+    if prof.get("device_s", 0.0) > 0:
+        print(f"hetero-3d idle share: solve 2 (step 0, Newton iteration 2)"
+              f" {prof['wall_s']:.3f} s wall, {prof['device_s']:.3f} s of "
+              f"device kernels: idle "
+              f"{100 * (1 - prof['device_s'] / prof['wall_s']):.1f} %")
+    else:
+        print(f"hetero-3d idle share: not measured (the profiler recorded "
+              f"no device time: {prof})")
+    if (sim.step_cuts or len(sim.step_times) != 3
+            or not all(math.isfinite(v) for v in values)
+            or not min(data["Bulk Energy"]) > 0
+            or _lin_per_newton(sim) > 60):
+        raise AssertionError("hetero-3d production: a time-step cut, a "
+                             "non-finite statistic, a bulk energy not "
+                             "positive or more than 60 linear iterations "
+                             "per Newton iteration")
+
+
+def production_gmg_phase(jacobi):
+    """Phase 16: the production run of phase 11 under the Galerkin GMG,
+    with and without mixed precision: per epoch its TCV equal to phase
+    11's (the Jacobi CG) to rel 1e-6, and the TCV error falling."""
+    for label, ov in (("production gmg + mixed precision",
+                       dict(preconditioner="gmg", mixed_precision_cg=True)),
+                      ("production gmg f64", dict(preconditioner="gmg"))):
+        out = production_phase(label, **ov)
+        for i, (a, b) in enumerate(zip(out["epochs"], jacobi["epochs"])):
+            print(f"{label} epoch {i + 1}: {a['dofs']} DoFs, solve "
+                  f"{a['solve']}, s/step {a['s_per_step']:.3f} (Jacobi "
+                  f"{b['s_per_step']:.3f}), linear its per step "
+                  f"{[x[1] for x in a['its']]} (Jacobi "
+                  f"{[x[1] for x in b['its']]}), TCV {out['tcv'][i]!r} "
+                  f"(Jacobi {jacobi['tcv'][i]!r})")
+        rel = [abs(a - b) / abs(b) for a, b in zip(out["tcv"],
+                                                    jacobi["tcv"])]
+        print(f"{label}: {out['secs']:.2f} s (Jacobi {jacobi['secs']:.2f} "
+              f"s), TCV relative difference to the Jacobi run per epoch "
+              f"{rel} (bound 1e-6)")
+        if (len(out["tcv"]) != len(jacobi["tcv"]) or max(rel) > 1e-6
+                or [e["dofs"] for e in out["epochs"]]
+                != [e["dofs"] for e in jacobi["epochs"]]):
+            raise AssertionError(f"{label}: the TCV or the epochs differ "
+                                 "from the Jacobi run's")
+        if any(e["solve"] != "galerkin" for e in out["epochs"]
+               if e["dofs"] > 8000):
+            raise AssertionError(f"{label}: an epoch above the dense cap "
+                                 "did not take the Galerkin GMG")
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -1023,9 +1306,14 @@ def main():
     golden2d_phase()
     golden3d_phase()
     shipped_phase()
-    production_phase()
+    jacobi = production_phase()
     goldens_phase()
     shipped_miehe_phase()
+    for phase, args in ((hetero_goldens_phase, ()), (hetero3d_phase, ()),
+                        (production_gmg_phase, (jacobi,))):
+        t0 = time.perf_counter()
+        phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]

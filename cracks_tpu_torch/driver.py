@@ -2,16 +2,18 @@
 
 Port of ``cracks_tpu/driver.py`` for the slice this package covers:
 the active-set load-stepping loop of the Sneddon, Miehe tension, Miehe
-shear and three-point-bending cases on uniform lattices and on
-hanging-node meshes, with local pre-refinement, the Sneddon
+shear, three-point-bending and multiple-crack (homogeneous, and
+heterogeneous with the bitmap material of test.pgm) cases on uniform
+lattices and on hanging-node meshes, with local pre-refinement, the Sneddon
 refinement-cycle countdown at stationarity (TCV, crack opening, phase-
 field L2 error, then refine and restart from initial values), the
 predictor-corrector loop of the other cases (refine after every step
 under the level cap, and redo the step on the new mesh whenever it
 changed), their load functionals, the statistics table, VTU output and
 checkpoint/resume.  The Newton systems go through the dense direct
-solve, the lattice GMG mixed-precision CG or the stored-element-matrix
-Jacobi CG (`solvers.newton._solve`).  Configurations outside that slice
+solve, the lattice GMG mixed-precision CG, the Galerkin GMG on the
+stored element matrices or the stored-element-matrix Jacobi CG
+(`solvers.newton._solve`).  Configurations outside that slice
 raise NotImplementedError naming their ROADMAP item before any work
 starts; nothing is skipped silently.
 """
@@ -34,8 +36,12 @@ from .ops.constraints import (Constraints, hanging_interpolate_p,
 from .ops.scatter import CellScatter, cell_scatter
 from .output import PvdWriter, write_vtu
 from .parallel.sharding import make_shard_mesh
-from .solvers import lattice, lattice_newton, newton
+from .solvers import galerkin, lattice, lattice_newton, newton
 from .solvers.newton import NoConvergence
+
+# the bitmap of the heterogeneous multiple-crack case (test.pgm at the
+# repository root; cracks.cc's BitmapFile input)
+PGM_PATH = os.path.join(os.path.dirname(meshio.MESH_DIR), "test.pgm")
 
 
 @dataclass
@@ -65,18 +71,8 @@ def check_supported(p) -> None:
     """Raise NotImplementedError for every configured feature outside
     the ported slice, naming its ROADMAP item."""
     unsupported = [
-        (p.test_case in ("multiple homo", "multiple het"),
-         f"test case {p.test_case!r}: the multiple-crack cases, ROADMAP "
-         "A1b"),
         (p.outer_solver != "active set",
          "penalized monolithic newton_iteration: ROADMAP A4"),
-        (p.preconditioner == "gmg"
-         and p.test_case in ("miehe tension", "miehe shear"),
-         "preconditioner=gmg on the slit mesh needs the seam lattice: "
-         "ROADMAP A9"),
-        (p.preconditioner == "gmg" and p.test_case == "three point bending",
-         "preconditioner=gmg on the three-point-bending mesh needs the "
-         "Galerkin hierarchy: ROADMAP A10"),
         (p.n_devices > 1 and p.dof_sharding != "lattice",
          f"n_devices={p.n_devices} with replicated DoF vectors (the GSPMD "
          "cell-axis mode): ROADMAP A11b; dof_sharding=lattice runs D "
@@ -91,16 +87,16 @@ def check_supported(p) -> None:
 
 class System:
     """Everything bound to one mesh epoch on one device: geometry
-    tables, constraints, material fields, the lattice bundle, the shard
-    mesh of the lattice-layout Newton, and the physics scalars
-    (refreshed per solve context)."""
+    tables, constraints, material fields, the lattice bundle or the
+    Galerkin hierarchy, the shard mesh of the lattice-layout Newton, and
+    the physics scalars (refreshed per solve context)."""
 
-    def __init__(self, params, mesh, *, device):
+    def __init__(self, params, mesh, bitmap=None, *, device):
         self.params = params
         self.mesh = mesh
         self.dim = mesh.dim
         self.device = torch.device(device)
-        lam, mu = problems.cell_lame_fields(params, mesh, None)
+        lam, mu = problems.cell_lame_fields(params, mesh, bitmap)
         self.lam_cells = lam
         self.mu_cells = mu
         self.dtype = (torch.float64 if params.dtype == "float64"
@@ -133,16 +129,31 @@ class System:
         # operator caches of lattice.solve_lattice_lat
         self._split_jac_cache = None
         self._split_levels_cache = None
+        # the Galerkin GMG hierarchy (attached by Simulation.setup_system),
+        # the finest level's gather tables, built at first use, and the
+        # operator caches of galerkin.solve_split
+        self.galerkin_hierarchy = None
+        self._galerkin_fine = None
+        self._galerkin_jac_cache = None
+        self._galerkin_levels_cache = None
         # dof_sharding = lattice (set by Simulation.setup_system): the
         # lattice-layout Newton, and with n_devices = D > 1 its D row
         # slabs, all on this System's one device
         self.use_lattice_state = False
         self.shard_mesh = (make_shard_mesh([self.device] * params.n_devices)
                            if params.n_devices > 1 else None)
-        # energy Lame fields on the device (qoi.energy_tcv_device)
+        # energy Lame fields on the device (qoi.energy_tcv_device); the
+        # heterogeneous case's use the raw bitmap E, without the
+        # assembly's +1 offset (the reference's quirk, cracks.cc:3651)
+        lam_e, mu_e = lam, mu
+        if bitmap is not None:
+            E = bitmap.value(mesh.cell_coords.mean(axis=1))
+            nu = params.poisson_ratio_nu
+            mu_e = E / (2 * (1 + nu))
+            lam_e = 2 * nu * mu_e / (1 - 2 * nu)
         f64 = dict(dtype=torch.float64, device=self.device)
-        self.lam_mu_dev = (torch.as_tensor(lam, **f64),
-                           torch.as_tensor(mu, **f64))
+        self.lam_mu_dev = (torch.as_tensor(lam_e, **f64),
+                           torch.as_tensor(mu_e, **f64))
         # context (set by the driver before each nonlinear solve)
         self.scalars: physics.Scalars = None
         self.with_split = False
@@ -169,6 +180,14 @@ class System:
                 self.ca, self.mesh.n_vertices * self.dim,
                 self.mesh.n_vertices)
         return self._cell_scatter
+
+    @property
+    def galerkin_fine(self) -> galerkin.LevelGeom:
+        """The finest level of the Galerkin GMG: the cell gathers
+        cell-first, their scatter tables and the constraints."""
+        if self._galerkin_fine is None:
+            self._galerkin_fine = galerkin.fine_geom(self.ca, self._con)
+        return self._galerkin_fine
 
     @property
     def lattice_ca64(self):
@@ -235,6 +254,12 @@ def _setup_coarse_mesh(p) -> meshio.CoarseMesh:
         # 10 root subdivisions per axis (cracks.cc:1207-1212), 2d or 3d
         dim = p.dimension
         return meshio.rect_mesh([-10] * dim, [10] * dim, [10] * dim)
+    if case in ("multiple homo", "multiple het"):
+        if p.dimension == 2:
+            return meshio.read_ucd(os.path.join(meshio.MESH_DIR,
+                                                "unit_square_4.inp"), dim=2)
+        return meshio.read_ucd(os.path.join(meshio.MESH_DIR,
+                                            "unit_cube_10.inp"), dim=3)
     raise NotImplementedError(case)
 
 
@@ -257,6 +282,12 @@ class Simulation:
         self.coarse_max_diameter = float(np.sqrt((d ** 2).sum(-1)).max())
         self.forest = hmesh.Forest(self.coarse)
         self.forest.refine_global(params.n_global_pre_refine)
+        # the heterogeneous case's Young's modulus, E to 10 E over
+        # [0, 10]^2 (cracks.cc:2207-2216)
+        self.bitmap = (problems.BitmapField(PGM_PATH, 0, 10, 0, 10,
+                                            params.E_modulus,
+                                            10.0 * params.E_modulus)
+                       if params.test_case == "multiple het" else None)
         self.mesh = self.forest.extract()
         self.sys: System = None
         self.min_cell_diameter = 0.0
@@ -295,25 +326,33 @@ class Simulation:
         """A new System for the current mesh (one per mesh epoch).  The
         old epoch's System, with its operator caches, is dropped before
         the new one's tensors are built, so a run holds one epoch at a
-        time.  The lattice hierarchy is built where the JAX package
-        builds it (cracks_tpu/driver.py:303-337): gmg +
-        assembled_matvec + mixed precision on a uniform tensor
-        lattice."""
+        time.  The multigrid hierarchy is built where the JAX package
+        builds it (cracks_tpu/driver.py:303-354): under gmg +
+        assembled_matvec, the lattice hierarchy with mixed precision on
+        a uniform tensor lattice, else the Galerkin hierarchy (None
+        when the forest has one level: the solve is then the Jacobi CG,
+        as in JAX).  A slit mesh that the JAX package would glue into a
+        seam lattice raises (ROADMAP A9)."""
         p = self.p
         self.sys = None
-        self.sys = System(p, self.mesh, device=self.device)
+        self.sys = System(p, self.mesh, self.bitmap, device=self.device)
         self.sys.constant_k = self.constant_k
         self.sys.alpha_eps = self.alpha_eps
-        lay = hier = None
-        if (p.preconditioner == "gmg" and p.assembled_matvec
-                and self.sys.mixed_precision):
-            lay = lattice.detect_tensor_grid(self.mesh)
-        if lay is not None:
-            def dirichlet_fn(m):
-                mu_, _, mp_, _ = problems.dirichlet_conditions(
-                    p, m, 0.0, initial_step=False)
-                return mu_, mp_
 
+        def dirichlet_fn(m):
+            mu_, _, mp_, _ = problems.dirichlet_conditions(
+                p, m, 0.0, initial_step=False)
+            return mu_, mp_
+
+        gmg = p.preconditioner == "gmg" and p.assembled_matvec
+        lay = hier = None
+        if gmg and self.sys.mixed_precision:
+            lay = lattice.detect_tensor_grid(self.mesh)
+            if lay is None and lattice.seam_lattice_levels(self.mesh) >= 2:
+                raise NotImplementedError(
+                    "preconditioner=gmg with mixed precision on a uniformly "
+                    "refined slit mesh takes the seam lattice: ROADMAP A9")
+        if lay is not None:
             hier = lattice.build_lattice_hierarchy(
                 self.mesh, lay, dirichlet_fn, device=self.device)
         if hier is not None:
@@ -338,16 +377,27 @@ class Simulation:
             self.log("DoF sharding = lattice requested but unavailable "
                      "(no lattice hierarchy on this mesh); running the "
                      "replicated Newton")
+        if gmg and hier is None:
+            ghier = galerkin.build_galerkin_hierarchy(
+                self.forest, self.mesh, dirichlet_fn, device=self.device)
+            self.sys.galerkin_hierarchy = ghier
+            if ghier is not None:
+                self.log("Galerkin GMG: levels of "
+                         + ", ".join(str(int(lv.inject_p.numel()))
+                                     for lv in ghier.levels)
+                         + f" and {self.mesh.n_vertices} vertices")
         self.log(f"\nDoFs: {self.mesh.n_vertices * self.mesh.dim} solid + "
                  f"{self.mesh.n_vertices} phase = {self.mesh.n_dofs}")
 
     def determine_mesh_dependent_parameters(self):
         """cracks.cc:3820-3892: h is the minimal cell diameter for
-        Sneddon, and the coarse cells' largest diameter halved once per
-        global, cycle and local refinement for the other cases."""
+        Sneddon and the heterogeneous multiple-crack case, and the
+        coarse cells' largest diameter halved once per global, cycle and
+        local refinement for the other cases."""
         p = self.p
         h = self.mesh.min_cell_diameter
-        if p.test_case != "sneddon":
+        if p.test_case in ("miehe tension", "miehe shear", "multiple homo",
+                           "three point bending"):
             h = self.coarse_max_diameter * 2.0 ** (
                 -(p.n_global_pre_refine + p.n_refinement_cycles
                   + p.n_local_pre_refine))
@@ -477,8 +527,9 @@ class Simulation:
     def output_results(self, state: SolutionState):
         """One VTU per call plus the PVD/VisIt records
         (cracks.cc:3142-3258), with the exact phase field (Sneddon
-        only), the active set of the last solve and the cell level and
-        owner."""
+        only), the active set of the last solve, the cell level and
+        owner and, for the heterogeneous case, the cell's Young's
+        modulus."""
         if self.pvd is None or not self.p.write_vtu:
             return
         self.output_counter += 1
@@ -496,6 +547,9 @@ class Simulation:
         cell_data = {"level": self.mesh.cell_level.astype(float),
                      "subdomain": (np.arange(n_c) * self.p.n_devices
                                    // max(n_c, 1)).astype(float)}
+        if self.bitmap is not None:
+            cell_data["emodulus"] = 1.0 + self.bitmap.value(
+                self.mesh.cell_coords.mean(axis=1))
         write_vtu(os.path.join(self.p.output_dir, name), self.mesh,
                   point_data, cell_data)
         self.pvd.add(self.time, name)

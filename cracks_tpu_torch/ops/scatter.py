@@ -27,22 +27,29 @@ class ScatterTable(NamedTuple):
     table: torch.Tensor    # (m, K) int64 flat positions; n_values pads
 
 
-def scatter_table(index: torch.Tensor) -> ScatterTable:
-    """The table of a scatter by `index` (any shape; flattened)."""
+def scatter_table(index: torch.Tensor,
+                  keep: torch.Tensor | None = None) -> ScatterTable:
+    """The table of a scatter by `index` (any shape; flattened).  With
+    `keep` (a bool tensor of index's shape) only the kept entries are
+    summed: a prolongation stencil's zero-weight slots, which all name
+    one padding master, stay out of its transpose's table."""
     idx = index.reshape(-1)
     n = idx.numel()
-    if n == 0:
-        return ScatterTable(idx, idx.reshape(0, 0))
-    order = torch.argsort(idx, stable=True)
-    targets, counts = torch.unique_consecutive(idx[order],
+    pos = (torch.arange(n, device=idx.device) if keep is None
+           else torch.nonzero(keep.reshape(-1)).squeeze(1))
+    if pos.numel() == 0:
+        return ScatterTable(idx[:0], idx.new_zeros((0, 0)))
+    sub = idx[pos]
+    order = torch.argsort(sub, stable=True)
+    targets, counts = torch.unique_consecutive(sub[order],
                                                return_counts=True)
     starts = torch.cumsum(counts, 0) - counts
     seg = torch.repeat_interleave(
         torch.arange(targets.numel(), device=idx.device), counts)
-    rank = torch.arange(n, device=idx.device) - starts[seg]
+    rank = torch.arange(sub.numel(), device=idx.device) - starts[seg]
     table = torch.full((targets.numel(), int(counts.max())), n,
                        dtype=torch.int64, device=idx.device)
-    table[seg, rank] = order
+    table[seg, rank] = pos[order]
     return ScatterTable(targets, table)
 
 
@@ -55,6 +62,18 @@ def scatter_add(st: ScatterTable, values: torch.Tensor,
     acc = out[st.targets]
     for k in range(v.shape[1]):
         acc = acc + v[:, k]
+    return out.index_put_((st.targets,), acc)
+
+
+def scatter_add_rows(st: ScatterTable, values: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Add the rows of `values` (n, *row) into the rows of `out`
+    (N, *row) in place, by a table of a 1-d index of length n, each
+    target's rows in index order; returns `out`."""
+    v = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    acc = out[st.targets]
+    for k in range(st.table.shape[1]):
+        acc = acc + v[st.table[:, k]]
     return out.index_put_((st.targets,), acc)
 
 

@@ -45,7 +45,8 @@ from ..ops.stencil import (pad_jac_sharded, stencil_matvec,
                            stencil_matvec_sharded)
 from ..parallel.sharding import pad_rows, unpad_rows
 from .galerkin import embedding_matrices
-from .multigrid import sharp_spectrum, smoothing_range
+from . import opcache
+from .multigrid import _chebyshev, sharp_spectrum, smoothing_range
 
 
 @lru_cache(maxsize=None)
@@ -89,13 +90,11 @@ class LatticeLayout(NamedTuple):
     cell_perm: np.ndarray   # (n_cells,) raster -> mesh cell id
 
 
-def detect_tensor_grid(mesh) -> LatticeLayout | None:
-    """Identify a mesh whose vertices form an exact tensor grid.
-    Anything else returns None: hanging nodes, unstructured meshes, and
-    the slit meshes whose duplicated lip vertices the JAX package glues
-    with a seam (ROADMAP A9)."""
-    if mesh.dim not in (2, 3) or len(mesh.hang_child):
-        return None
+def _product_grid(mesh):
+    """(grid, per-grid-axis vertex index, flat grid position per vertex)
+    when the vertex coordinates take few enough distinct values per axis
+    to form a product grid of at least 4 per axis, else None.  Grid
+    axes are ordered slowest to fastest (z, y, x)."""
     dim = mesh.dim
 
     def axis_index(vals):
@@ -120,10 +119,25 @@ def detect_tensor_grid(mesh) -> LatticeLayout | None:
     grid = tuple(int(r[1]) for r in res)[::-1]
     if min(grid) < 4:
         return None
-    nv = mesh.n_vertices
-    pos = np.zeros(nv, np.int64)
+    pos = np.zeros(mesh.n_vertices, np.int64)
     for j in range(dim):
         pos = pos * grid[j] + gidx[j]
+    return grid, gidx, pos
+
+
+def detect_tensor_grid(mesh) -> LatticeLayout | None:
+    """Identify a mesh whose vertices form an exact tensor grid.
+    Anything else returns None: hanging nodes, unstructured meshes, and
+    the slit meshes whose duplicated lip vertices the JAX package glues
+    with a seam (ROADMAP A9, `seam_lattice_levels`)."""
+    if mesh.dim not in (2, 3) or len(mesh.hang_child):
+        return None
+    dim = mesh.dim
+    pg = _product_grid(mesh)
+    if pg is None:
+        return None
+    grid, gidx, pos = pg
+    nv = mesh.n_vertices
     if int(np.prod(grid)) != nv or len(np.unique(pos)) != nv:
         return None     # includes the seam (slit) case, ROADMAP A9
     vert_idx = np.full(int(np.prod(grid)), -1, np.int64)
@@ -156,6 +170,86 @@ def detect_tensor_grid(mesh) -> LatticeLayout | None:
                          vert_idx=vert_idx.astype(np.int32),
                          vert_pos=pos.astype(np.int32),
                          cell_perm=raster.astype(np.int32))
+
+
+def seam_lattice_levels(mesh, min_coarse: int = 50) -> int:
+    """The levels of the seam lattice the JAX package builds on this
+    mesh (``lattice._detect_slit_grid`` and ``build_lattice_hierarchy``),
+    0 where it builds none: a 2d product grid cut by one horizontal slit
+    whose duplicated lip columns reach the +x boundary, its cells in
+    the fem.py corner order.  The seam lattice is ROADMAP A9; the driver
+    refuses the configurations that would take it."""
+    if mesh.dim != 2 or len(mesh.hang_child):
+        return 0
+    pg = _product_grid(mesh)
+    if pg is None:
+        return 0
+    (gy0, gx0), (ri, ci), pos0 = pg
+    nv = mesh.n_vertices
+    if gy0 * gx0 >= nv:
+        return 0
+    uniq, counts = np.unique(pos0, return_counts=True)
+    if counts.max() != 2 or len(uniq) != gy0 * gx0:
+        return 0
+    dup = uniq[counts == 2]
+    rows = dup // gx0
+    if len(np.unique(rows)) != 1:
+        return 0
+    s0 = int(rows[0])
+    cols = np.sort(dup % gx0)
+    lo = int(cols[0])
+    if not (1 <= s0 <= gy0 - 2) or lo < 1 or not (
+            cols == np.arange(lo, gx0)).all():
+        return 0
+    # each lip copy is a cell-top corner only (lower lip) or a
+    # cell-bottom corner only (upper lip)
+    c2v = mesh.cell2vert
+    top = np.zeros(nv, bool)
+    bot = np.zeros(nv, bool)
+    bot[c2v[:, :2]] = True
+    top[c2v[:, 2:]] = True
+    is_dup = np.isin(pos0, dup)
+    lower = is_dup & top & ~bot
+    upper = is_dup & bot & ~top
+    if not ((lower | upper) == is_dup).all() or not (
+            np.sum(lower) == np.sum(upper) == gx0 - lo):
+        return 0
+    # the expanded (gy0 + 1, gx0) lattice: the upper lip on row s0 + 1
+    gy = gy0 + 1
+    row_new = np.where(ri > s0, ri + 1, ri).astype(np.int64)
+    row_new = np.where(upper, s0 + 1, row_new)
+    pos = row_new * gx0 + ci
+    if len(np.unique(pos)) != nv:
+        return 0
+    vic = np.full(gy * gx0, -1, np.int64)
+    vic[pos] = np.arange(nv)
+    vic = vic.reshape(gy, gx0)
+    vic[s0 + 1, :lo] = vic[s0, :lo]
+    if (vic < 0).any():
+        return 0
+    r_c = row_new[c2v[:, 2]] - 1
+    c_c = ci[c2v[:, 0]].astype(np.int64)
+    cgrid = (gy - 1, gx0 - 1)
+    if ((r_c < 0) | (r_c >= cgrid[0]) | (c_c < 0) | (c_c >= cgrid[1])).any():
+        return 0
+    expect = np.stack([vic[r_c + o[0], c_c + o[1]] for o in _offsets(2)],
+                      axis=1)
+    if not (expect == c2v).all():
+        return 0
+    raster = np.full(cgrid[0] * cgrid[1], -1, np.int64)
+    raster[r_c * cgrid[1] + c_c] = np.arange(mesh.n_cells)
+    dead = raster.reshape(cgrid) < 0
+    if not (dead == (np.arange(cgrid[0])[:, None] == s0)).all():
+        return 0
+    # 2:1 coarsening while the seam stays coarsenable
+    grid, s, n = (gy, gx0), s0, 1
+    while ((grid[0] - 2) % 2 == 0 and (grid[1] - 1) % 2 == 0
+           and s % 2 == 0 and s >= 2 and lo % 2 == 1):
+        grid = ((grid[0] - 2) // 2 + 2, (grid[1] - 1) // 2 + 1)
+        if grid[0] * grid[1] < min_coarse:
+            break
+        s, lo, n = s // 2, (lo + 1) // 2, n + 1
+    return n
 
 
 class LatticeHierarchy(NamedTuple):
@@ -430,25 +524,6 @@ def restrict(Xf, k):
 # multigrid
 # ---------------------------------------------------------------------------
 
-def _chebyshev(op, Dinv, b, lam_max, degree, rng):
-    upper = 1.2 * lam_max
-    lower = lam_max / rng
-    theta = 0.5 * (upper + lower)
-    delta = 0.5 * (upper - lower)
-    r = b
-    p = (1.0 / theta) * (Dinv * r)
-    x = p
-    sigma = theta / delta
-    rho_old = 1.0 / sigma
-    for _ in range(degree - 1):
-        r = b - op(x)
-        rho = 1.0 / (2.0 * sigma - rho_old)
-        p = (rho * rho_old) * p + (2.0 * rho / delta) * (Dinv * r)
-        x = x + p
-        rho_old = rho
-    return x
-
-
 class _LOps(NamedTuple):
     jac: torch.Tensor
     free: torch.Tensor
@@ -706,26 +781,6 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     return Xb, kk, rrb
 
 
-def _iter_dist(u, phi, phi_old, phi_oold, sc_vec, u0, phi0, phi_old0,
-               phi_oold0, sc_vec0) -> float:
-    """Max-relative distance between everything the element Jacobians
-    depend on: u scaled by its own magnitude, phi and the previous-step
-    phase fields by their O(1) scale, the time-dependent scalars
-    relatively.  The staleness test of the operator cache."""
-    su = u0.abs().max().clamp_min(1e-30)
-    d = (u - u0).abs().max() / su
-    d = torch.maximum(d, (phi - phi0).abs().max())
-    d = torch.maximum(d, (phi_old - phi_old0).abs().max())
-    d = torch.maximum(d, (phi_oold - phi_oold0).abs().max())
-    rel = (sc_vec - sc_vec0).abs() / sc_vec0.abs().clamp_min(1e-30)
-    dsc = torch.where(sc_vec == sc_vec0, 0.0, rel).max()
-    return float(torch.maximum(d, dsc))
-
-
-def _scalars_vec(sc):
-    return torch.stack([v.to(torch.float64) for v in sc])
-
-
 def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
                     which, dim, gyp):
     """f32 -> f64 boundary of one CG pass in lattice layout (JAX
@@ -776,35 +831,25 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     free_u = ~hier.dir_u[-1]
     free_p = ~(hier.dir_p[-1] | unpad_rows(active, grid[0]))
 
-    # Operator reuse across the PDAS tail: the element Jacobians depend
-    # only on (U, P, P_old, P_oold, scalars); iterations at the
-    # residual floor move those by ~1e-10 relative, so the f32 chain
-    # and the stored f64 operator are reused while the context moved by
-    # at most `jac_rtol` from the point where they were BUILT (an
-    # inexact Newton step with O(jac_rtol) perturbation; the residual
-    # and line search stay exact).
-    sc_vec = _scalars_vec(sys.scalars)
-    ctx = (U, P, P_old, P_oold, sc_vec)
+    # Operator reuse across the PDAS tail (solvers/opcache.py): the f32
+    # chain and the stored f64 operator are reused while the context
+    # moved by at most `jac_rtol` from the point where they were built.
+    ctx = (U, P, P_old, P_oold, opcache.scalars_vec(sys.scalars))
     flags = (with_split,)
-    jacs = jacL64 = None
-    cache = sys._split_jac_cache
-    if cache is not None:
-        key0, flags0, jacs_c, jacL64_c = cache
-        if flags0 == flags and all(a.shape == b.shape
-                                   for a, b in zip(key0, ctx)):
-            if _iter_dist(*ctx, *key0) <= jac_rtol:
-                jacs, jacL64 = jacs_c, jacL64_c
-        del jacs_c, jacL64_c
-    if jacs is None:
+    hit = opcache.lookup(sys._split_jac_cache, ctx, flags, jac_rtol)
+    if hit is not None:
+        jacs, jacL64 = hit
+    else:
         # drop the stale operators before building replacements
-        sys._split_jac_cache = cache = None
+        sys._split_jac_cache = None
         sys._split_levels_cache = None
         jacL64 = _prepare64(U, P, P_old, P_oold, sys.lattice_ca64,
                             sys.scalars, grid=grid, dim=dim,
                             with_split=with_split, monolithic=False)
         jacs = _prepare32_from64(jacL64, hier.P_embed,
                                  n_levels=hier.n_levels)
-        sys._split_jac_cache = (ctx, flags, jacs, jacL64)
+        sys._split_jac_cache = (ctx, flags, (jacs, jacL64))
+    del hit
     total_its = 0
     last_ju_pu = None   # J_pu DU of the final accepted u iterate
 

@@ -6,8 +6,10 @@ tensor work.  The active set is a boolean mask over phase-field
 vertices; convergence logic, cycle detection and the backtracking line
 search follow the reference step for step.  The linear solve is routed
 as in the JAX package: the dense direct solve, the lattice GMG
-mixed-precision CG or the stored-element-matrix Jacobi CG.  The
-penalized monolithic ``newton_iteration`` is not ported yet.
+mixed-precision CG, the Galerkin GMG on the stored element matrices
+(f64 block CG, or the mixed-precision split solve) or the
+stored-element-matrix Jacobi CG.  The penalized monolithic
+``newton_iteration`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..ops import physics
 from ..ops.constraints import (condense_residual, expand_update,
                                hanging_interpolate_p, hanging_interpolate_u,
                                hanging_transpose_p, residual_norm)
-from . import assembled, lattice, linear
+from . import assembled, galerkin, lattice, linear
 
 
 class NoConvergence(Exception):
@@ -47,21 +49,20 @@ def krylov_path(sys) -> str:
     """The iterative solve of a configuration, in the JAX package's
     order (cracks_tpu/solvers/newton.py:70-148): "lattice" (the lattice
     GMG mixed-precision CG; its hierarchy exists only under gmg +
-    assembled_matvec + mixed precision on a uniform lattice) or
-    "assembled" (the stored-element-matrix Jacobi CG).  Raises for the
-    ones not ported."""
-    p = sys.params
+    assembled_matvec + mixed precision on a uniform lattice), "galerkin"
+    (the Galerkin GMG on the stored element matrices: gmg +
+    assembled_matvec without the lattice hierarchy; the f64 block CG, or
+    with mixed precision the split solve) or "assembled" (the
+    stored-element-matrix Jacobi CG, also where the Galerkin chain is
+    empty).  Raises for the ones not ported."""
     if sys.lattice_hierarchy is not None:
         return "lattice"
-    if p.preconditioner == "gmg":
+    if not sys.params.assembled_matvec:
         raise NotImplementedError(
-            "preconditioner=gmg without the lattice hierarchy (a "
-            "hanging-node or non-lattice mesh, or no mixed_precision_cg): "
-            "the Galerkin and multigrid GMG are not ported, ROADMAP A10")
-    if not p.assembled_matvec:
-        raise NotImplementedError(
-            "the matrix-free jvp CG (assembled_matvec=False) is not "
-            "ported: ROADMAP A12")
+            "the matrix-free jvp CG and the geometric GMG "
+            "(assembled_matvec=False) are not ported: ROADMAP A12")
+    if sys.galerkin_hierarchy is not None:
+        return "galerkin"
     return "assembled"
 
 
@@ -77,9 +78,9 @@ def uses_direct(sys) -> bool:
 
 def check_linear_solver(sys) -> str:
     """The linear solve a replicated Newton will take ("direct",
-    "lattice" or "assembled"); raises NotImplementedError for the
-    unported ones before any work.  A singular direct factor falls
-    through to `krylov_path`, checked then."""
+    "lattice", "galerkin" or "assembled"); raises NotImplementedError
+    for the unported ones before any work.  A singular direct factor
+    falls through to `krylov_path`, checked then."""
     return "direct" if uses_direct(sys) else krylov_path(sys)
 
 
@@ -101,7 +102,7 @@ def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
                 monolithic=False)
         except linear.DirectSolveRefused:
             pass
-    if krylov_path(sys) == "assembled":
+    if krylov_path(sys) != "lattice":
         return _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active,
                                 rhs_u, rhs_p, with_split)
     du, dp, its = lattice.solve_lattice(sys, u, phi, phi_old, phi_oold,
@@ -116,15 +117,23 @@ def _norm(ru, rp) -> float:
 
 def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
                      rhs_p, with_split):
-    """Stored-element-matrix solve (`assembled`, JAX
-    ``newton._solve_assembled`` without its Galerkin branches): the
-    element Jacobians are built once per Newton iteration and the
-    Krylov iterations are batched dense matvecs with Jacobi CG.  With
+    """Stored-element-matrix solve (JAX ``newton._solve_assembled``).
+    With the Galerkin hierarchy: the mixed-precision split solve
+    (`galerkin.solve_split`, at every size: the JAX package's fused
+    variant serves only the TPU's dispatch latency), or without mixed
+    precision the f64 Galerkin-preconditioned block CG on the element
+    Jacobians.  Without it, Jacobi CG on the element Jacobians; with
     mixed precision, iterative refinement: up to 8 capped f32 passes,
     each accepted if it cuts the f64 residual below 0.2x, the first
     stalled one replaced by an f64 Jacobi-CG finish.  Returns
     (du, dp, iterations) with the constraints distributed."""
     p = sys.params
+    ghier = sys.galerkin_hierarchy
+    if ghier is not None and sys.mixed_precision:
+        du, dp, its = galerkin.solve_split(sys, ghier, u, phi, phi_old,
+                                           phi_oold, con, active, rhs_u,
+                                           rhs_p, with_split)
+        return (*expand_update(du, dp, con, active), its)
     kw = dict(dim=sys.dim, with_split=with_split, monolithic=False)
     cs = sys.cell_scatter
     bnorm0 = _norm(rhs_u, rhs_p)
@@ -137,6 +146,12 @@ def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
 
     jac = assembled.build_jacobians(u, phi, phi_old, phi_oold, sys.ca,
                                     sys.scalars, **kw)
+    if ghier is not None:
+        du, dp, its = galerkin.solve_cg_block(
+            ghier, jac, sys.galerkin_fine, sys.ca, cs, con, active, rhs_u,
+            rhs_p, p.cg_rtol, 1e-300, dim=sys.dim, maxiter=p.cg_maxiter,
+            chunk=p.cg_chunk)
+        return (*expand_update(du, dp, con, active), its)
     if not sys.mixed_precision:
         du, dp, its = krylov(jac, sys.ca, con, rhs_u, rhs_p, p.cg_rtol,
                              1e-300, p.cg_maxiter)

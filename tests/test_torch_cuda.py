@@ -39,7 +39,12 @@ of all its tangents as in passes of one.  On the dense systems of the first load
 steps of the three-point golden and the shipped Miehe shear file, the
 card's refined LU solve (solvers/linear.py) has a smaller backward
 error than the unrefined one and lies no farther from the host's LAPACK
-solution."""
+solution.  On `hetero_3d_1` the Galerkin GMG's f32 V-cycle and one pass
+of its split solve agree between the card and the CPU (V-cycle rtol
+1e-5 / atol 1e-4 of its largest value; the pass's update rel 1e-5, its
+iterations within one) and repeat bit for bit, and two card runs of the
+f64 Galerkin block CG are bit-equal and equal the CPU run to rel
+1e-8."""
 
 import os
 
@@ -482,3 +487,107 @@ def test_card_refinement_reduces_dense_solve_error(cuda, monkeypatch, prm,
     assert max(eta[1]) < max(eta[0])
     assert np.median(eta[1]) < np.median(eta[0])
     assert max(dist[1]) <= max(dist[0])
+
+
+HETERO_PRM = ("params", "tests", "hetero_3d_1.prm")
+
+
+def _hetero_prerefined(device):
+    """hetero_3d_1 (3d, bitmap material, 318 hanging vertices) after its
+    local pre-refinement on `device`, with the solve context of its
+    first step set."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation, SolutionState
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = config.load_parameters(os.path.join(root, *HETERO_PRM),
+                               output_dir="", linear_solver="cg",
+                               preconditioner="gmg", mixed_precision_cg=True)
+    sim = Simulation(p, device=device, verbose=False)
+    sim.setup_system()
+    sim.determine_mesh_dependent_parameters()
+    n_v = sim.mesh.n_vertices
+    f64 = dict(dtype=torch.float64, device=device)
+    z, zp = torch.zeros(n_v * 3, **f64), torch.zeros(n_v, **f64)
+    st = SolutionState(u=z, phi=zp, u_old=z, phi_old=zp, phi_oold=zp)
+    for _ in range(p.n_local_pre_refine):
+        sim.interpolate_initial_values(st)
+        st.u_old, st.phi_old, st.phi_oold = st.u, st.phi, st.phi
+        sim.refine_mesh(st)
+    sim.time, sim.timestep_number = 0.01, 0
+    sim._set_context()
+    return sim
+
+
+@pytest.mark.cuda
+def test_galerkin_vcycle_and_split_pass_on_card_match_cpu(cuda):
+    """The f32 Galerkin V-cycle and one pass of the split solve (the f32
+    CG pass and the f64 jvp refinement) on hetero_3d_1, from the same
+    seeded state, on the card and on the CPU: the V-cycle within rtol
+    1e-5 / atol 1e-4 of its largest value, the pass's trial update within
+    rel 1e-5 and its iteration count within one; the card repeats both
+    bit for bit."""
+    from cracks_tpu_torch.solvers import galerkin
+    rng = np.random.default_rng(9)
+    out = {}
+    for dev in (torch.device("cpu"), cuda, cuda):
+        sim = _hetero_prerefined(dev)
+        n_v = sim.mesh.n_vertices
+        rs = np.random.default_rng(9)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        phi = rs.uniform(0.2, 1.0, n_v)
+        state = (t(rs.normal(scale=1e-3, size=n_v * 3)), t(phi),
+                 t(np.minimum(1.0, phi + 0.05)),
+                 t(np.minimum(1.0, phi + 0.05)))
+        active = torch.as_tensor((rs.uniform(size=n_v) < 0.1)
+                                 & ~sim.mesh.hanging_mask(), device=dev)
+        con = sim.sys.constraints(0.0)
+        jac32 = galerkin._g_jac32(sim.sys, *state, False)
+        ops, _ = galerkin.build_level_ops(
+            sim.sys.galerkin_hierarchy, jac32, sim.sys.galerkin_fine,
+            active, dim=3)
+        b = torch.as_tensor(rs.normal(size=n_v * 3), dtype=torch.float32,
+                            device=dev)
+        y = galerkin.make_vcycle(ops, dim=3, which="u")(b)
+        op32, free, _, _, _ = galerkin._pieces(ops[-1], "u", 3)
+        rhs = torch.where(free, t(rs.normal(size=n_v * 3)), 0.0)
+        R0, scale, tol2 = galerkin._g_pass_setup(free, rhs, 1e-8,
+                                                 t(1e-18))
+        M32 = galerkin.make_vcycle(ops, dim=3, which="u")
+        Xb, k = galerkin._g_cg_pass32(op32, M32, R0, tol2)
+        x_try, _, rr_try, _ = galerkin._g_pass_apply(
+            sim.sys, *state, con, active, Xb, scale, torch.zeros_like(rhs),
+            rhs, "u", False)
+        out.setdefault(dev.type, []).append(
+            (y.cpu(), x_try.cpu(), int(k), float(rr_try)))
+    (y_h, x_h, k_h, rr_h), = out["cpu"]
+    (y_c, x_c, k_c, rr_c), again = out["cuda"]
+    torch.testing.assert_close(y_c, y_h, rtol=1e-5,
+                               atol=1e-4 * float(y_h.abs().max()))
+    assert abs(k_c - k_h) <= 1 and k_c > 0
+    assert _rel(x_c, x_h) <= 1e-5
+    assert torch.equal(y_c, again[0]) and torch.equal(x_c, again[1])
+    print(f"V-cycle max |card - cpu| / max |y| "
+          f"{float((y_c - y_h).abs().max() / y_h.abs().max()):.3e}; pass "
+          f"its {k_c} / {k_h}, rr {rr_c:.3e} / {rr_h:.3e}")
+
+
+@pytest.mark.cuda
+def test_hetero_3d_gmg_on_card_repeats_and_matches_cpu(cuda):
+    """hetero_3d_1 under f64 cg + gmg (the Galerkin block CG), first
+    step: two card runs are bit-equal, and equal the CPU port to rel
+    1e-8 with equal Newton counts."""
+    from cracks_tpu_torch.driver import run_prm
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        sim, _ = run_prm(os.path.join(root, *HETERO_PRM), device=dev,
+                         output_dir="", max_no_timesteps=0,
+                         linear_solver="cg", preconditioner="gmg")
+        assert sim.sys.galerkin_hierarchy is not None
+        d = sim.statistics.data
+        runs.append((np.array([d["Bulk Energy"], d["Crack Energy"]]),
+                     [e[:3] for e in sim.solver_effort]))
+    (e_h, eff_h), (e_c, eff_c), (e_c2, eff_c2) = runs
+    assert np.array_equal(e_c, e_c2) and eff_c == eff_c2
+    np.testing.assert_allclose(e_c, e_h, rtol=1e-8, atol=0)
+    assert [e[1] for e in eff_c] == [e[1] for e in eff_h]

@@ -29,6 +29,7 @@ PORT_MODULES = [
     "cracks_tpu_torch.solvers.lattice", "cracks_tpu_torch.solvers.newton",
     "cracks_tpu_torch.solvers.linear", "cracks_tpu_torch.solvers.assembled",
     "cracks_tpu_torch.solvers.lattice_newton",
+    "cracks_tpu_torch.solvers.opcache",
     "cracks_tpu_torch.qoi", "cracks_tpu_torch.driver",
     "cracks_tpu_torch.__main__",
 ]

@@ -83,6 +83,14 @@ def test_layout_and_hierarchy_match_jax(dim, refine, grid, n_levels):
         os.path.join(tmeshio.MESH_DIR, "unit_slit.inp"), dim=2))
     fs.refine_global(2)
     assert lattice.detect_tensor_grid(fs.extract()) is None
+    # the driver refuses gmg + mixed precision where the JAX package
+    # builds that seam lattice (refine 3: 2 levels)
+    fs.refine_global(1)
+    ms = fs.extract()
+    lay_s = jlat.detect_tensor_grid(ms)
+    assert lattice.detect_tensor_grid(ms) is None and lay_s.seam is not None
+    assert lattice.seam_lattice_levels(ms) == jlat.build_lattice_hierarchy(
+        ms, lay_s, dirichlet_fn).n_levels == 2
 
 
 @pytest.mark.parametrize("grid_c,grid_f", [((9, 9), (17, 17)),

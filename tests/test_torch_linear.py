@@ -15,7 +15,7 @@ set, inputs made with numpy and given to both packages.
   passes of the two packages round differently, so a pass may take one
   iteration more or less;
 - the router: a jacobi run on a uniform mesh takes the assembled path,
-  gmg on a hanging-node mesh raises naming A10."""
+  gmg on a hanging-node mesh the Galerkin hierarchy."""
 
 import os
 
@@ -256,11 +256,16 @@ def test_jacobi_on_a_uniform_mesh_takes_the_assembled_path(monkeypatch):
 
 
 def test_gmg_on_a_hanging_node_mesh_raises_a10():
+    """Formerly a refusal naming A10; A10 is ported now, so gmg on a
+    hanging-node mesh takes the Galerkin hierarchy (the split solve with
+    mixed precision), as in the JAX package."""
     p = config.load_parameters(
         PRM_2D, n_global_pre_refine=0, n_local_pre_refine=1,
         n_refinement_cycles=0, max_no_timesteps=0, output_dir="",
         linear_solver="cg", preconditioner="gmg", mixed_precision_cg=True)
     sim = Simulation(p, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        sim.run()
+    sim.run()
     assert len(sim.mesh.hang_child) > 0
+    assert sim.sys.galerkin_hierarchy is not None
+    assert newton.check_linear_solver(sim.sys) == "galerkin"
+    assert sim.step_cuts == 0 and sim.solver_effort[0][2] > 0
