@@ -70,10 +70,11 @@ without printing the final line:
    tests/regression.py (|d| <= 1e-6 or rel <= 1e-8), TCV 0.0418879
    +- 1e-6, phi L2 error 0.978645 +- 1e-5, the cod-04b.txt value at
    x = 0 0.00296695 +- 1e-8, 777 final DoFs;
-9. golden 3d, first step: params/tests/sneddon_3d_1.prm with
-   max_no_timesteps = 0 (5,324 DoFs, dense direct) against the first
-   row of tests/golden/sneddon_3d_1.mpirun=4.statistics (atol 1e-6 or
-   rtol 1e-8);
+9. golden 3d: params/tests/sneddon_3d_1.prm as shipped (5,324 DoFs,
+   dense direct, 4 steps to stationarity) against every row of
+   tests/golden/sneddon_3d_1.mpirun=4.statistics (atol 1e-6 or rtol
+   1e-8) and the TCV pin of the JAX package's full test (0.0399535 +-
+   1e-5);
 10. the shipped file: params/parameters_sneddon_2d.prm as shipped (four
    mesh epochs, 777 -> 12,993 DoFs, the dense direct solve and then
    the stored-element-matrix Jacobi CG) against the JAX package's table
@@ -141,6 +142,32 @@ without printing the final line:
    torch.linalg, the stored-matrix CG and the Galerkin GMG through
    torch ops); the stencil kernels' counts are set to 0 before each and
    printed after it.
+17. the seam lattice (the uniformly refined slit mesh of the Miehe
+   cases under the lattice GMG) and the penalized monolithic Newton.
+   Small: params/tests/miehe_shear_2.prm at refinement 3 and 5 (891 and
+   12,771 DoFs) under bench.py's solver settings, 3 steps, on the card
+   against the CPU port (spawned workers) and with n_devices = 4,
+   dof_sharding = lattice against the replicated card run, and the
+   simple monolithic solver on sneddon_2d_1.prm at refinement 0 (the
+   dense solve) and 1 (the lattice solve) on the card against the CPU
+   port: statistics within rel 1e-7 (the lattice run's crack energy,
+   ~6e-10 and set by the Newton's stopping point, within 1e-6) with
+   equal Newton iterations per step, the 2d kernels launched on the
+   lattice.  The seam product (collect . kernel . spread) of the 2d
+   kernel's five products at the refine-8 shapes against the same
+   conjugation of the plain version (TOL), its mirror slots zero, the
+   sharded one (f32 blocks, D = 4) bit for bit against the unsharded,
+   each timed beside the bare kernel.  Full width: bench.py's
+   miehe_shear case (refinement 8, 790,275 DoFs, the 7-level (514, 513)
+   seam lattice, cg + gmg + mixed precision, cg_rtol 1e-8,
+   MIEHE_FULL_STEPS load steps): no time-step cut, finite statistics,
+   positive bulk energy, the 2d kernel and the phase-field kernel
+   launched (counts set to 0 before the run, read after); it prints
+   s/step, Newton and linear iterations per step, the peak device
+   memory and the device's idle share during one solve
+   (torch.profiler); then its first 3 steps with n_devices = 4,
+   dof_sharding = lattice, within rel 1e-7 of the replicated run with
+   equal Newton iterations and the sharded kernel launched.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -708,22 +735,29 @@ def golden2d_phase():
 
 
 def golden3d_phase():
+    """sneddon_3d_1.prm as shipped: every row of its golden table (the
+    golden's columns) and the TCV pin of the JAX package's full test."""
     t0 = time.perf_counter()
     _zero_stencil_counts()
     sim = _run_quiet(os.path.join(PRM_TESTS, "sneddon_3d_1.prm"),
-                     max_no_timesteps=0, output_dir="")
-    ours = parse_statistics(sim.statistics.write_text())[1][:1]
+                     output_dir="")
+    names, ours = parse_statistics(sim.statistics.write_text())
     with open(os.path.join(GOLDEN_DIR,
                            "sneddon_3d_1.mpirun=4.statistics")) as f:
-        golden = parse_statistics(f.read())[1][:1]
-    fails = table_failures(ours, golden, 1e-6, 1e-8)
-    print(f"golden 3d first step (sneddon_3d_1) on cuda: "
-          f"{time.perf_counter() - t0:.2f} s, {sim.mesh.n_dofs} DoFs, "
+        g_names, golden = parse_statistics(f.read())
+    fails = (table_failures(ours[:, :len(g_names)], golden, 1e-6, 1e-8)
+             if names[:len(g_names)] == g_names
+             else [f"columns {names} vs {g_names}"])
+    tcv = sim.statistics.data["TCV"][-1]
+    print(f"golden 3d (sneddon_3d_1, {len(ours)} rows vs {len(golden)}) on "
+          f"cuda: {time.perf_counter() - t0:.2f} s, {sim.mesh.n_dofs} DoFs, "
           f"Newton/linear its {[(e[1], e[2]) for e in sim.solver_effort]},"
-          f" row {ours[0].tolist()} vs golden {golden[0].tolist()}, "
-          f"stencil launches {_stencil_counts()}")
-    if fails or sim.mesh.n_dofs != 5324 or sim.step_cuts:
-        raise AssertionError("golden 3d first step: " + "; ".join(fails))
+          f" rows {ours[:, :len(g_names)].tolist()} vs golden "
+          f"{golden.tolist()}, TCV {tcv!r} (0.0399535 +- 1e-5), stencil "
+          f"launches {_stencil_counts()}, {len(fails)} cells off")
+    if (fails or sim.mesh.n_dofs != 5324 or sim.step_cuts
+            or not abs(tcv - 0.0399535) <= 1e-5):
+        raise AssertionError("golden 3d: " + "; ".join(fails))
 
 
 def _fresh_memory_baseline():
@@ -1171,13 +1205,15 @@ def _phase_timers():
     return secs, lambda: [setattr(galerkin, n, f) for n, f in saved.items()]
 
 
-def _profile_solve(calls):
-    """Wrap galerkin.solve_split so that its `calls`-th call runs under
-    torch.profiler: returns (a dict that receives that call's wall
-    seconds and summed device-kernel seconds, an undo)."""
-    from cracks_tpu_torch.solvers import galerkin
+def _profile_solve(calls, module=None, name="solve_split"):
+    """Wrap `module.name` (galerkin.solve_split by default) so that its
+    `calls`-th call runs under torch.profiler: returns (a dict that
+    receives that call's wall seconds and summed device-kernel seconds,
+    an undo)."""
+    if module is None:
+        from cracks_tpu_torch.solvers import galerkin as module
     out = {}
-    fn = galerkin.solve_split
+    fn = getattr(module, name)
     n = [0]
 
     def wrapped(*args, **kw):
@@ -1196,8 +1232,8 @@ def _profile_solve(calls):
                     getattr(e, "self_cuda_time_total", 0.0))
             for e in prof.key_averages()) * 1e-6
         return res
-    galerkin.solve_split = wrapped
-    return out, lambda: setattr(galerkin, "solve_split", fn)
+    setattr(module, name, wrapped)
+    return out, lambda: setattr(module, name, fn)
 
 
 def hetero3d_phase():
@@ -1294,6 +1330,324 @@ def production_gmg_phase(jacobi):
                                  "did not take the Galerkin GMG")
 
 
+# phase 17: the seam lattice.  bench.py's miehe_shear case
+# (_make_params("miehe_shear", 8, "float64", "gmg", 25): the file
+# params/tests/miehe_shear_2.prm, _tpu_overrides at bench.py:95-100 and
+# the case at :121-139), rebuilt from the port's own config
+MIEHE_PRM = os.path.join(PRM_TESTS, "miehe_shear_2.prm")
+MIEHE_BENCH = dict(n_global_pre_refine=8, n_local_pre_refine=0,
+                   n_refinement_cycles=0, max_no_timesteps=24, output_dir="",
+                   linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+                   cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+# refine 8: the (514, 513) seam lattice, slit row 256, glued columns
+# [0, 257), 7 levels down to (10, 9)
+MIEHE_FULL = dict(refine=8, dofs=790_275, grid=(514, 513), seam=(256, 257),
+                  levels=7)
+# the steps of the full-width run in the smoke (the bench case's 25
+# steps are recorded in PERF.md with the command that ran them)
+MIEHE_FULL_STEPS = 25
+MIEHE_SMALL = [(3, 891), (5, 12_771)]
+MIEHE_COLUMNS = ("Bulk Energy", "Crack Energy", "Load x")
+# the simple monolithic solver on the Sneddon golden's file, the cases
+# of tests/test_torch_monolithic.py: refinement 0 (363 DoFs, the dense
+# direct solve) and 1 with cg + gmg + mixed precision (1,323 DoFs, a
+# 2-level lattice: the lattice solve with the monolithic flag)
+MONO_PRM = os.path.join(PRM_TESTS, "sneddon_2d_1.prm")
+MONO = dict(output_dir="", max_no_timesteps=1, n_local_pre_refine=0,
+            n_refinement_cycles=0, outer_solver="simple monolithic",
+            gamma_penal=100.0)
+MONO_LATTICE = dict(linear_solver="cg", preconditioner="gmg",
+                    mixed_precision_cg=True, cg_rtol=1e-8)
+
+
+def _miehe_params(refine, steps, **overrides):
+    from cracks_tpu_torch import config
+    return config.load_parameters(MIEHE_PRM, **{
+        **MIEHE_BENCH, "n_global_pre_refine": refine,
+        "max_no_timesteps": steps - 1, **overrides})
+
+
+def _run_case(kind, refine, overrides, device, n_threads=None):
+    """One small seam-lattice case (kind "miehe", 3 steps) or a small
+    monolithic case (kind "mono"; refinement 0 the dense solve, 1 the
+    lattice): (DoFs, statistics per column and step, (Newton, linear)
+    its per step, time-step cuts, seconds).  On the CPU it runs in a
+    worker process of seam_small_phase."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    if n_threads:
+        torch.set_num_threads(n_threads)
+    t0 = time.perf_counter()
+    p = (_miehe_params(refine, 3, **overrides) if kind == "miehe"
+         else config.load_parameters(MONO_PRM, n_global_pre_refine=refine,
+                                     **MONO, **(MONO_LATTICE if refine
+                                                else {})))
+    sim = Simulation(p, device=device, verbose=False)
+    sim.run()
+    cols = MIEHE_COLUMNS if kind == "miehe" else MIEHE_COLUMNS[:2]
+    hier = sim.sys.lattice_hierarchy
+    if ((hier is None) != (kind == "mono" and refine == 0)
+            or (hier is not None
+                and (kind == "miehe") != (hier.seam is not None))):
+        raise AssertionError(f"{kind} refine {refine} on {device}: not the "
+                             "expected lattice hierarchy and seam")
+    return (sim.mesh.n_dofs,
+            np.array([sim.statistics.data[c] for c in cols], dtype=float),
+            [(e[1], e[2]) for e in sim.solver_effort], sim.step_cuts,
+            time.perf_counter() - t0)
+
+
+def _agree(label, a, b, bound=(1e-7,), floor=0.0):
+    """Energies and loads of two runs (dofs, stats, its, cuts, s) within
+    `bound` (per column, the last one for the rest), relative to the
+    larger of a value and `floor` times its column's largest value, with
+    equal Newton iterations per step."""
+    ref = np.maximum(np.abs(b[1]),
+                     floor * np.abs(b[1]).max(axis=1, keepdims=True))
+    rel = (np.abs(a[1] - b[1]) / ref).max(axis=1)
+    bounds = np.array([bound[min(i, len(bound) - 1)]
+                       for i in range(len(rel))])
+    newton = [[n for n, _ in r[2]] for r in (a, b)]
+    print(f"{label}: max relative difference per column "
+          f"{[float(f'{r:.3e}') for r in rel]} (bounds {bounds.tolist()}), "
+          f"Newton/linear its per step {a[2]} vs {b[2]}, time-step cuts "
+          f"{a[3]} / {b[3]}")
+    if not (rel <= bounds).all() or newton[0] != newton[1] or a[3] or b[3]:
+        raise AssertionError(f"{label}: the runs disagree")
+
+
+def seam_small_phase():
+    """Phase 17, small: miehe_shear_2.prm at refinement 3 and 5 under the
+    bench's solver settings, 3 steps, on the card against the CPU port
+    (spawned workers), and on 4 row slabs against the replicated card
+    run; the small monolithic Sneddon run, card against CPU."""
+    jobs = ([("miehe", r, n) for r, n in MIEHE_SMALL]
+            + [("mono", 0, 363), ("mono", 1, 1323)])
+    ctx = multiprocessing.get_context("spawn")
+    threads = max(1, ((os.cpu_count() or 4) - 1) // len(jobs))
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=ctx) as pool:
+        cpu = [pool.submit(_run_case, kind, r, {}, "cpu", threads)
+               for kind, r, _ in jobs]
+        for (kind, r, n_dofs), fut in zip(jobs, cpu):
+            _zero_stencil_counts()
+            card = _run_case(kind, r, {}, "cuda")
+            counts = _stencil_counts()
+            host = fut.result()
+            name = (f"miehe_shear_2 refine {r}" if kind == "miehe"
+                    else f"simple monolithic sneddon_2d_1 refine {r}")
+            for dev, run in (("cuda", card), ("cpu", host)):
+                print(f"{name} on {dev}: {run[0]} DoFs, {run[4]:.1f} s, "
+                      f"statistics {run[1].tolist()}")
+                if run[0] != n_dofs:
+                    raise AssertionError(f"{run[0]} DoFs, expected {n_dofs}")
+            print(f"{name} on cuda: stencil launches {counts}")
+            if (counts[0] > 0) != (r > 0):
+                raise AssertionError(f"{name}: {counts[0]} 2d stencil "
+                                     "launches")
+            if kind == "miehe" or r == 0:
+                _agree(f"{name} cuda vs cpu", card, host)
+            else:
+                # the lattice monolithic run: its step-1 bulk energy
+                # (2e-15) is ten orders below step 0's, the rounding
+                # floor of the sum; its crack energy (6e-10) is set by
+                # how far 1 - phi (~1e-5) has converged when the Newton
+                # stops at residual 1e-7, after 24 iterations of step 1
+                # at a reduction ~0.97 each (measured 1.2e-7 card vs
+                # CPU, 3e-8 port vs JAX on the CPU)
+                _agree(f"{name} cuda vs cpu", card, host,
+                       bound=(1e-7, 1e-6), floor=1e-6)
+            if kind == "miehe":
+                _zero_stencil_counts()
+                sharded = _run_case(kind, r, SHARDED, "cuda")
+                counts = _stencil_counts()
+                print(f"{name} sharded (D={D_SHARDS}) on cuda: "
+                      f"{sharded[4]:.1f} s, stencil launches {counts}")
+                if counts[2] <= 0:
+                    raise AssertionError(f"{name} sharded: no sharded "
+                                         "launch")
+                _agree(f"{name} sharded vs replicated on cuda", sharded,
+                       card)
+
+
+def seam_kernel_phase():
+    """Phase 17, the seam product on the card at the refine-8 shapes: the
+    2d kernel's five products conjugated as collect . kernel . spread
+    against the same conjugation of the plain version (TOL), the mirror
+    slots zero, and on D_SHARDS slabs (f32 blocks) bit for bit against
+    the unsharded seam product; each timed beside the bare kernel."""
+    from cracks_tpu_torch.kernel_clock import KernelClock
+    from cracks_tpu_torch.ops.stencil import (
+        pad_jac_sharded, stencil_matvec, stencil_matvec_reference,
+        stencil_matvec_sharded)
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    from cracks_tpu_torch.solvers.lattice import (Seam, seam_collect,
+                                                  seam_spread)
+    dev = torch.device("cuda")
+    grid, seam = MIEHE_FULL["grid"], Seam(*MIEHE_FULL["seam"])
+    cells = tuple(g - 1 for g in grid)
+    rng = np.random.default_rng(SEED)
+    jac64 = torch.as_tensor(rng.standard_normal((12, 12) + cells,
+                                                dtype=np.float32),
+                            device=dev).to(f64)
+    jac64[:, :, seam.s] = 0.0                 # the dead cell row
+    x64 = torch.as_tensor(rng.standard_normal((2,) + grid), dtype=f64,
+                          device=dev)
+    x64[:, seam.s + 1, :seam.slit_lo] = 0.0   # canonical
+    clock = KernelClock(dev)
+    mesh = make_shard_mesh(["cuda"] * D_SHARDS)
+    out = []
+    for name, dt, lo_r, hi_r, lo_c, hi_c, k_in, k_out in KERNELS[0]["shapes"]:
+        jac = jac64.to(dt)
+        X = x64[:k_in].to(dt).contiguous()
+        args = (lo_r, hi_r, lo_c, hi_c, k_in, k_out)
+        seam_mv = lambda: seam_collect(stencil_matvec(
+            jac, seam_spread(X, seam), *args), seam)
+        y = seam_mv()
+        y_ref = seam_collect(stencil_matvec_reference(
+            jac, seam_spread(X, seam), *args), seam)
+        torch.cuda.synchronize()
+        rtol, atol_rel = TOL[dt]
+        scale = float(y_ref.abs().max())
+        err = (y - y_ref).abs()
+        max_abs_err = float(err.max())
+        mirror = float(y[:, seam.s + 1, :seam.slit_lo].abs().max())
+        if (not bool((err <= atol_rel * scale + rtol * y_ref.abs()).all())
+                or mirror != 0.0 or not bool(torch.isfinite(y).all())):
+            raise AssertionError(f"seam product {name}: disagrees with the "
+                                 f"plain version, max |err| {max_abs_err:.3e}"
+                                 f", mirror {mirror:.3e}")
+        diff = None
+        if dt == f32 and (lo_r, k_in) == (lo_c, k_out):
+            JP = pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh)
+            ys = seam_collect(stencil_matvec_sharded(
+                JP, seam_spread(X, seam), k_in, mesh), seam)
+            torch.cuda.synchronize()
+            diff = float((ys - y).abs().max())
+            del JP, ys
+            if diff != 0.0:
+                raise AssertionError(f"sharded seam product {name}: max "
+                                     f"|diff| {diff:.3e} to the unsharded")
+        ms = clock.median_ms(seam_mv)
+        bare_ms = clock.median_ms(lambda: stencil_matvec(jac, X, *args))
+        print(f"seam product {name} at {cells} cells (seam {tuple(seam)}): "
+              f"max|err| vs plain {max_abs_err:.3e} (max|Y| {scale:.3e}), "
+              f"mirror slots 0, sharded (D={D_SHARDS}) - unsharded "
+              f"{diff}; spread + kernel + collect {ms * 1e3:.1f} us, the "
+              f"kernel alone {bare_ms * 1e3:.1f} us")
+        out.append(dict(name=name, max_abs_err=max_abs_err, ms=ms,
+                        bare_ms=bare_ms, sharded_diff=diff))
+        del jac, X, y, y_ref, err
+        torch.cuda.empty_cache()
+    del jac64, x64, clock
+    torch.cuda.empty_cache()
+    return out
+
+
+def miehe_full_phase():
+    """Phase 17, full width: the miehe_shear bench case at refinement 8
+    (790,275 DoFs, the 7-level seam lattice), MIEHE_FULL_STEPS steps,
+    replicated, then its first 3 steps on 4 row slabs against it."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.solvers import lattice
+    t0 = time.perf_counter()
+    sim = Simulation(_miehe_params(MIEHE_FULL["refine"], MIEHE_FULL_STEPS),
+                     device="cuda", verbose=False)
+    host_s = time.perf_counter() - t0
+    base = _fresh_memory_baseline()
+    # the second Newton solve of the run (step 0, iteration 2) under the
+    # profiler: step 0's time includes its tracing
+    prof, undo = _profile_solve(2, lattice, "solve_lattice")
+    _zero_stencil_counts()
+    try:
+        sim.run()
+    finally:
+        undo()
+    launches = stencil.stencil_matvec2d.launches
+    phi_launches = stencil.stencil_matvec2d.phi_launches
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    hier = sim.sys.lattice_hierarchy
+    data = sim.statistics.data
+    stats = np.array([data[c] for c in MIEHE_COLUMNS], dtype=float)
+    print(f"miehe_shear bench case (refine {MIEHE_FULL['refine']}, cg + gmg +"
+          f" mixed precision, cg_rtol 1e-8) on cuda: {sim.mesh.n_dofs} DoFs,"
+          f" seam lattice {hier.grid} with seam {tuple(hier.seam)} and "
+          f"{hier.n_levels} levels, {len(sim.step_times)} steps in "
+          f"{total:.2f} s (host setup {host_s:.2f} s, setup system "
+          f"{sim.timer.wall['Setup system']:.2f} s), device memory "
+          f"allocated at its start {base} B, peak "
+          f"{torch.cuda.max_memory_allocated()} B, kernel launches "
+          f"{launches} ({phi_launches} of lattice_stencil2d_phi), "
+          f"{sim.step_cuts} time-step cuts")
+    for (step, newton_its, lin_its, n_active), (_, _, secs) in zip(
+            sim.solver_effort, sim.step_times):
+        print(f"miehe_shear step {step}: {secs:.2f} s, {newton_its} Newton "
+              f"its, {lin_its} linear its, active set {n_active}")
+    timed = [secs for step, _, secs in sim.step_times if step != 0]
+    print(f"miehe_shear: s/step {np.mean(timed):.3f} without step 0 "
+          f"(median {np.median(timed):.3f}); statistics per step "
+          f"{stats.tolist()}")
+    if prof.get("device_s", 0.0) > 0:
+        print(f"miehe_shear idle share: solve 2 (step 0, Newton iteration "
+              f"2) {prof['wall_s']:.3f} s wall, {prof['device_s']:.3f} s of "
+              f"device kernels: idle "
+              f"{100 * (1 - prof['device_s'] / prof['wall_s']):.1f} %")
+    else:
+        print(f"miehe_shear idle share: not measured (the profiler "
+              f"recorded no device time: {prof})")
+    if (sim.mesh.n_dofs != MIEHE_FULL["dofs"]
+            or hier.grid != MIEHE_FULL["grid"]
+            or tuple(hier.seam) != MIEHE_FULL["seam"]
+            or hier.n_levels != MIEHE_FULL["levels"]):
+        raise AssertionError("miehe_shear: not the expected seam lattice")
+    if (sim.step_cuts or len(sim.step_times) != MIEHE_FULL_STEPS
+            or not np.isfinite(stats).all() or not stats[0].min() > 0):
+        raise AssertionError("miehe_shear: a time-step cut, a non-finite "
+                             "statistic or a bulk energy not positive")
+    if not 0 < phi_launches < launches:
+        raise AssertionError(f"miehe_shear launched {launches} 2d kernels, "
+                             f"{phi_launches} of them phase-field ones")
+    newton_its = [e[1] for e in sim.solver_effort]
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = Simulation(_miehe_params(MIEHE_FULL["refine"], 3, **SHARDED),
+                     device="cuda", verbose=False)
+    sim.run()
+    counts = _stencil_counts()
+    sstats = np.array([sim.statistics.data[c] for c in MIEHE_COLUMNS],
+                      dtype=float)
+    rel = float(np.max(np.abs(sstats - stats[:, :3]) / np.abs(stats[:, :3])))
+    snewton = [e[1] for e in sim.solver_effort]
+    print(f"miehe_shear sharded (D={D_SHARDS}, dof_sharding=lattice), 3 "
+          f"steps on cuda: {time.perf_counter() - t0:.2f} s, s/step "
+          f"{[round(x[2], 3) for x in sim.step_times]}, stencil launches "
+          f"(2d, 3d, sharded) {counts}, max relative difference to the "
+          f"replicated run's first 3 steps {rel:.3e} (bound 1e-7), Newton "
+          f"its {snewton} vs {newton_its[:3]}")
+    if (not rel <= 1e-7 or snewton != newton_its[:3] or sim.step_cuts
+            or counts[2] <= 0 or not sim.sys.use_lattice_state):
+        raise AssertionError("miehe_shear sharded: disagrees with the "
+                             "replicated run or launched no sharded kernel")
+    out = dict(launches=launches, phi_launches=phi_launches,
+               sharded=counts[2])
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seam_phase():
+    """Phase 17: the seam lattice and the monolithic solver."""
+    seam_small_phase()
+    products = seam_kernel_phase()
+    return dict(products=products, **miehe_full_phase())
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -1314,6 +1668,9 @@ def main():
         t0 = time.perf_counter()
         phase(*args)
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    seam = seam_phase()
+    print(f"seam_phase: {time.perf_counter() - t0:.1f} s")
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]
@@ -1333,6 +1690,8 @@ def main():
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shapes": taken})
+        if k["dim"] == 2:
+            entries[-1]["launches_seam"] = seam["phi_launches"]
         head = shapes[0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
@@ -1343,6 +1702,10 @@ def main():
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": shapes})
+        if k["dim"] == 2:
+            entries[-1]["launches_seam"] = (seam["launches"]
+                                            - seam["phi_launches"])
+            entries[-1]["seam_products"] = seam["products"]
         head = records[k["name"]][1][0]   # the sharded f32 u block
         entries.append({
             "name": k["sharded"], "route": "cuda",
@@ -1355,6 +1718,8 @@ def main():
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": records[k["name"]][1]})
+        if k["dim"] == 2:
+            entries[-1]["launches_seam"] = seam["sharded"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

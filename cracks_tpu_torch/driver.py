@@ -1,19 +1,22 @@
 """Time-stepping driver (torch).
 
 Port of ``cracks_tpu/driver.py`` for the slice this package covers:
-the active-set load-stepping loop of the Sneddon, Miehe tension, Miehe
-shear, three-point-bending and multiple-crack (homogeneous, and
-heterogeneous with the bitmap material of test.pgm) cases on uniform
-lattices and on hanging-node meshes, with local pre-refinement, the Sneddon
+the load-stepping loop of the Sneddon, Miehe tension, Miehe shear,
+three-point-bending and multiple-crack (homogeneous, and heterogeneous
+with the bitmap material of test.pgm) cases on uniform lattices (the
+slit meshes of the Miehe cases as seam lattices) and on hanging-node
+meshes, under the primal-dual active set Newton or the penalized
+monolithic Newton (`outer solver = simple monolithic`, with its step
+cuts on a slow residual reduction), with local pre-refinement, the Sneddon
 refinement-cycle countdown at stationarity (TCV, crack opening, phase-
 field L2 error, then refine and restart from initial values), the
 predictor-corrector loop of the other cases (refine after every step
 under the level cap, and redo the step on the new mesh whenever it
 changed), their load functionals, the statistics table, VTU output and
 checkpoint/resume.  The Newton systems go through the dense direct
-solve, the lattice GMG mixed-precision CG, the Galerkin GMG on the
-stored element matrices or the stored-element-matrix Jacobi CG
-(`solvers.newton._solve`).  Configurations outside that slice
+solve, the lattice GMG mixed-precision CG (seam lattices included), the
+Galerkin GMG on the stored element matrices or the stored-element-matrix
+Jacobi CG (`solvers.newton._solve`).  Configurations outside that slice
 raise NotImplementedError naming their ROADMAP item before any work
 starts; nothing is skipped silently.
 """
@@ -71,8 +74,6 @@ def check_supported(p) -> None:
     """Raise NotImplementedError for every configured feature outside
     the ported slice, naming its ROADMAP item."""
     unsupported = [
-        (p.outer_solver != "active set",
-         "penalized monolithic newton_iteration: ROADMAP A4"),
         (p.n_devices > 1 and p.dof_sharding != "lattice",
          f"n_devices={p.n_devices} with replicated DoF vectors (the GSPMD "
          "cell-axis mode): ROADMAP A11b; dof_sharding=lattice runs D "
@@ -96,6 +97,7 @@ class System:
         self.mesh = mesh
         self.dim = mesh.dim
         self.device = torch.device(device)
+        self.monolithic = params.outer_solver == "simple monolithic"
         lam, mu = problems.cell_lame_fields(params, mesh, bitmap)
         self.lam_cells = lam
         self.mu_cells = mu
@@ -228,6 +230,8 @@ class System:
                     use_old_timestep_pf, timestep_number):
         p = self.params
         gamma = p.effective_gamma_penal
+        if self.monolithic and timestep_number < 1:
+            gamma = 0.0  # cracks.cc:2141-2144
         theta = (old_timestep + old_old_timestep) / old_old_timestep
         self.scalars = physics.make_scalars(
             pressure=p.pressure(time=time), constant_k=self.constant_k,
@@ -329,10 +333,9 @@ class Simulation:
         time.  The multigrid hierarchy is built where the JAX package
         builds it (cracks_tpu/driver.py:303-354): under gmg +
         assembled_matvec, the lattice hierarchy with mixed precision on
-        a uniform tensor lattice, else the Galerkin hierarchy (None
-        when the forest has one level: the solve is then the Jacobi CG,
-        as in JAX).  A slit mesh that the JAX package would glue into a
-        seam lattice raises (ROADMAP A9)."""
+        a uniform tensor lattice or a uniformly refined slit mesh (the
+        seam lattice), else the Galerkin hierarchy (None when the forest
+        has one level: the solve is then the Jacobi CG, as in JAX)."""
         p = self.p
         self.sys = None
         self.sys = System(p, self.mesh, self.bitmap, device=self.device)
@@ -348,20 +351,18 @@ class Simulation:
         lay = hier = None
         if gmg and self.sys.mixed_precision:
             lay = lattice.detect_tensor_grid(self.mesh)
-            if lay is None and lattice.seam_lattice_levels(self.mesh) >= 2:
-                raise NotImplementedError(
-                    "preconditioner=gmg with mixed precision on a uniformly "
-                    "refined slit mesh takes the seam lattice: ROADMAP A9")
         if lay is not None:
             hier = lattice.build_lattice_hierarchy(
                 self.mesh, lay, dirichlet_fn, device=self.device)
         if hier is not None:
             self.sys.lattice_hierarchy = hier
             self.sys._lattice_lay = lay
-        # the lattice-layout Newton (cracks_tpu/driver.py:361-397); the
-        # JAX package runs it with no device mesh at n_devices = 1 too
+        # the lattice-layout Newton (cracks_tpu/driver.py:361-397), for
+        # the active-set solver only; the JAX package runs it with no
+        # device mesh at n_devices = 1 too
         self.sys.use_lattice_state = (p.dof_sharding == "lattice"
-                                      and hier is not None)
+                                      and hier is not None
+                                      and p.outer_solver == "active set")
         if self.sys.use_lattice_state:
             mesh = self.sys.shard_mesh
             self.log(f"DoF sharding = lattice: D = "
@@ -372,11 +373,13 @@ class Simulation:
             if self.sys.shard_mesh is not None:
                 raise NotImplementedError(
                     "dof_sharding=lattice with n_devices > 1 and no "
-                    "lattice hierarchy needs the owned+ghost halo pool, "
-                    "which is not ported: ROADMAP A11b")
+                    "lattice-layout Newton (no lattice hierarchy on this "
+                    "mesh, or the monolithic solver) needs the owned+ghost "
+                    "halo pool or replicated vectors across devices, "
+                    "which are not ported: ROADMAP A11b")
             self.log("DoF sharding = lattice requested but unavailable "
-                     "(no lattice hierarchy on this mesh); running the "
-                     "replicated Newton")
+                     "(no lattice hierarchy on this mesh, or the monolithic "
+                     "solver); running the replicated Newton")
         if gmg and hier is None:
             ghier = galerkin.build_galerkin_hierarchy(
                 self.forest, self.mesh, dirichlet_fn, device=self.device)
@@ -753,12 +756,24 @@ class Simulation:
         self.log(f"Total wall time: {walltime.time() - t_start:.2f}s")
         return state
 
+    def _cut_step(self, state: SolutionState):
+        """Rewind to the old solution and cut the time step by 10."""
+        self.step_cuts += 1
+        self.time -= self.timestep
+        self.timestep /= 10.0
+        self.time += self.timestep
+        state.u = state.u_old
+        state.phi = state.phi_old
+
     def _solve_step(self, state: SolutionState):
         """Advance the time by one step and solve; after a failed solve
         restart from the old solution with the step cut by 10
         (cracks.cc:4316-4340).  Three-point bending instead retries once
         at the same time with the old phase field and no cut; a second
-        failure propagates."""
+        failure propagates.  The monolithic solver has its own rules
+        (`_solve_step_monolithic`)."""
+        if self.sys.monolithic:
+            return self._solve_step_monolithic(state)
         solve = (lattice_newton.newton_active_set_lattice
                  if self.sys.use_lattice_state
                  else newton.newton_active_set)
@@ -781,10 +796,37 @@ class Simulation:
                 self._set_context()
                 solve(self.sys, state, self.time, verbose=self.verbose)
                 return
-            self.step_cuts += 1
-            self.time -= self.timestep
-            self.timestep /= 10.0
-            self.time += self.timestep
+            self._cut_step(state)
+
+    def _solve_step_monolithic(self, state: SolutionState):
+        """The simple-monolithic step (cracks.cc:4360-4410): project the
+        phase field back and solve; while the last residual reduction
+        stays above upper_newton_rho, cut the step by 10 and solve again
+        from the old solution with the old phase field, taking the step
+        as it is once it falls below 1e-9; a failed solve cuts the step
+        and starts over."""
+        self.time += self.timestep
+        while True:
+            self.use_old_timestep_pf = False
+            try:
+                self.project_back_phase_field(state)
+                self._set_context()
+                reduction = newton.newton_iteration(self.sys, state,
+                                                    self.time,
+                                                    verbose=self.verbose)
+                while reduction > self.p.upper_newton_rho:
+                    self.use_old_timestep_pf = True
+                    self._cut_step(state)
+                    self._set_context()
+                    reduction = newton.newton_iteration(
+                        self.sys, state, self.time, verbose=self.verbose)
+                    if self.timestep < 1e-9:
+                        self.log("Timestep too small - taking step")
+                        break
+                return
+            except NoConvergence:
+                self.log("Solver did not converge! Adjusting time step.")
+            self._cut_step(state)
 
     def _add_load(self, state: SolutionState):
         """The load columns of the statistics (cracks.cc:4445-4459):

@@ -17,7 +17,7 @@ from .ops.constraints import Constraints, from_arrays
 from .ops.physics import CellArrays, Scalars
 from .ops.scatter import scatter_table
 from .solvers.galerkin import GalerkinHierarchy, GLevel, level_geom
-from .solvers.lattice import LatticeHierarchy
+from .solvers.lattice import LatticeHierarchy, Seam
 
 
 def _tensor(a, device, dtype=None):
@@ -51,15 +51,16 @@ def constraints(src, *, device) -> Constraints:
 
 
 def lattice_hierarchy(src, *, device) -> LatticeHierarchy:
-    """LatticeHierarchy from a seam-free JAX LatticeHierarchy."""
-    if getattr(src, "seam", None) is not None:
-        raise NotImplementedError("seam lattices: ROADMAP A9")
+    """LatticeHierarchy from a JAX LatticeHierarchy, its seam (a slit
+    lattice's) included."""
+    seam = getattr(src, "seam", None)
     return LatticeHierarchy(
         grid=tuple(int(g) for g in src.grid), n_levels=int(src.n_levels),
         vert_pos=_tensor(src.vert_pos, device),
         dir_u=tuple(_tensor(m, device) for m in src.dir_u),
         dir_p=tuple(_tensor(m, device) for m in src.dir_p),
-        P_embed=_tensor(src.P_embed, device, torch.float32))
+        P_embed=_tensor(src.P_embed, device, torch.float32),
+        seam=None if seam is None else Seam(int(seam.s), int(seam.slit_lo)))
 
 
 def galerkin_hierarchy(src, *, device) -> GalerkinHierarchy:

@@ -231,10 +231,21 @@ def cell_arrays_from_core(core: CellCore, dtype: torch.dtype,
                           perm: np.ndarray | None = None) -> CellArrays:
     """CellArrays (optionally cell-permuted, e.g. into lattice raster
     order with LatticeLayout.cell_perm) derived from a CellCore: permute
-    the cell-first arrays, cast the floating ones, move cells last."""
+    the cell-first arrays, cast the floating ones, move cells last.
+
+    Entries of `perm` below 0 are dead raster slots (the row that a
+    seam lattice puts between the lips of its slit): they take cell 0's
+    data with a zero JxW, which zeroes every quadrature contribution of
+    the slot, element matrices and residual alike, as in the JAX
+    package.  (Indexing with -1 would silently take the last cell.)"""
     device = core.JxW.device
-    idx = (None if perm is None
-           else torch.as_tensor(np.asarray(perm, np.int64), device=device))
+    dead = None
+    idx = None
+    if perm is not None:
+        perm = np.asarray(perm, np.int64)
+        idx = torch.as_tensor(np.maximum(perm, 0), device=device)
+        if (perm < 0).any():
+            dead = torch.as_tensor(perm < 0, device=device)
 
     def last(a):
         if idx is not None:
@@ -243,9 +254,12 @@ def cell_arrays_from_core(core: CellCore, dtype: torch.dtype,
             a = a.to(dtype)
         return a.movedim(0, -1).contiguous()
 
+    JxW = last(core.JxW)                          # (n_q, n_c)
+    if dead is not None:
+        JxW[:, dead] = 0.0
     return CellArrays(
         gather_u=last(core.gather_u), gather_p=last(core.gather_p),
-        JxW=last(core.JxW), grads=last(core.grads),
+        JxW=JxW, grads=last(core.grads),
         shape_v=torch.as_tensor(core.shape_v, dtype=dtype, device=device),
         lam=last(core.lam), mu=last(core.mu),
         inv_diam2=last(core.inv_diam2))

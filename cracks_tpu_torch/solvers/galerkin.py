@@ -680,7 +680,7 @@ def _g_jac32(sys, u, phi, phi_old, phi_oold, with_split):
     jac = physics.element_matrices(
         f32(u), f32(phi), f32(phi_old), f32(phi_oold), sys.ca32,
         physics.Scalars(*(f32(v) for v in sys.scalars)), dim=sys.dim,
-        with_split=with_split, monolithic=False)
+        with_split=with_split, monolithic=sys.monolithic)
     return jac.permute(2, 0, 1).contiguous()
 
 
@@ -727,7 +727,7 @@ def _g_pass_apply(sys, u, phi, phi_old, phi_oold, con, active, Xb, scale,
     def res64(uu, pp):
         return physics.assemble_residual(
             uu, pp, phi_old, phi_oold, sys.ca, sys.scalars, sys.cell_scatter,
-            dim=sys.dim, with_split=with_split, monolithic=False)
+            dim=sys.dim, with_split=with_split, monolithic=sys.monolithic)
 
     _, (ju, jp) = torch.func.jvp(res64, (u, phi), (eu, ep))
     ju, jp = condense_residual(-ju, -jp, con, active)
@@ -752,7 +752,7 @@ def solve_split(sys, hier: GalerkinHierarchy, u, phi, phi_old, phi_oold,
     n_dofs = sys.mesh.n_dofs
     sharp = sharp_spectrum(n_dofs)
     ctx = (u, phi, phi_old, phi_oold, opcache.scalars_vec(sys.scalars))
-    flags = (with_split,)
+    flags = (with_split, sys.monolithic)
     jac32 = opcache.lookup(sys._galerkin_jac_cache, ctx, flags, JAC_RTOL)
     if jac32 is None:
         # drop the stale operator and its level data before building

@@ -1,10 +1,10 @@
 """Tensor-grid (monolattice) lattice GMG solve of the Newton system.
 
-Port of the single-device, seam-free part of
-``cracks_tpu/solvers/lattice.py``.  On a uniformly refined tensor-
-product mesh (Sneddon's ``rect_mesh`` roots, ``n_global_pre_refine``
-refinements, no hanging nodes) the mesh IS a global (GY, GX) or
-(GZ, GY, GX) lattice and every FEM gather/scatter is a shifted slice:
+Port of the single-device part of ``cracks_tpu/solvers/lattice.py``.
+On a uniformly refined tensor-product mesh (Sneddon's ``rect_mesh``
+roots, ``n_global_pre_refine`` refinements, no hanging nodes) the mesh
+IS a global (GY, GX) or (GZ, GY, GX) lattice and every FEM
+gather/scatter is a shifted slice:
 
   * cell->vertex gather = 2**dim shifted cell-grid windows;
   * vertex scatter-add  = 2**dim shifted window adds;
@@ -12,6 +12,12 @@ refinements, no hanging nodes) the mesh IS a global (GY, GX) or
   * Galerkin element-RAP coarsening = [o::2] slices + contraction with
     the constant embedding matrices;
   * the active-set injection to level l = [::2**l].
+
+A 2d mesh cut by one horizontal slit to the +x boundary (the
+``unit_slit.inp`` family of the Miehe cases), whose lip vertices are
+duplicated, is embedded the same way with a `Seam`: one extra vertex
+row for the upper lip and one dead cell row between the lips, every
+stencil product conjugated as collect . product . spread.
 
 Lattice vectors are (comp, *grid) with comp leading; element data is
 (ndl, ndl, *cellgrid).  Every stencil product goes through
@@ -28,7 +34,7 @@ sharded extent gyp, ``parallel/sharding.py``); `solve_lattice` is its
 flat-vector entry for the replicated Newton.  With a shard mesh the
 f32 fine-level operator of the CG loop and the V-cycle is the sharded
 product (`ops.stencil.stencil_matvec_sharded`, one launch for all
-shards); everything else is global-view.
+shards), seam lattices included; everything else is global-view.
 """
 
 from __future__ import annotations
@@ -78,6 +84,103 @@ def _dot(a, b):
 
 
 # ---------------------------------------------------------------------------
+# the seam of a slit lattice
+# ---------------------------------------------------------------------------
+
+class Seam(NamedTuple):
+    """A horizontal slit cut into a 2d vertex lattice, from the domain's
+    interior to the +x boundary, whose lip vertices are duplicated (the
+    reference's ``unit_slit.inp`` family, cracks.cc:1202-1205).
+
+    The lattice duplicates the whole slit row: vertex row `s` carries
+    the lower lip, row s+1 the upper lip, and at the glued columns
+    [0, slit_lo), where the material is continuous, both rows stand for
+    the SAME DoF.  The cell raster gains one dead row (index s, zero
+    element matrices) between the lips, so the cell->vertex gather stays
+    a shifted window on both sides of the cut.
+
+    DoF vectors stay in canonical form: the shared value lives in row s
+    and the mirror entries (row s+1, glued columns) are zero, so a dot
+    product counts each DoF once.  Every stencil product is conjugated
+    as collect . product . spread, that is S^T A S for the duplication
+    map S."""
+
+    s: int        # lower-lip vertex row (grid axis 0); mirror row s+1
+    slit_lo: int  # first duplicated column; glued columns [0, slit_lo)
+
+
+def seam_spread(X, seam: Seam | None):
+    """Canonical -> consistent: copy the shared values of row s into the
+    mirror slots (row s+1, glued columns), so the stencil sees the
+    function on both sides of the seam.  A slice copy: the JAX
+    package's one-hot matmul form serves only its SPMD partitioner, and
+    each output element is the same copy."""
+    if seam is None:
+        return X
+    s, lo = seam
+    Y = X.clone()
+    Y[:, s + 1, :lo] = X[:, s, :lo]
+    return Y
+
+
+def seam_collect(Y, seam: Seam | None):
+    """Consistent -> canonical (the S^T of seam_spread): add the mirror
+    slots into the shared row and zero them."""
+    if seam is None:
+        return Y
+    s, lo = seam
+    Z = Y.clone()
+    Z[:, s, :lo] = Y[:, s, :lo] + Y[:, s + 1, :lo]
+    Z[:, s + 1, :lo] = 0.0
+    return Z
+
+
+def seam_coarse(seam: Seam | None) -> Seam | None:
+    """The seam of the 2:1-coarsened lattice.  Needs s even (the slit
+    line lies on the coarse grid) and slit_lo odd (ceil keeps every
+    glued fine midpoint interpolated from two glued coarse nodes, which
+    makes the per-slab element RAP exactly the Galerkin operator)."""
+    if seam is None:
+        return None
+    assert seam.s % 2 == 0 and seam.slit_lo % 2 == 1
+    return Seam(s=seam.s // 2, slit_lo=(seam.slit_lo + 1) // 2)
+
+
+def _seam_can_coarsen(grid, seam: Seam | None) -> bool:
+    if seam is None:
+        return all((g - 1) % 2 == 0 for g in grid)
+    gy, gx = grid
+    return ((gy - 2) % 2 == 0 and (gx - 1) % 2 == 0
+            and seam.s % 2 == 0 and seam.s >= 2 and seam.slit_lo % 2 == 1)
+
+
+def _seam_coarse_grid(grid, seam: Seam | None) -> tuple:
+    if seam is None:
+        return tuple((g - 1) // 2 + 1 for g in grid)
+    return ((grid[0] - 2) // 2 + 2, (grid[1] - 1) // 2 + 1)
+
+
+def _seam_inject_down(A, seam: Seam | None):
+    """One-level injection of a (k, *grid) lattice field (a tensor or a
+    host array) to the coarse lattice: [::2] on every grid axis, or,
+    across a seam, per slab (the mirror row s+1 starts the upper slab,
+    so both lips inject to their coarse lips)."""
+    if seam is None:
+        return A[_every_other(A.ndim - 1)]
+    cat = np.concatenate if isinstance(A, np.ndarray) else torch.cat
+    s = seam.s
+    return cat([A[:, 0:s + 1:2], A[:, s + 1::2]], 1)[:, :, ::2]
+
+
+def seam_levels(seam: Seam | None, n_levels: int) -> tuple:
+    """Per-level seams, coarsest..finest."""
+    out = [seam]
+    for _ in range(n_levels - 1):
+        out.insert(0, seam_coarse(out[0]))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # host setup
 # ---------------------------------------------------------------------------
 
@@ -87,14 +190,17 @@ class LatticeLayout(NamedTuple):
     grid: tuple             # vertex extents, slowest..fastest (y,x)/(z,y,x)
     vert_idx: np.ndarray    # (*grid) int32 global vertex id per node
     vert_pos: np.ndarray    # (n_v,) int32 flat lattice pos per vertex
-    cell_perm: np.ndarray   # (n_cells,) raster -> mesh cell id
+    cell_perm: np.ndarray   # (n_cells,) raster -> mesh cell id; -1 =
+    #                         dead raster slots (a seam lattice's row s)
+    seam: Seam | None = None
 
 
 def _product_grid(mesh):
     """(grid, per-grid-axis vertex index, flat grid position per vertex)
     when the vertex coordinates take few enough distinct values per axis
     to form a product grid of at least 4 per axis, else None.  Grid
-    axes are ordered slowest to fastest (z, y, x)."""
+    axes are ordered slowest to fastest (z, y, x).  On a slit mesh two
+    vertices share each duplicated lip position."""
     dim = mesh.dim
 
     def axis_index(vals):
@@ -126,10 +232,11 @@ def _product_grid(mesh):
 
 
 def detect_tensor_grid(mesh) -> LatticeLayout | None:
-    """Identify a mesh whose vertices form an exact tensor grid.
-    Anything else returns None: hanging nodes, unstructured meshes, and
-    the slit meshes whose duplicated lip vertices the JAX package glues
-    with a seam (ROADMAP A9, `seam_lattice_levels`)."""
+    """Identify a mesh whose vertices form an exact tensor grid (2d or
+    3d), or, in 2d, a tensor grid cut by one horizontal slit whose lip
+    vertices are duplicated (`_detect_slit_grid`: a layout with a
+    `Seam` and one dead cell row).  Anything else returns None: hanging
+    nodes, unstructured meshes."""
     if mesh.dim not in (2, 3) or len(mesh.hang_child):
         return None
     dim = mesh.dim
@@ -139,7 +246,9 @@ def detect_tensor_grid(mesh) -> LatticeLayout | None:
     grid, gidx, pos = pg
     nv = mesh.n_vertices
     if int(np.prod(grid)) != nv or len(np.unique(pos)) != nv:
-        return None     # includes the seam (slit) case, ROADMAP A9
+        if dim == 2 and int(np.prod(grid)) < nv:
+            return _detect_slit_grid(mesh, grid, gidx, pos)
+        return None
     vert_idx = np.full(int(np.prod(grid)), -1, np.int64)
     vert_idx[pos] = np.arange(nv)
     if (vert_idx < 0).any():
@@ -172,37 +281,36 @@ def detect_tensor_grid(mesh) -> LatticeLayout | None:
                          cell_perm=raster.astype(np.int32))
 
 
-def seam_lattice_levels(mesh, min_coarse: int = 50) -> int:
-    """The levels of the seam lattice the JAX package builds on this
-    mesh (``lattice._detect_slit_grid`` and ``build_lattice_hierarchy``),
-    0 where it builds none: a 2d product grid cut by one horizontal slit
-    whose duplicated lip columns reach the +x boundary, its cells in
-    the fem.py corner order.  The seam lattice is ROADMAP A9; the driver
-    refuses the configurations that would take it."""
-    if mesh.dim != 2 or len(mesh.hang_child):
-        return 0
-    pg = _product_grid(mesh)
-    if pg is None:
-        return 0
-    (gy0, gx0), (ri, ci), pos0 = pg
+def _detect_slit_grid(mesh, grid0, gidx, pos0) -> LatticeLayout | None:
+    """The seam branch of detect_tensor_grid: the vertex coordinates form
+    a (gy0, gx0) product grid but some positions carry TWO vertices, the
+    duplicated lips of a horizontal slit.  Accepts exactly the
+    reference's slit pattern (one slit row, duplicated columns
+    contiguous to the +x boundary) and embeds it as a (gy0+1, gx0)
+    lattice with a `Seam`.  Every structural assumption is checked; any
+    mismatch returns None (the caller then takes the Galerkin GMG)."""
+    gy0, gx0 = grid0
     nv = mesh.n_vertices
-    if gy0 * gx0 >= nv:
-        return 0
+    ri, ci = gidx                                      # row, col per vertex
     uniq, counts = np.unique(pos0, return_counts=True)
     if counts.max() != 2 or len(uniq) != gy0 * gx0:
-        return 0
+        return None
     dup = uniq[counts == 2]
     rows = dup // gx0
     if len(np.unique(rows)) != 1:
-        return 0
+        return None
     s0 = int(rows[0])
+    if not (1 <= s0 <= gy0 - 2):
+        return None
     cols = np.sort(dup % gx0)
     lo = int(cols[0])
-    if not (1 <= s0 <= gy0 - 2) or lo < 1 or not (
-            cols == np.arange(lo, gx0)).all():
-        return 0
-    # each lip copy is a cell-top corner only (lower lip) or a
-    # cell-bottom corner only (upper lip)
+    # contiguous duplicated columns reaching the +x boundary
+    if lo < 1 or not (cols == np.arange(lo, gx0)).all():
+        return None
+
+    # each lip copy by its cell corner role: fem.py's corners 0, 1 are
+    # cell bottoms, 2, 3 cell tops; a lip vertex that is only ever a
+    # top corner belongs to the cells below the slit, the LOWER lip
     c2v = mesh.cell2vert
     top = np.zeros(nv, bool)
     bot = np.zeros(nv, bool)
@@ -211,45 +319,52 @@ def seam_lattice_levels(mesh, min_coarse: int = 50) -> int:
     is_dup = np.isin(pos0, dup)
     lower = is_dup & top & ~bot
     upper = is_dup & bot & ~top
-    if not ((lower | upper) == is_dup).all() or not (
-            np.sum(lower) == np.sum(upper) == gx0 - lo):
-        return 0
-    # the expanded (gy0 + 1, gx0) lattice: the upper lip on row s0 + 1
+    if not ((lower | upper) == is_dup).all():
+        return None
+    if not (np.sum(lower) == np.sum(upper) == gx0 - lo):
+        return None
+
+    # the expanded lattice: one more row; the lower lip and the glued
+    # vertices stay on row s0, the upper lip moves to row s0+1, the rows
+    # above shift up by one
     gy = gy0 + 1
+    grid = (gy, gx0)
     row_new = np.where(ri > s0, ri + 1, ri).astype(np.int64)
     row_new = np.where(upper, s0 + 1, row_new)
     pos = row_new * gx0 + ci
     if len(np.unique(pos)) != nv:
-        return 0
-    vic = np.full(gy * gx0, -1, np.int64)
-    vic[pos] = np.arange(nv)
-    vic = vic.reshape(gy, gx0)
+        return None
+    vert_idx = np.full(gy * gx0, -1, np.int64)
+    vert_idx[pos] = np.arange(nv)
+    vert_idx = vert_idx.reshape(grid)
+    # the consistent view: the mirror slots alias the shared vertex
+    vic = vert_idx.copy()
     vic[s0 + 1, :lo] = vic[s0, :lo]
     if (vic < 0).any():
-        return 0
+        return None
+
+    # cells: the row from the top-left corner (strictly above the slit
+    # for the cells above it, so the dead raster row s0 stays empty),
+    # the column from the bottom-left corner
     r_c = row_new[c2v[:, 2]] - 1
     c_c = ci[c2v[:, 0]].astype(np.int64)
     cgrid = (gy - 1, gx0 - 1)
     if ((r_c < 0) | (r_c >= cgrid[0]) | (c_c < 0) | (c_c >= cgrid[1])).any():
-        return 0
+        return None
     expect = np.stack([vic[r_c + o[0], c_c + o[1]] for o in _offsets(2)],
                       axis=1)
     if not (expect == c2v).all():
-        return 0
+        return None
     raster = np.full(cgrid[0] * cgrid[1], -1, np.int64)
     raster[r_c * cgrid[1] + c_c] = np.arange(mesh.n_cells)
     dead = raster.reshape(cgrid) < 0
     if not (dead == (np.arange(cgrid[0])[:, None] == s0)).all():
-        return 0
-    # 2:1 coarsening while the seam stays coarsenable
-    grid, s, n = (gy, gx0), s0, 1
-    while ((grid[0] - 2) % 2 == 0 and (grid[1] - 1) % 2 == 0
-           and s % 2 == 0 and s >= 2 and lo % 2 == 1):
-        grid = ((grid[0] - 2) // 2 + 2, (grid[1] - 1) // 2 + 1)
-        if grid[0] * grid[1] < min_coarse:
-            break
-        s, lo, n = s // 2, (lo + 1) // 2, n + 1
-    return n
+        return None
+    return LatticeLayout(grid=grid,
+                         vert_idx=vert_idx.astype(np.int32),
+                         vert_pos=pos.astype(np.int32),
+                         cell_perm=raster.astype(np.int32),
+                         seam=Seam(s=s0, slit_lo=lo))
 
 
 class LatticeHierarchy(NamedTuple):
@@ -262,21 +377,24 @@ class LatticeHierarchy(NamedTuple):
     #                         coarsest..finest
     dir_p: tuple            # per-level (1, *g)
     P_embed: torch.Tensor   # (nvc+1, ndl, ndl) f32
+    seam: Seam | None = None   # the finest level's seam (slit lattices)
 
 
 def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
                             device, min_coarse: int = 50):
     """Host construction.  Levels halve the cell extents while the grid
-    stays 2:1 coarsenable and the coarse vertex count stays at least
-    `min_coarse`."""
+    (and a slit lattice's seam) stays 2:1 coarsenable and the coarse
+    vertex count stays at least `min_coarse`."""
     dim = mesh.dim
     grid = lay.grid
-    grids = [grid]
-    while all((g - 1) % 2 == 0 for g in grids[-1]):
-        g_c = tuple((g - 1) // 2 + 1 for g in grids[-1])
+    seam = lay.seam
+    grids, seams = [grid], [seam]
+    while _seam_can_coarsen(grids[-1], seams[-1]):
+        g_c = _seam_coarse_grid(grids[-1], seams[-1])
         if int(np.prod(g_c)) < min_coarse:
             break
         grids.append(g_c)
+        seams.append(seam_coarse(seams[-1]))
     if len(grids) < 2:
         return None
 
@@ -284,7 +402,9 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
     mask_u = np.asarray(mask_u).reshape(mesh.n_vertices, dim)
     mask_p = np.asarray(mask_p)
     # a coarse-lattice node IS a fine node, so the geometric Dirichlet
-    # masks inject exactly
+    # masks inject exactly (per slab across a seam).  The mirror slots
+    # carry no DoF: pinned on every level, so the free masks keep
+    # canonical vectors zero there
     MU = np.zeros(grid + (dim,), bool)
     MP = np.zeros(grid, bool)
     pos_nd = np.unravel_index(lay.vert_pos, grid)
@@ -292,12 +412,15 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
     MP[pos_nd] = mask_p
     du = np.moveaxis(MU, -1, 0)                    # (dim, *grid)
     dp = MP[None]                                  # (1, *grid)
+    if seam is not None:
+        du[:, seam.s + 1, :seam.slit_lo] = True
+        dp[:, seam.s + 1, :seam.slit_lo] = True
     b = dict(dtype=torch.bool, device=device)
     dir_u = [torch.as_tensor(np.ascontiguousarray(du), **b)]
     dir_p = [torch.as_tensor(np.ascontiguousarray(dp), **b)]
-    for _ in range(len(grids) - 1):
-        du = du[_every_other(dim)]
-        dp = dp[_every_other(dim)]
+    for sm in seams[:-1]:
+        du = _seam_inject_down(du, sm)
+        dp = _seam_inject_down(dp, sm)
         dir_u.insert(0, torch.as_tensor(np.ascontiguousarray(du), **b))
         dir_p.insert(0, torch.as_tensor(np.ascontiguousarray(dp), **b))
     i64 = dict(dtype=torch.int64, device=device)
@@ -306,7 +429,8 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
         vert_pos=torch.as_tensor(lay.vert_pos.astype(np.int64), **i64),
         dir_u=tuple(dir_u), dir_p=tuple(dir_p),
         P_embed=torch.as_tensor(embedding_matrices(dim),
-                                dtype=torch.float32, device=device))
+                                dtype=torch.float32, device=device),
+        seam=seam)
 
 
 # ---------------------------------------------------------------------------
@@ -391,16 +515,19 @@ def block_diag(jacL, lo, hi, k, grid):
     return scatter_windows(d.reshape((nvc, k) + d.shape[1:]), grid)
 
 
-def gershgorin(jacL, free, Dinv, lo, hi, k, grid):
+def gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam: Seam | None = None):
     """Upper bound on lambda_max(D^-1 A) via element-wise over-counted
-    Gershgorin row sums."""
+    Gershgorin row sums.  Across a seam the glued rows' sums add: the
+    row sums of S^T |A| S, still a bound on the conjugated operator's."""
     rs = jacL[lo:hi, lo:hi].abs().sum(dim=1)       # (b, *cg)
     nvc = (hi - lo) // k
-    s = scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]), grid)
+    s = seam_collect(scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]),
+                                     grid), seam)
     return torch.where(free, s * Dinv.abs(), 0.0).max()
 
 
-def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10):
+def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
+                   seam: Seam | None = None):
     """Sharp lambda_max(D^-1 A) estimate on the free subspace: m-step
     Lanczos on the symmetrized S = D^(-1/2) (J + J^T)/2 D^(-1/2), top
     Ritz value, starting from a checkerboard +-1 on the free set.  The
@@ -416,9 +543,9 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10):
     nb = hi - lo
 
     def S(x):
-        xs = torch.where(free, sq * x, 0.0)
+        xs = seam_spread(torch.where(free, sq * x, 0.0), seam)
         y = 0.5 * (matvec(jacL, xs, lo, hi, k) + matvec(jacT, xs, 0, nb, k))
-        return torch.where(free, sq * y, 0.0)
+        return torch.where(free, sq * seam_collect(y, seam), 0.0)
 
     idx = sum(torch.meshgrid(*[torch.arange(g, device=free.device)
                                for g in grid], indexing="ij"))
@@ -445,7 +572,7 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10):
     lam = float(torch.linalg.eigvalsh(T).max())
     if math.isfinite(lam) and lam > 0:
         return torch.tensor(lam, dtype=dtype, device=Dinv.device)
-    return gershgorin(jacL, free, Dinv, lo, hi, k, grid)
+    return gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam)
 
 
 def coarsen(jacL, P_embed):
@@ -466,11 +593,26 @@ def coarsen(jacL, P_embed):
     return out.contiguous()
 
 
-def coarsen_chain(jacL, P_embed, n_levels: int):
+def coarsen_seam(jacL, P_embed, seam: Seam | None):
+    """Galerkin element RAP one level down on a seam lattice.  The dead
+    cell row decouples the slabs, so the per-slab RAP of the consistent
+    element matrices IS the Galerkin coarse operator (the conjugation
+    S^T . S happens at product time); the coarse raster keeps its own
+    dead row at s // 2."""
+    if seam is None:
+        return coarsen(jacL, P_embed)
+    s = seam.s
+    below = coarsen(jacL[:, :, :s], P_embed)
+    above = coarsen(jacL[:, :, s + 1:], P_embed)
+    dead = below.new_zeros(below.shape[:2] + (1,) + below.shape[3:])
+    return torch.cat([below, dead, above], dim=2)
+
+
+def coarsen_chain(jacL, P_embed, n_levels: int, seam: Seam | None = None):
     """[coarsest..finest] Galerkin element-matrix levels."""
     jacs = [jacL]
-    for _ in range(n_levels - 1):
-        jacs.insert(0, coarsen(jacs[0], P_embed))
+    for sm in seam_levels(seam, n_levels)[:0:-1]:
+        jacs.insert(0, coarsen_seam(jacs[0], P_embed, sm))
     return jacs
 
 
@@ -520,6 +662,34 @@ def restrict(Xf, k):
     return X
 
 
+def prolong_seam(Xc, grid, k, seam: Seam | None):
+    """prolong on a seam lattice: spread the canonical coarse field
+    across its seam, Q1-prolong each slab on its own along the slit
+    axis (the dead row decouples them) and across, then make the result
+    canonical again.  On canonical vectors the adjoint of
+    restrict_seam."""
+    if seam is None:
+        return prolong(Xc, grid, k)
+    sc = seam_coarse(seam)
+    Xc = seam_spread(Xc, sc)
+    X = torch.cat([_prolong_axis(Xc[:, :sc.s + 1], 1),
+                   _prolong_axis(Xc[:, sc.s + 1:], 1)], dim=1)
+    X = _prolong_axis(X, 2)
+    X[:, seam.s + 1, :seam.slit_lo] = 0.0
+    return X
+
+
+def restrict_seam(Xf, k, seam: Seam | None):
+    """Transpose of prolong_seam: the per-slab Q1 restriction, then the
+    coarse seam's collect (S_c^T P^T on canonical vectors)."""
+    if seam is None:
+        return restrict(Xf, k)
+    X = _restrict_axis(Xf, 2)
+    X = torch.cat([_restrict_axis(X[:, :seam.s + 1], 1),
+                   _restrict_axis(X[:, seam.s + 1:], 1)], dim=1)
+    return seam_collect(X, seam_coarse(seam))
+
+
 # ---------------------------------------------------------------------------
 # multigrid
 # ---------------------------------------------------------------------------
@@ -533,19 +703,21 @@ class _LOps(NamedTuple):
 
 
 def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
-                        which, sharp: bool = False):
+                        which, sharp: bool = False, seam: Seam | None = None):
     """Per-level _LOps (coarsest..finest) for one block.  `sharp`
     selects the spectral window: Lanczos lambda_max + range 4 at
     production sizes, Gershgorin + range 20 at golden sizes."""
     rng = torch.tensor(smoothing_range(sharp), dtype=jacs[0].dtype,
                        device=jacs[0].device)
     L = len(jacs)
+    seams = seam_levels(seam, L)
     acts = [None] * L
     if which == "p":
         a = active_L
         for l in range(L - 1, -1, -1):
             acts[l] = a
-            a = a[_every_other(a.dim() - 1)]
+            if l:
+                a = _seam_inject_down(a, seams[l])
     out = []
     for l in range(L):
         jac = jacs[l]
@@ -555,32 +727,40 @@ def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
         else:
             free = torch.broadcast_to(~dir_u[l], (k,) + g)
         free = free.contiguous()
-        d = block_diag(jac, lo, hi, k, g)
+        d = seam_collect(block_diag(jac, lo, hi, k, g), seams[l])
         Dinv = torch.where(free & (d.abs() > 0), 1.0 / d, 1.0)
         if sharp:
-            lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, g)
+            lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, g,
+                                 seam=seams[l])
         else:
-            lam = gershgorin(jac, free, Dinv, lo, hi, k, g)
+            lam = gershgorin(jac, free, Dinv, lo, hi, k, g, seams[l])
         out.append(_LOps(jac=jac, free=free, Dinv=Dinv, lam=lam, rng=rng))
     return out
 
 
-def _masked_mv(lv: _LOps, lo, hi, k):
+def _masked_mv(lv: _LOps, lo, hi, k, seam: Seam | None = None):
     def op(X):
-        Y = matvec(lv.jac, torch.where(lv.free, X, 0.0), lo, hi, k)
+        X = seam_spread(torch.where(lv.free, X, 0.0), seam)
+        Y = seam_collect(matvec(lv.jac, X, lo, hi, k), seam)
         return torch.where(lv.free, Y, 0.0)
     return op
 
 
-def _coarse_dense_factor(lv0: _LOps, lo, hi, k):
+def _coarse_dense_factor(lv0: _LOps, lo, hi, k, seam0: Seam | None = None):
     """Dense Cholesky of the coarsest-level block, Jacobi-scaled, in
     f64.  Returns (lower factor L, scale s) with
-    s A s + 1e-5 I = L L^T on the free dofs (identity elsewhere)."""
+    s A s + 1e-5 I = L L^T on the free dofs (identity elsewhere).  With
+    a seam the mirror slots alias their canonical slot in the scatter
+    index, so the assembly gives S^T A S directly; the mirror slots,
+    left without entries, are pinned to the identity like every other
+    slot that is not free."""
     g0 = tuple(lv0.free.shape[1:])
     nvert0 = int(np.prod(g0))
     n0 = k * nvert0
     dev = lv0.jac.device
     pos = torch.arange(nvert0, device=dev).reshape(g0)
+    if seam0 is not None:
+        pos[seam0.s + 1, :seam0.slit_lo] = pos[seam0.s, :seam0.slit_lo]
     offs = _offsets(len(g0))
     wins = torch.stack([pos[tuple(slice(o[j], g0[j] - 1 + o[j])
                                   for j in range(len(g0)))]
@@ -610,12 +790,14 @@ def _coarse_dense_factor(lv0: _LOps, lo, hi, k):
 
 
 def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
-                fine_op=None):
+                fine_op=None, seam: Seam | None = None):
     """V-cycle with Chebyshev pre/post smoothing on every level above
     the coarsest and the dense Cholesky solve (in the factor's dtype)
     on the coarsest.  `fine_op`, when given, is the finest level's
-    masked operator (the sharded product)."""
+    masked operator (the sharded product); `seam` is the finest
+    level's."""
     L = len(levels)
+    seams = seam_levels(seam, L)
     cho, cho_scale = coarse_factor
     shape0 = levels[0].free.shape
 
@@ -627,12 +809,12 @@ def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
             x = cho_scale * torch.cholesky_solve(bs, cho, upper=False)[:, 0]
             return torch.where(lv.free, x.to(b.dtype).reshape(shape0), 0.0)
         op = (fine_op if fine_op is not None and l == L - 1
-              else _masked_mv(lv, lo, hi, k))
+              else _masked_mv(lv, lo, hi, k, seams[l]))
         x = _chebyshev(op, lv.Dinv, b, lv.lam, degree, lv.rng)
         r = b - op(x)
-        e_c = cycle(l - 1, restrict(r, k))
+        e_c = cycle(l - 1, restrict_seam(r, k, seams[l]))
         g = tuple(lv.free.shape[1:])
-        x = x + torch.where(lv.free, prolong(e_c, g, k), 0.0)
+        x = x + torch.where(lv.free, prolong_seam(e_c, g, k, seams[l]), 0.0)
         r = b - op(x)
         return x + _chebyshev(op, lv.Dinv, r, lv.lam, degree, lv.rng)
 
@@ -672,42 +854,44 @@ def _to_glob(X, vert_pos, k):
 
 
 def _prepare64(U, P, P_old, P_oold, caL64, sc, *, grid, dim, with_split,
-               monolithic):
+               monolithic, seam=None):
     """Exact f64 element Jacobians (ndl, ndl, *cellgrid) from (padded)
     lattice-layout state, built once per Newton solve (JAX
     ``_prepare64_lat``; its ``_maybe_shard_jacs`` is a placement and has
-    no counterpart on one device)."""
-    up = lambda X: unpad_rows(X, grid[0])
+    no counterpart on one device).  Canonical seam state is spread first,
+    so the window gathers see the shared values on both lips."""
+    up = lambda X: seam_spread(unpad_rows(X, grid[0]), seam)
     return element_matrices_lattice(up(U), up(P), up(P_old), up(P_oold),
                                     caL64, sc, dim=dim,
                                     with_split=with_split,
                                     monolithic=monolithic)
 
 
-def _prepare32_from64(jacL64, P_embed, *, n_levels):
+def _prepare32_from64(jacL64, P_embed, *, n_levels, seam=None):
     """The f32 operator chain is the CAST of the exact f64 element
     matrices, Galerkin-coarsened (branch-consistent with the f64
     operator; see the JAX function).  Also the port of
     ``_prepare32_from64_lat``: the chain keeps no sharding here."""
     return tuple(coarsen_chain(jacL64.to(torch.float32), P_embed,
-                               n_levels))
+                               n_levels, seam))
 
 
 def _prepare_levels(jacs, dir_u, dir_p, active, *, grid, which, dim,
-                    sharp, mesh=None):
+                    sharp, mesh=None, seam=None):
     """Per-block level operators and the coarse factor from a (padded)
     lattice-layout active mask (1, gyp, ...), built once per Newton
     solve (JAX ``_prepare_levels_lat``).  The coarse Cholesky is
     factored in f64 and handed to the f32 CG pass as an f32 factor.
     With a shard mesh the finest f32 block is also laid out as the
     stacked per-shard carrier (`pad_jac_sharded`) for the sharded fine
-    operator of `_cg_pass32`; fine_pad is None without one.  Returns (levels, coarse32,
-    fine_pad)."""
+    operator of `_cg_pass32`; fine_pad is None without one.  Returns
+    (levels, coarse32, fine_pad)."""
     k, lo, hi = _blk(which, dim)
     levels = _build_block_levels(list(jacs), dir_u, dir_p, grid,
                                  unpad_rows(active, grid[0]), lo, hi, k,
-                                 which, sharp=sharp)
-    cho, scale = _coarse_dense_factor(levels[0], lo, hi, k)
+                                 which, sharp=sharp, seam=seam)
+    cho, scale = _coarse_dense_factor(levels[0], lo, hi, k,
+                                      seam_levels(seam, len(levels))[0])
     fine_pad = (None if mesh is None
                 else pad_jac_sharded(jacs[-1], lo, hi, lo, hi, mesh))
     return levels, (cho.to(torch.float32), scale.to(torch.float32)), fine_pad
@@ -732,7 +916,8 @@ def _pass_setup(fin_free, R, rtol, target2, *, grid):
 
 
 def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
-               mesh=None, degree=2, inner_max=192, stall_window=16):
+               mesh=None, seam=None, degree=2, inner_max=192,
+               stall_window=16):
     """One float32 lattice-GMG CG pass on the normalized lattice
     residual; returns (best iterate, inner iterations, best rr).
 
@@ -743,20 +928,27 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     time.  With fine_pad (a shard mesh), the finest level's operator,
     the dominant product of both the CG loop and the V-cycle smoother,
     is the sharded product (`stencil_matvec_sharded`), as the JAX pass
-    runs the Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).  The
-    exit test reads one scalar per iteration back to the host; the next
-    iteration's work is queued before that read, so the card stays busy
-    while the host waits."""
+    runs the Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).
+    With a seam every product is spread -> product -> collect, the
+    sharded one too.  That is a deliberate divergence: JAX keeps seam
+    lattices off its sharded kernel (``lattice.py:1975-1983``) only
+    because its conjugation is a global matmul under GSPMD; here the
+    sharded product works on the global view of one card, so the
+    conjugation wraps it unchanged.  The exit test reads one scalar per
+    iteration back to the host; the next iteration's work is queued
+    before that read, so the card stays busy while the host waits."""
     k, lo, hi = _blk(which, dim)
     fin = levels[-1]
     if fine_pad is None:
-        op = _masked_mv(fin, lo, hi, k)
+        op = _masked_mv(fin, lo, hi, k, seam)
     else:
         def op(X):
-            Y = stencil_matvec_sharded(fine_pad, torch.where(fin.free, X, 0.0),
-                                       k, mesh)
+            X = seam_spread(torch.where(fin.free, X, 0.0), seam)
+            Y = seam_collect(stencil_matvec_sharded(fine_pad, X, k, mesh),
+                             seam)
             return torch.where(fin.free, Y, 0.0)
-    M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree, fine_op=op)
+    M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree, fine_op=op,
+                    seam=seam)
     tol2_h = float(tol2)
     Z = M(R0)
     X = torch.zeros_like(R0)
@@ -782,7 +974,7 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
 
 
 def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
-                    which, dim, gyp):
+                    which, dim, gyp, seam=None):
     """f32 -> f64 boundary of one CG pass in lattice layout (JAX
     ``_pass_apply_mat_lat``): un-normalize the true-shaped pass iterate,
     form the trial accumulate, apply the exact f64 Newton operator (the
@@ -796,14 +988,15 @@ def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
     g0 = grid[0]
     X_try = unpad_rows(X_acc, g0) + Xb.to(torch.float64) * scale
     free = free_u if which == "u" else free_p
-    X = torch.where(free, X_try, 0.0)
-    R_try = unpad_rows(B, g0) - torch.where(free, matvec(jacL64, X, lo, hi, k),
-                                            0.0)
+    Xs = seam_spread(torch.where(free, X_try, 0.0), seam)
+    R_try = unpad_rows(B, g0) - torch.where(
+        free, seam_collect(matvec(jacL64, Xs, lo, hi, k), seam), 0.0)
     rr_try = _dot(R_try, R_try)
     JP = None
     if which == "u":
-        JP = pad_rows(torch.where(free_p, matvec_block(
-            jacL64, X, nvc * dim, nvc * (dim + 1), lo, hi, k, 1), 0.0), gyp)
+        JP = pad_rows(torch.where(free_p, seam_collect(matvec_block(
+            jacL64, Xs, nvc * dim, nvc * (dim + 1), lo, hi, k, 1), seam),
+            0.0), gyp)
     return pad_rows(X_try, gyp), pad_rows(R_try, gyp), rr_try, JP
 
 
@@ -819,7 +1012,8 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     active mask and the right-hand sides (k, gyp, ...), with zero pad
     rows past the lattice's G0 rows (gyp = G0 without a shard mesh).
     With `sys.shard_mesh` the f32 fine-level operator is the sharded one.
-    Returns padded (DU, DP, total CG iterations) on the free dofs."""
+    On a seam lattice every vector is canonical (`Seam`).  Returns padded
+    (DU, DP, total CG iterations) on the free dofs."""
     hier: LatticeHierarchy = sys.lattice_hierarchy
     p = sys.params
     rtol = p.cg_rtol
@@ -828,6 +1022,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     dim = sys.dim
     gyp = U.shape[1]
     mesh = sys.shard_mesh
+    seam = hier.seam
     free_u = ~hier.dir_u[-1]
     free_p = ~(hier.dir_p[-1] | unpad_rows(active, grid[0]))
 
@@ -835,7 +1030,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     # chain and the stored f64 operator are reused while the context
     # moved by at most `jac_rtol` from the point where they were built.
     ctx = (U, P, P_old, P_oold, opcache.scalars_vec(sys.scalars))
-    flags = (with_split,)
+    flags = (with_split, sys.monolithic)
     hit = opcache.lookup(sys._split_jac_cache, ctx, flags, jac_rtol)
     if hit is not None:
         jacs, jacL64 = hit
@@ -845,9 +1040,10 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
         sys._split_levels_cache = None
         jacL64 = _prepare64(U, P, P_old, P_oold, sys.lattice_ca64,
                             sys.scalars, grid=grid, dim=dim,
-                            with_split=with_split, monolithic=False)
+                            with_split=with_split,
+                            monolithic=sys.monolithic, seam=seam)
         jacs = _prepare32_from64(jacL64, hier.P_embed,
-                                 n_levels=hier.n_levels)
+                                 n_levels=hier.n_levels, seam=seam)
         sys._split_jac_cache = (ctx, flags, (jacs, jacL64))
     del hit
     total_its = 0
@@ -873,7 +1069,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
             levels, coarse32, fine_pad = _prepare_levels(
                 jacs, hier.dir_u, hier.dir_p, active, grid=grid,
                 which=which, dim=dim, sharp=sharp_spectrum(sys.mesh.n_dofs),
-                mesh=mesh)
+                mesh=mesh, seam=seam)
             if which == "u":
                 sys._split_levels_cache = (jacs, (levels, coarse32,
                                                   fine_pad))
@@ -891,10 +1087,10 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
             Xb, its, _rrb = _cg_pass32(levels, coarse32, R0, tol2,
                                        which=which, dim=dim,
                                        fine_pad=fine_pad, mesh=mesh,
-                                       degree=degree)
+                                       seam=seam, degree=degree)
             X_try, R_try, rr_try_d, JP = _pass_apply_mat(
                 Xb, scale, X_acc, B, jacL64, free_u, free_p, grid=grid,
-                which=which, dim=dim, gyp=gyp)
+                which=which, dim=dim, gyp=gyp, seam=seam)
             total_its += its
             rr_try = float(rr_try_d)
             if not np.isfinite(rr_try) or rr_try >= rr_cur:

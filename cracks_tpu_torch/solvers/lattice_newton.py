@@ -1,11 +1,14 @@
 """Primal-dual active set Newton on lattice-layout state (torch).
 
-Port of ``cracks_tpu/solvers/lattice_newton.py`` for seam-free lattices
-(``seam=None``): the PDAS loop of `newton.newton_active_set`
+Port of ``cracks_tpu/solvers/lattice_newton.py``: the PDAS loop of
+`newton.newton_active_set`
 (cracks.cc:2780-2994) with every DoF vector in lattice layout
 (k, gyp, ...) -- the leading grid axis padded with zero rows to the
 sharded extent gyp (``parallel/sharding.py``; gyp = G0 without a shard
-mesh).  Selected by ``dof_sharding = lattice`` for any n_devices >= 1.
+mesh).  Selected by ``dof_sharding = lattice`` for any n_devices >= 1
+with the active-set solver, as in JAX.  On a seam lattice (the slit
+meshes) every state vector is canonical and every residual is
+conjugated as collect . residual . spread (`lattice.Seam`).
 
 Everything here is global-view, as in JAX, where GSPMD partitions it:
 the window residual, the PDAS head, the line search.  Each head slices
@@ -26,14 +29,28 @@ from . import lattice
 from .newton import NewtonLog, NoConvergence, _flips_within_band
 
 
+def _lat_residual_seam(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
+                       monolithic, seam):
+    """The canonical lattice residual: spread the seam so the window
+    stencil sees both slit lips, collect the mirror contributions back
+    (S^T r for the duplication map S; the plain residual without a
+    seam)."""
+    sp = lambda X: lattice.seam_spread(X, seam)
+    RU, RP = lattice.lattice_residual(sp(U), sp(P), sp(P_old), sp(P_oold),
+                                      caL, sc, dim=dim, with_split=with_split,
+                                      monolithic=monolithic)
+    return lattice.seam_collect(RU, seam), lattice.seam_collect(RP, seam)
+
+
 def _condensed_residual(U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc,
-                        *, dim, with_split):
+                        *, dim, with_split, monolithic, seam):
     """The raw phase-field rhs and the condensed Newton rhs (zero on
-    Dirichlet and active dofs) at true-shaped lattice state, and its
-    norm (a 0-d tensor)."""
-    RU, RP = lattice.lattice_residual(U, P, P_old, P_oold, caL, sc, dim=dim,
-                                      with_split=with_split,
-                                      monolithic=False)
+    Dirichlet and active dofs, and on a seam's mirror slots, which the
+    Dirichlet masks pin) at true-shaped lattice state, and its norm (a
+    0-d tensor)."""
+    RU, RP = _lat_residual_seam(U, P, P_old, P_oold, caL, sc, dim=dim,
+                                with_split=with_split, monolithic=monolithic,
+                                seam=seam)
     pu = torch.where(dir_u, 0.0, RU)
     pp = torch.where(dir_p | active, 0.0, RP)
     return RP, pu, pp, torch.sqrt(lattice._dot(pu, pu)
@@ -41,20 +58,23 @@ def _condensed_residual(U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc,
 
 
 def _initial_assemble_lat(U, P, P_old, P_oold, active, dir_u, dir_p, caL,
-                          sc, *, grid, dim, with_split, gyp):
+                          sc, *, grid, dim, with_split, monolithic, gyp,
+                          seam):
     """Initial residual assembly and condensation (cracks.cc:2790-2791),
     padded in and out.  Returns (tot_p, pde_u, pde_p, residual norm)."""
     up = lambda X: unpad_rows(X, grid[0])
     RP, pu, pp, res = _condensed_residual(
         up(U), up(P), up(P_old), up(P_oold), up(active), up(dir_u),
-        up(dir_p), caL, sc, dim=dim, with_split=with_split)
+        up(dir_p), caL, sc, dim=dim, with_split=with_split,
+        monolithic=monolithic, seam=seam)
     return pad_rows(RP, gyp), pad_rows(pu, gyp), pad_rows(pp, gyp), res
 
 
 def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
                                  pde_p_in, resid_ok, active_old, cycling,
                                  dir_u, dir_p, diag_mass, c_weight, caL, sc,
-                                 *, grid, dim, with_split, can_skip, gyp):
+                                 *, grid, dim, with_split, monolithic,
+                                 can_skip, gyp, seam):
     """The PDAS iteration head on padded lattice-layout state: indicator,
     set update, pinning, re-assembly, condensation and the bookkeeping
     (cracks.cc:2822-2918); `newton._active_set_update` without the
@@ -68,8 +88,9 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
     active_old, cycling = up(active_old), up(cycling)
     dir_u, dir_p, diag_mass = up(dir_u), up(dir_p), up(diag_mass)
     gap = P - P_old
-    # guard the divide as JAX does (lattice_newton.py:81); the lumped
-    # mass is positive on every true-grid vertex of a seam-free lattice
+    # guard the divide as JAX does (lattice_newton.py:81): a seam
+    # lattice's mirror slots carry no lumped mass (the indicator there is
+    # 0: its residual and gap are canonical zeros)
     diag_safe = torch.where(diag_mass > 0, diag_mass, 1.0)
     indicator = up(tot_p) / diag_safe + c_weight * gap
     # the absolute indicator floor of newton._active_set_update
@@ -83,7 +104,7 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
     else:
         RP, pu, pp, _ = _condensed_residual(
             U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc, dim=dim,
-            with_split=with_split)
+            with_split=with_split, monolithic=monolithic, seam=seam)
         tot_p, pde_u, pde_p = (pad_rows(X, gyp) for X in (RP, pu, pp))
     stats = dict(
         n_active=int(active.sum()),
@@ -98,7 +119,7 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
 
 def _fused_line_search_lat(U, P, DU, DP, P_old, P_oold, active, dir_u, dir_p,
                            caL, sc, res0, damping, *, grid, dim, with_split,
-                           max_steps, gyp):
+                           monolithic, max_steps, gyp, seam):
     """Backtracking line search on padded lattice-layout state
     (cracks.cc:2940-2957), a host loop where JAX has a
     ``lax.while_loop``: trial k steps by DU * damping**k and accepts the
@@ -116,7 +137,7 @@ def _fused_line_search_lat(U, P, DU, DP, P_old, P_oold, active, dir_u, dir_p,
         Pt = P + DP * scale
         RP, pu, pp, res_d = _condensed_residual(
             Ut, Pt, P_old, P_oold, active, dir_u, dir_p, caL, sc, dim=dim,
-            with_split=with_split)
+            with_split=with_split, monolithic=monolithic, seam=seam)
         res = float(res_d)
         accepted = res < res0
         if accepted or k >= max_steps - 1:
@@ -144,14 +165,16 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
     log.print_line("It.", "#A.Set", "#CycDoF", "Residual", "Reduction",
                    "LSrch", "#LinIts", verbose=verbose)
     with_split = sys.with_split
-    kw = dict(grid=grid, dim=dim, with_split=with_split, gyp=gyp)
+    kw = dict(grid=grid, dim=dim, with_split=with_split,
+              monolithic=sys.monolithic, gyp=gyp, seam=hier.seam)
 
     def place(x, k):
         return pad_rows(lattice._to_lat(x, vert_pos, grid, k), gyp)
 
     # boundary: flat state in, the inhomogeneous boundary values applied
     # flat (set_initial_bc, cracks.cc:2787), then lifted to the padded
-    # lattice layout.  diag_mass pad rows are zero; the head slices them
+    # lattice layout (canonical on a seam lattice: no vertex sits on a
+    # mirror slot).  diag_mass pad rows are zero; the head slices them
     # away before dividing.
     u, phi = sys.apply_initial_bc(state.u, state.phi, time)
     U, P = place(u, dim), place(phi, 1)

@@ -245,16 +245,19 @@ def test_failed_solve_rules(case, retried, monkeypatch):
 
 
 @pytest.mark.parametrize("case,override,item", [
-    ("miehe_shear_1", dict(outer_solver="simple monolithic"), "A4"),
-    # gmg + mixed precision on the uniformly refined slit mesh: the JAX
-    # package's seam lattice
+    # the monolithic solver (ported) with the matrix-free operator
+    ("miehe_shear_1", dict(outer_solver="simple monolithic",
+                           linear_solver="cg", assembled_matvec=False),
+     "A12"),
+    # gmg + mixed precision on the uniformly refined slit mesh (the seam
+    # lattice, ported) with replicated vectors across devices
     ("miehe_tension_adaptive_1", dict(
-        preconditioner="gmg", linear_solver="cg", mixed_precision_cg=True),
-     "A9"),
+        preconditioner="gmg", linear_solver="cg", mixed_precision_cg=True,
+        n_devices=2), "A11b"),
 ])
 def test_remaining_refusals(case, override, item):
     """Each raises before any Newton work: at construction, or at the
-    first system setup."""
+    first system setup or solve."""
     p = config.load_parameters(_prm(case), output_dir="", **override)
     with pytest.raises(NotImplementedError, match=item):
         Simulation(p, device="cpu", verbose=False).run()

@@ -28,7 +28,9 @@ in {1, 2, 3, 4, 8} (on D = 8 the last shard owns only pad rows), and
 the plain version within the same tolerances.  The main path at refine
 3 on the card,
 replicated and with dof_sharding = lattice on 4 shards, agrees with
-the CPU run (plain versions) to rel 1e-7 in the energies.  The dense
+the CPU run (plain versions) to rel 1e-7 in the energies, and so does
+the seam lattice (miehe_shear_2.prm at refine 3, 3 steps, with equal
+Newton counts; its conjugated products equal the plain ones).  The dense
 direct solve and the stored-element-matrix block CG on the first Newton
 system of the Sneddon 2d golden (params/tests/sneddon_2d_1.prm, a
 hanging-node mesh) agree between the card and the CPU (direct: rel
@@ -301,6 +303,58 @@ def test_main_path_refine3_matches_cpu(cuda, sharding):
         d = sim.statistics.data
         energies[dev.type] = np.array(d["Bulk Energy"] + d["Crack Energy"])
     np.testing.assert_allclose(energies["cuda"], energies["cpu"], rtol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharding", [{}, dict(n_devices=4,
+                                               dof_sharding="lattice")],
+                         ids=["replicated", "sharded"])
+def test_seam_lattice_refine3_matches_cpu(cuda, sharding):
+    """params/tests/miehe_shear_2.prm at refine 3 under cg + gmg + mixed
+    precision (the seam lattice), 3 steps: the card's conjugated kernel
+    products give the CPU's statistics to rel 1e-7, equal Newton
+    counts; the seam product at a small shape equals its plain
+    version."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.solvers.lattice import (Seam, seam_collect,
+                                                  seam_spread)
+    prm = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "params", "tests", "miehe_shear_2.prm")
+    p = config.load_parameters(
+        prm, max_no_timesteps=2, output_dir="", linear_solver="cg",
+        preconditioner="gmg", mixed_precision_cg=True, cg_rtol=1e-8,
+        **sharding)
+    stats, newton = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        before = stencil.stencil_matvec2d.launches
+        sim = Simulation(p, device=dev, verbose=False)
+        sim.run()
+        assert sim.sys.lattice_hierarchy.seam == Seam(8, 9)
+        launched = stencil.stencil_matvec2d.launches - before
+        assert (launched > 0) == (dev.type == "cuda")
+        d = sim.statistics.data
+        stats[dev.type] = np.array([d[c] for c in ("Bulk Energy",
+                                                   "Crack Energy", "Load x")])
+        newton[dev.type] = [e[1] for e in sim.solver_effort]
+    np.testing.assert_allclose(stats["cuda"], stats["cpu"], rtol=1e-7)
+    assert newton["cuda"] == newton["cpu"]
+    seam = Seam(8, 9)
+    rng = np.random.default_rng(0)
+    jac = torch.tensor(rng.standard_normal((12, 12, 17, 16)), device=cuda)
+    jac[:, :, seam.s] = 0.0
+    X = torch.tensor(rng.standard_normal((2, 18, 17)), device=cuda)
+    X[:, seam.s + 1, :seam.slit_lo] = 0.0
+    for lo_r, hi_r, lo_c, hi_c, k_in, k_out in BLOCKS:
+        args = (lo_r, hi_r, lo_c, hi_c, k_in, k_out)
+        Xk = seam_spread(X[:k_in].contiguous(), seam)
+        y = seam_collect(stencil.stencil_matvec(jac, Xk, *args), seam)
+        y_ref = seam_collect(stencil.stencil_matvec_reference(jac, Xk, *args),
+                             seam)
+        np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                                   rtol=1e-12,
+                                   atol=1e-11 * float(y_ref.abs().max()))
+        assert float(y[:, seam.s + 1, :seam.slit_lo].abs().max()) == 0.0
 
 
 def _golden_first_system(monkeypatch):

@@ -70,10 +70,10 @@ def test_device_is_explicit():
     (dict(assembled_matvec=False, preconditioner="jacobi"), "A12"),
     (dict(n_local_pre_refine=1, n_devices=4, dof_sharding="lattice"),
      "A11b"),
-    (dict(outer_solver="simple monolithic"), "A4"),
-    # gmg + mixed precision on the uniformly refined slit mesh: the
-    # seam lattice
-    (dict(test_case="miehe shear"), "A9"),
+    # the monolithic solver (ported) with the matrix-free operator
+    (dict(outer_solver="simple monolithic", assembled_matvec=False), "A12"),
+    # the seam lattice (ported) on shards of several devices' mesh
+    (dict(test_case="miehe shear", n_devices=2, mesh_dcn=2), "A11b"),
     (dict(n_devices=2), "A11"),
 ])
 def test_unported_configurations_raise(override, item):
