@@ -110,7 +110,15 @@ without printing the final line:
    statistics, positive bulk energy, at least one redone step and a
    "Load x" that peaks and then falls; per epoch the DoFs, the solve,
    seconds per step, Newton and linear iterations, host seconds of
-   refinement + system setup and the peak device memory.
+   refinement + system setup and the peak device memory.  Then the
+   shipped Miehe tension file, params/parameters_miehe_tension_adaptive
+   .prm as shipped (two adaptive cycles, K reg = 0) but cut to its
+   first 71 of 89 steps, against the JAX package's table of its first
+   86 steps (tests/torch_reference/
+   parameters_miehe_tension_adaptive.statistics): every row up to the
+   table's load peak (step 64) to rel 1e-7 with equal DoFs, then finite
+   statistics, positive bulk energy and a "Load y" that peaks and then
+   falls, with the same per-epoch lines.
 14. the hetero goldens: params/tests/hetero_3d_1.prm (3d, the bitmap
    material of test.pgm, one local pre-refinement, 5,288 DoFs) as
    shipped against tests/golden/hetero_3d_1.mpirun-4.statistics (the
@@ -168,6 +176,30 @@ without printing the final line:
    (torch.profiler); then its first 3 steps with n_devices = 4,
    dof_sharding = lattice, within rel 1e-7 of the replicated run with
    equal Newton iterations and the sharded kernel launched.
+
+18. the matrix-free operator (assembled_matvec = False: every Krylov
+   iteration one jvp of the element residual, the iterations replayed
+   from CUDA graphs; no stencil kernel, its counts set to 0 before each
+   run and checked after).  Small, card against the CPU port (spawned
+   workers, compared after the full-size runs): Sneddon 2d refine 3
+   (19,683 DoFs, two steps) under the Jacobi CG in f64 and with mixed
+   precision, Sneddon 3d refine 1 (37,044 DoFs, load step 0) with mixed
+   precision,
+   the geometric GMG on miehe_tension_adaptive_1's step 0 (three
+   levels; on the CPU the Sneddon file's thousands of V-cycles per step
+   do not fit) and miehe_shear_1 under the simple monolithic solver, 3
+   steps: statistics within rel 1e-7, equal Newton iterations per step,
+   linear iterations within 5 % per step.  The round-1 configuration:
+   Sneddon 2d at refine 4 (77,763 DoFs, two steps, cg_maxiter 3000)
+   under the Jacobi CG in f64 and with mixed precision, each on the
+   JAX package's table (tests/torch_reference/
+   sneddon_2d_matrix_free_r4.statistics) to rel 1e-7 and the verify
+   skill's step-0 oracle to rel 1e-6, one solve profiled (idle share,
+   launches per CG iteration); and the geometric GMG at refine 3 (at
+   refine 4 it takes over 120 s), load step 0, its bulk energy within
+   rel 1e-7 of the small f64 Jacobi run's.  Each prints per step the
+   Newton and linear iterations and seconds, and the peak memory; no
+   time-step cut, finite statistics, positive bulk energy.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -1078,6 +1110,79 @@ def shipped_miehe_phase():
         raise AssertionError("shipped Miehe: Load x does not peak and fall")
 
 
+SHIPPED_TENSION_PRM = os.path.join(ROOT, "params",
+                                   "parameters_miehe_tension_adaptive.prm")
+# its first 71 steps: the load peaks at step 64 and falls by 14 % to
+# step 70; from step 71 on (above ~4,100 DoFs, K reg = 0 in a developed
+# crack) the dense factor is singular and the stored-matrix Jacobi CG
+# takes 5,000-21,000 its per step: the 89 steps as shipped took 330.3 s
+# on the card (PERF.md)
+SHIPPED_TENSION_STEPS = 71
+
+
+def shipped_tension_phase():
+    """Phase 13, second file: the shipped Miehe tension file, its first
+    SHIPPED_TENSION_STEPS steps, against the JAX package's table of its
+    first 86: every row up to the table's load peak within rel 1e-7
+    with equal DoFs; then finite statistics, positive bulk energy and a
+    "Load y" that peaks and then falls."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    name = "parameters_miehe_tension_adaptive"
+    with open(os.path.join(REFERENCE_DIR, f"{name}.effort.json")) as f:
+        effort = json.load(f)
+    with open(os.path.join(REFERENCE_DIR, f"{name}.statistics")) as f:
+        ref_names, ref = parse_statistics(f.read())
+    load_col = ref_names.index("Load y")
+    dofs_col = ref_names.index("DoFs")
+    ref_peak = int(np.argmax(ref[:, load_col]))
+    held = ref[:ref_peak + 1]
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = Simulation(config.load_parameters(
+        SHIPPED_TENSION_PRM, output_dir="",
+        max_no_timesteps=SHIPPED_TENSION_STEPS - 1),
+        device="cuda", verbose=False)
+    records = _instrument_epochs(sim)
+    base = _fresh_memory_baseline()
+    sim.run()
+    secs = time.perf_counter() - t0
+    _epochs(sim, records, "shipped Miehe tension", effort)
+    names, ours = parse_statistics(sim.statistics.write_text())
+    fails = table_failures(ours[:len(held)], held, 0.0, 1e-7)
+    after = table_failures(ours[len(held):], ref[len(held):len(ours)], 0.0,
+                           1e-7)
+    data = sim.statistics.data
+    load = np.asarray(data["Load y"])
+    peak = int(np.argmax(load))
+    values = [v for col in data.values() for v in col
+              if isinstance(v, float)]
+    n_steps = len(sim.step_times)
+    print(f"shipped Miehe tension on cuda: {secs:.2f} s, {n_steps} steps "
+          f"({secs / n_steps:.3f} s/step), DoFs {data['DoFs'][0]} -> "
+          f"{data['DoFs'][-1]}, {sim.redos} redone steps, {sim.step_cuts} "
+          f"time-step cuts, Load y peak {load[peak]!r} at step {peak} (JAX "
+          f"table: step {ref_peak}), last {load[-1]!r}, device memory "
+          f"allocated at its start {base} B, stencil launches "
+          f"{_stencil_counts()}; {len(fails)} cells of the {len(held)} rows "
+          f"up to the peak off the JAX table (rel 1e-7), {len(after)} in "
+          f"the {len(ours) - len(held)} rows after it")
+    if (names != ref_names or len(ours) != SHIPPED_TENSION_STEPS or fails
+            or not np.array_equal(ours[:len(held), dofs_col],
+                                  held[:, dofs_col])):
+        raise AssertionError("shipped Miehe tension vs the JAX table:\n"
+                             + "\n".join(fails[:20]))
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("shipped Miehe tension: a non-finite "
+                             "statistic")
+    if not min(data["Bulk Energy"]) > 0:
+        raise AssertionError("shipped Miehe tension: bulk energy not "
+                             "positive")
+    if not (peak < len(load) - 1 and load[-1] < load[peak]):
+        raise AssertionError("shipped Miehe tension: Load y does not peak "
+                             "and fall")
+
+
 HETERO_PRM = os.path.join(PRM_TESTS, "hetero_3d_1.prm")
 GMG_CG = dict(linear_solver="cg", preconditioner="gmg")
 # phase 15: the parameters_hetero_3d.prm physics on its production mesh
@@ -1227,10 +1332,17 @@ def _profile_solve(calls, module=None, name="solve_split"):
             res = fn(*args, **kw)
             torch.cuda.synchronize()
             out["wall_s"] = time.perf_counter() - t0
+        averages = prof.key_averages()
         out["device_s"] = sum(
             getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
-            for e in prof.key_averages()) * 1e-6
+            for e in averages) * 1e-6
+        out["kernels"] = sum(
+            e.count for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+        if isinstance(res, tuple) and len(res) == 3:
+            out["its"] = int(res[2])
         return res
     setattr(module, name, wrapped)
     return out, lambda: setattr(module, name, fn)
@@ -1648,6 +1760,240 @@ def seam_phase():
     return dict(products=products, **miehe_full_phase())
 
 
+# phase 18: the matrix-free operator (assembled_matvec = False): the
+# Jacobi CG (f64, or one f32 pass and an f64 correction) and the
+# geometric GMG, every Krylov iteration one jvp of the residual (and the
+# V-cycle's per smoothing step and level), replayed from a CUDA graph
+MATRIX_FREE = dict(linear_solver="cg", cg_rtol=1e-8, cg_maxiter=3000,
+                   dtype="float64", assembled_matvec=False)
+MF_SOLVES = {
+    "jacobi-f64": dict(preconditioner="jacobi", mixed_precision_cg=False),
+    "jacobi-mixed": dict(preconditioner="jacobi", mixed_precision_cg=True),
+    "gmg": dict(preconditioner="gmg", mixed_precision_cg=False),
+}
+MIEHE_SHEAR_1_PRM = os.path.join(PRM_TESTS, "miehe_shear_1.prm")
+TENSION_1_PRM = os.path.join(PRM_TESTS, "miehe_tension_adaptive_1.prm")
+# the small cases, card against CPU: (label, .prm, overrides, DoFs of
+# the first step).  The geometric GMG's is the slit mesh's step 0: on
+# the CPU the V-cycle's jvps are eager (hundreds of small operations
+# each), and the Sneddon file's degraded crack strip takes it thousands
+# of iterations per load step
+MF_SMALL = [
+    ("sneddon 2d refine 3 jacobi-f64", SHIPPED_PRM,
+     dict(n_global_pre_refine=3, **MF_SOLVES["jacobi-f64"]), 19_683),
+    ("sneddon 2d refine 3 jacobi-mixed", SHIPPED_PRM,
+     dict(n_global_pre_refine=3, **MF_SOLVES["jacobi-mixed"]), 19_683),
+    # load step 0 only: its CPU run (eager 3d jvps, ~100 s a step) is
+    # what phase 18 waits for
+    ("sneddon 3d refine 1 step 0 jacobi-mixed",
+     os.path.join(ROOT, "params", "parameters_sneddon_3d.prm"),
+     dict(n_global_pre_refine=1, max_no_timesteps=0,
+          **MF_SOLVES["jacobi-mixed"]), 37_044),
+    ("miehe_tension_adaptive_1 step 0 gmg", TENSION_1_PRM,
+     dict(max_no_timesteps=0, **MF_SOLVES["gmg"]), 891),
+    ("miehe_shear_1 simple monolithic, 3 steps", MIEHE_SHEAR_1_PRM,
+     dict(max_no_timesteps=2, outer_solver="simple monolithic"), 891),
+]
+SNEDDON_ONLY = dict(n_local_pre_refine=0, n_refinement_cycles=0,
+                    max_no_timesteps=1)
+# the round-1 configuration: Sneddon 2d at refine 4, two load steps; the
+# geometric GMG at refine MF_GMG_REFINE, load step 0 only
+ROUND1 = dict(refine=4, dofs=77_763)
+MF_GMG_REFINE = 3
+ROUND1_ORACLE = 2.2449257e-06   # the verify skill's step-0 bulk energy
+
+
+def _mf_params(prm, overrides):
+    from cracks_tpu_torch import config
+    base = dict(MATRIX_FREE, output_dir="")
+    if "sneddon" in os.path.basename(prm):
+        base.update(SNEDDON_ONLY)
+    return config.load_parameters(prm, **{**base, **overrides})
+
+
+def _mf_columns(sim):
+    return [c for c in ("Bulk Energy", "Crack Energy", "Load x", "Load y")
+            if c in sim.statistics.data]
+
+
+def _run_mf(prm, overrides, device, n_threads=None, profile_solve=0):
+    """One matrix-free run: (DoFs, statistics per column and step,
+    (Newton, linear) its per step, time-step cuts, seconds, the solve
+    path, seconds per step, the profile of solve `profile_solve` (card
+    only)).  On the CPU it runs in a worker process of
+    matrix_free_phase."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.solvers import newton
+    if n_threads:
+        torch.set_num_threads(n_threads)
+    t0 = time.perf_counter()
+    sim = Simulation(_mf_params(prm, overrides), device=device,
+                     verbose=False)
+    prof, undo = ({}, lambda: None)
+    if profile_solve:
+        prof, undo = _profile_solve(profile_solve, newton,
+                                    "_solve_matrix_free")
+    try:
+        sim.run()
+    finally:
+        undo()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    stats = np.array([sim.statistics.data[c] for c in _mf_columns(sim)],
+                     dtype=float)
+    return (sim.mesh.n_dofs, stats,
+            [(e[1], e[2]) for e in sim.solver_effort], sim.step_cuts,
+            time.perf_counter() - t0, newton.check_linear_solver(sim.sys),
+            [x[2] for x in sim.step_times], prof)
+
+
+def _lin_within(label, a, b, share=0.05):
+    """Linear iterations per step of two runs within `share` of the
+    larger (ROADMAP C9: the f32 passes round otherwise on the card)."""
+    la, lb = (np.array([lin for _, lin in r[2]]) for r in (a, b))
+    ok = bool((np.abs(la - lb) <= share * np.maximum(la, lb)).all())
+    print(f"{label}: linear its per step {la.tolist()} vs {lb.tolist()} "
+          f"(within {share:.0%}: {ok})")
+    if not ok:
+        raise AssertionError(f"{label}: linear iterations differ by more "
+                             f"than {share:.0%}")
+
+
+def _print_profile(label, prof):
+    """The idle share and launches per CG iteration of a profiled
+    matrix-free solve."""
+    if prof.get("device_s", 0.0) > 0 and prof.get("its"):
+        print(f"{label} idle share: {prof['wall_s']:.3f} s wall, "
+              f"{prof['device_s']:.3f} s of device kernels: idle "
+              f"{100 * (1 - prof['device_s'] / prof['wall_s']):.1f} %; "
+              f"{prof['kernels']} kernel launches over {prof['its']} CG "
+              f"iterations: {prof['kernels'] / prof['its']:.1f} per "
+              f"iteration, {1e3 * prof['wall_s'] / prof['its']:.3f} ms "
+              f"wall and {1e3 * prof['device_s'] / prof['its']:.3f} ms of "
+              f"kernels per iteration")
+    else:
+        print(f"{label} idle share: not measured (the profiler recorded no "
+              f"device time: {prof})")
+
+
+def _mf_small_card():
+    """Phase 18, small, the card's side: each MF_SMALL case on the card
+    (no stencil launched).  Returns the runs by label."""
+    card = {}
+    for label, prm, ov, n_dofs in MF_SMALL:
+        _zero_stencil_counts()
+        run = card[label] = _run_mf(prm, ov, "cuda")
+        counts = _stencil_counts()
+        print(f"{label} on cuda: {run[0]} DoFs, solve {run[5]}, "
+              f"{run[4]:.1f} s, s/step {[round(x, 3) for x in run[6]]}, "
+              f"statistics {run[1].tolist()}")
+        if run[0] != n_dofs or run[5] != ("geometric" if "gmg" in label
+                                          else "matrix-free"):
+            raise AssertionError(f"{label}: {run[0]} DoFs, solve {run[5]}")
+        if any(counts):
+            raise AssertionError(f"{label}: stencil launches {counts}")
+    return card
+
+
+def _mf_small_compare(card, cpu):
+    """Phase 18, small: the card runs against the CPU port's (futures of
+    the spawned workers): statistics within rel 1e-7, equal Newton
+    iterations per step, linear iterations within 5 % per step."""
+    for (label, _, _, _), fut in zip(MF_SMALL, cpu):
+        run, host = card[label], fut.result()
+        print(f"{label} on cpu: {host[0]} DoFs, solve {host[5]}, "
+              f"{host[4]:.1f} s, s/step {[round(x, 3) for x in host[6]]}, "
+              f"statistics {host[1].tolist()}")
+        _agree(f"{label} cuda vs cpu", run, host)
+        _lin_within(f"{label} cuda vs cpu", run, host)
+
+
+def matrix_free_full_phase(small):
+    """Phase 18, the round-1 configuration: Sneddon 2d at refine 4
+    (77,763 DoFs), two load steps, under the Jacobi CG in f64 and with
+    mixed precision, each held to the JAX package's table
+    (tests/torch_reference/sneddon_2d_matrix_free_r4.statistics) to rel
+    1e-7 with equal DoFs and to the oracle step-0 bulk energy to rel
+    1e-6; then the geometric GMG at refine MF_GMG_REFINE, load step 0,
+    its bulk energy within rel 1e-7 of the small f64 Jacobi run's.  No
+    time-step cut, finite statistics, positive bulk energy; per step
+    the Newton and linear iterations, seconds and peak device memory;
+    one profiled solve."""
+    with open(os.path.join(REFERENCE_DIR,
+                           "sneddon_2d_matrix_free_r4.statistics")) as f:
+        ref_names, ref = parse_statistics(f.read())
+    bulk_col = ref_names.index("Bulk Energy")
+    crack_col = ref_names.index("Crack Energy")
+    runs = [("jacobi-f64", ROUND1["refine"], SNEDDON_ONLY["max_no_timesteps"],
+             0),
+            ("jacobi-mixed", ROUND1["refine"],
+             SNEDDON_ONLY["max_no_timesteps"], 2),
+            ("gmg", MF_GMG_REFINE, 0, 0)]
+    for solve, refine, last_step, profile_solve in runs:
+        label = f"matrix-free sneddon 2d refine {refine} {solve}"
+        base = _fresh_memory_baseline()
+        _zero_stencil_counts()
+        run = _run_mf(SHIPPED_PRM, dict(n_global_pre_refine=refine,
+                                        max_no_timesteps=last_step,
+                                        **MF_SOLVES[solve]),
+                      "cuda", profile_solve=profile_solve)
+        dofs, stats, its, cuts, secs, path, step_s, prof = run
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label} on cuda: {dofs} DoFs, solve {path}, {secs:.2f} s, "
+              f"device memory allocated at its start {base} B, peak {peak} "
+              f"B, stencil launches {_stencil_counts()}")
+        for step, ((n, lin), s) in enumerate(zip(its, step_s)):
+            print(f"{label} step {step}: {s:.2f} s, {n} Newton its, {lin} "
+                  f"linear its")
+        if (cuts or not np.isfinite(stats).all() or not stats[0].min() > 0
+                or len(step_s) != last_step + 1):
+            raise AssertionError(f"{label}: a time-step cut, a missing "
+                                 "step, a non-finite statistic or a bulk "
+                                 "energy not positive")
+        if profile_solve:
+            _print_profile(f"{label} (solve {profile_solve})", prof)
+        if refine == ROUND1["refine"]:
+            rel = np.abs(stats[:2].T - ref[:, [bulk_col, crack_col]]) / \
+                np.abs(ref[:, [bulk_col, crack_col]])
+            oracle = abs(stats[0, 0] - ROUND1_ORACLE) / ROUND1_ORACLE
+            print(f"{label}: energies {stats[:2].T.tolist()} vs the JAX "
+                  f"table {ref[:, [bulk_col, crack_col]].tolist()}: max "
+                  f"relative difference {rel.max():.3e} (bound 1e-7); step 0 "
+                  f"bulk energy {stats[0, 0]!r} vs the oracle "
+                  f"{ROUND1_ORACLE} ({oracle:.2e}, bound 1e-6)")
+            if (dofs != ROUND1["dofs"] or not rel.max() <= 1e-7
+                    or not oracle <= 1e-6):
+                raise AssertionError(f"{label}: off the JAX table")
+        else:
+            small_run = small[f"sneddon 2d refine {refine} jacobi-f64"]
+            rel = abs(stats[0, 0] - small_run[1][0, 0]) / small_run[1][0, 0]
+            print(f"{label}: step 0 bulk energy {stats[0, 0]!r} vs the f64 "
+                  f"Jacobi run's {small_run[1][0, 0]!r}: relative "
+                  f"difference {rel:.3e} (bound 1e-7); Newton its "
+                  f"{its[0][0]} vs {small_run[2][0][0]}")
+            if not rel <= 1e-7 or its[0][0] != small_run[2][0][0]:
+                raise AssertionError(f"{label}: disagrees with the Jacobi "
+                                     "run")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def matrix_free_phase():
+    """Phase 18: the matrix-free operator.  The CPU runs of the small
+    cases go to spawned workers at once (the 3d one, minutes of eager
+    jvps, with three threads) and are compared when the card has run
+    the small and the full-size cases."""
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(MF_SMALL),
+                                                mp_context=ctx) as pool:
+        cpu = [pool.submit(_run_mf, prm, ov, "cpu",
+                           3 if "3d" in label else 1)
+               for label, prm, ov, _ in MF_SMALL]
+        card = _mf_small_card()
+        matrix_free_full_phase(card)
+        _mf_small_compare(card, cpu)
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -1663,6 +2009,9 @@ def main():
     jacobi = production_phase()
     goldens_phase()
     shipped_miehe_phase()
+    t0 = time.perf_counter()
+    shipped_tension_phase()
+    print(f"shipped_tension_phase: {time.perf_counter() - t0:.1f} s")
     for phase, args in ((hetero_goldens_phase, ()), (hetero3d_phase, ()),
                         (production_gmg_phase, (jacobi,))):
         t0 = time.perf_counter()
@@ -1671,6 +2020,9 @@ def main():
     t0 = time.perf_counter()
     seam = seam_phase()
     print(f"seam_phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    matrix_free_phase()
+    print(f"matrix_free_phase: {time.perf_counter() - t0:.1f} s")
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]

@@ -15,8 +15,10 @@ under the level cap, and redo the step on the new mesh whenever it
 changed), their load functionals, the statistics table, VTU output and
 checkpoint/resume.  The Newton systems go through the dense direct
 solve, the lattice GMG mixed-precision CG (seam lattices included), the
-Galerkin GMG on the stored element matrices or the stored-element-matrix
-Jacobi CG (`solvers.newton._solve`).  Configurations outside that slice
+Galerkin GMG on the stored element matrices, the stored-element-matrix
+Jacobi CG, or the matrix-free operator (`assembled_matvec = False`:
+the Jacobi CG or the geometric GMG, every Krylov iteration one jvp of
+the residual) (`solvers.newton._solve`).  Configurations outside that slice
 raise NotImplementedError naming their ROADMAP item before any work
 starts; nothing is skipped silently.
 """
@@ -39,7 +41,7 @@ from .ops.constraints import (Constraints, hanging_interpolate_p,
 from .ops.scatter import CellScatter, cell_scatter
 from .output import PvdWriter, write_vtu
 from .parallel.sharding import make_shard_mesh
-from .solvers import galerkin, lattice, lattice_newton, newton
+from .solvers import galerkin, lattice, lattice_newton, multigrid, newton
 from .solvers.newton import NoConvergence
 
 # the bitmap of the heterogeneous multiple-crack case (test.pgm at the
@@ -135,6 +137,9 @@ class System:
         # the finest level's gather tables, built at first use, and the
         # operator caches of galerkin.solve_split
         self.galerkin_hierarchy = None
+        # the geometric GMG hierarchy of the matrix-free operator
+        # (attached by Simulation.setup_system)
+        self.hierarchy = None
         self._galerkin_fine = None
         self._galerkin_jac_cache = None
         self._galerkin_levels_cache = None
@@ -334,8 +339,11 @@ class Simulation:
         builds it (cracks_tpu/driver.py:303-354): under gmg +
         assembled_matvec, the lattice hierarchy with mixed precision on
         a uniform tensor lattice or a uniformly refined slit mesh (the
-        seam lattice), else the Galerkin hierarchy (None when the forest
-        has one level: the solve is then the Jacobi CG, as in JAX)."""
+        seam lattice), else the Galerkin hierarchy; under gmg without
+        either of them (assembled_matvec = False), the geometric
+        hierarchy of the matrix-free operator.  Each is None when the
+        forest has one level: the solve is then the Jacobi CG, as in
+        JAX."""
         p = self.p
         self.sys = None
         self.sys = System(p, self.mesh, self.bitmap, device=self.device)
@@ -388,6 +396,17 @@ class Simulation:
                 self.log("Galerkin GMG: levels of "
                          + ", ".join(str(int(lv.inject_p.numel()))
                                      for lv in ghier.levels)
+                         + f" and {self.mesh.n_vertices} vertices")
+        if (p.preconditioner == "gmg" and hier is None
+                and self.sys.galerkin_hierarchy is None):
+            self.sys.hierarchy = multigrid.build_hierarchy(
+                self.forest, self.mesh,
+                lambda m: problems.cell_lame_fields(p, m, self.bitmap),
+                dirichlet_fn, device=self.device, dtype=self.sys.dtype)
+            if self.sys.hierarchy is not None:
+                self.log("geometric GMG: levels of "
+                         + ", ".join(str(int(lv.inject_p.numel()))
+                                     for lv in self.sys.hierarchy.levels)
                          + f" and {self.mesh.n_vertices} vertices")
         self.log(f"\nDoFs: {self.mesh.n_vertices * self.mesh.dim} solid + "
                  f"{self.mesh.n_vertices} phase = {self.mesh.n_dofs}")

@@ -3,7 +3,9 @@
 Port of ``cracks_tpu/ops/physics.py``.  The residual is batched dense
 tensor math over all cells with the cell axis LAST; the Newton matrix
 is the exact derivative of that residual, so the element matrices are
-``torch.func.jvp``s of the cell-last residual with one-hot tangents.
+``torch.func.jvp``s of the cell-last residual with one-hot tangents,
+and the matrix-free Jacobian action (`jacobian_vector_product`) is one
+``torch.func.jvp`` of the same residual on the gathered tangent.
 
 Layout: ``grads`` is ``(n_q, nvc, dim, n_c)``, per-quadrature scalars
 ``(n_q, n_c)``; solution vectors are flat — ``u`` is ``(n_v*dim,)``
@@ -344,3 +346,104 @@ def element_matrices_from_cellvals(u_e, phi_e, pf_old_e, pf_oold_e,
         out[:, j:j + step] = -cols(du[j:j + step],
                                    dp[j:j + step]).transpose(0, 1)
     return out
+
+
+def jacobian_vector_product(u, phi, du, dphi, phi_old, phi_oold,
+                            ca: CellArrays, sc: Scalars, cs: CellScatter,
+                            *, dim: int, with_split: bool, monolithic: bool):
+    """Action of the Newton matrix J = -d(rhs)/d(u, phi) on (du, dphi),
+    the matrix-free operator of ``assembled_matvec = False``: one
+    ``torch.func.jvp`` of `_element_residual_cl` on the gathered cell
+    values and tangents, then the tangent's ordered scatter through
+    `cs`.  The derivative is the one the element matrices take (the
+    spectral split's, and the straight-through clamp of the monolithic
+    mode), so J x equals the assembled product of the element matrices
+    up to rounding.  Returns (ju (n_v*dim,), jp (n_v,)), raw (no
+    constraints)."""
+    nvc = ca.gather_p.shape[0]
+    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
+                                             ca, dim)
+
+    def f(ue, pe):
+        return _element_residual_cl(ue, pe, pfo_e, pfoo_e, ca, sc, dim=dim,
+                                    with_split=with_split,
+                                    monolithic=monolithic)
+
+    _, (dru_e, drp_e) = torch.func.jvp(
+        f, (u_e, phi_e), (du[ca.gather_u].reshape(nvc, dim, -1),
+                          dphi[ca.gather_p]))
+    dru = scatter_add(cs.u, dru_e.reshape(nvc * dim, -1), torch.zeros_like(u))
+    drp = scatter_add(cs.p, drp_e, torch.zeros_like(phi))
+    return -dru, -drp
+
+
+def jacobian_diagonal(u, phi, phi_old, phi_oold, ca: CellArrays,
+                      sc: Scalars, cs: CellScatter, *, dim: int,
+                      with_split: bool, monolithic: bool):
+    """The exact global diagonal of J (du (n_v*dim,), dp (n_v,)): the
+    element matrices' diagonals, scatter-added."""
+    nvc = ca.gather_p.shape[0]
+    jac = element_matrices(u, phi, phi_old, phi_oold, ca, sc, dim=dim,
+                           with_split=with_split, monolithic=monolithic)
+    d_loc = jac.diagonal(dim1=0, dim2=1).T               # (ndl, n_c)
+    du = scatter_add(cs.u, d_loc[:nvc * dim], torch.zeros_like(u))
+    dp = scatter_add(cs.p, d_loc[nvc * dim:], torch.zeros_like(phi))
+    return du, dp
+
+
+def jacobi_diagonal_approx(u, phi, phi_old, phi_oold, ca: CellArrays,
+                           sc: Scalars, cs: CellScatter, *, dim: int,
+                           monolithic: bool):
+    """The analytic Jacobi diagonal of the matrix-free CG: the
+    undecomposed elastic operator, degraded, for the displacement block
+    (the split only moves stiffness between its two parts, so this
+    stays spectrally equivalent) and the exact reaction and diffusion
+    terms for the phase-field block, with the monolithic mode's clamps
+    (without the straight-through tangent: nothing is differentiated
+    here).  Returns (du (n_v*dim,), dp (n_v,))."""
+    nvc = ca.gather_p.shape[0]
+    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
+                                             ca, dim)
+    pf = torch.einsum("qa,ac->qc", ca.shape_v, phi_e)
+    pf_old = torch.einsum("qa,ac->qc", ca.shape_v, pfo_e)
+    pf_oold = torch.einsum("qa,ac->qc", ca.shape_v, pfoo_e)
+    if monolithic:
+        pf = pf.clamp_min(0.0)
+        pf_old = pf_old.clamp_min(0.0)
+        pf_oold = pf_oold.clamp_min(0.0)
+    pf_extra = _pf_extra(pf, pf_old, pf_oold, sc)
+    degr = (1.0 - sc.constant_k) * pf_extra**2 + sc.constant_k   # (q, c)
+
+    grad_u = torch.einsum("adc,qaec->qdec", u_e, ca.grads)
+    div_u = sum(grad_u[:, d, d] for d in range(dim))
+    strain = {}
+    for i in range(dim):
+        for j in range(i, dim):
+            strain[(i, j)] = 0.5 * (grad_u[:, i, j] + grad_u[:, j, i])
+    sp, _ = _full_stress_components(strain, ca.lam[None, :], ca.mu[None, :],
+                                    dim)
+    sp_E = sum((1.0 if i == j else 2.0) * sp[(i, j)] * strain[(i, j)]
+               for i in range(dim) for j in range(i, dim))
+
+    gw = ca.grads * ca.JxW[:, None, None, :]                # (q, a, e, c)
+    g2 = torch.einsum("qaec,qaec->qac", ca.grads, gw)       # |grad N|^2 JxW
+    # u diagonal per (a, d): (lam + mu) (dN_d)^2 + mu |grad N|^2, degraded
+    du_ad = []
+    for d in range(dim):
+        gd2 = ca.grads[:, :, d, :] * gw[:, :, d, :]
+        term = ((ca.lam + ca.mu)[None, None, :] * gd2
+                + ca.mu[None, None, :] * g2)
+        du_ad.append(torch.einsum("qc,qac->ac", degr, term))
+    du_e = torch.stack(du_ad, dim=1).reshape(nvc * dim, -1)
+
+    gap_pos = torch.where(pf - pf_old < 0.0, 0.0, 1.0).to(pf.dtype)
+    react = ((1.0 - sc.constant_k) * sp_E
+             + sc.G_c / sc.alpha_eps
+             + sc.gamma_dt * ca.inv_diam2[None, :] * gap_pos
+             - 2.0 * (ALPHA_BIOT - 1.0) * sc.pressure * div_u)   # (q, c)
+    NN = ca.shape_v * ca.shape_v                             # (q, a)
+    dp_e = (torch.einsum("qc,qa,qc->ac", react, NN, ca.JxW)
+            + sc.G_c * sc.alpha_eps * torch.einsum("qac->ac", g2))
+    du = scatter_add(cs.u, du_e, torch.zeros_like(u))
+    dp = scatter_add(cs.p, dp_e, torch.zeros_like(phi))
+    return du, dp

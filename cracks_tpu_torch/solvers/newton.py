@@ -9,10 +9,12 @@ cycle detection and the backtracking line search follow the reference
 step for step.  The linear solve is routed
 as in the JAX package: the dense direct solve, the lattice GMG
 mixed-precision CG, the Galerkin GMG on the stored element matrices
-(f64 block CG, or the mixed-precision split solve) or the
-stored-element-matrix Jacobi CG.  Every linear operator is built with
-the System's `monolithic` flag (the clamped phase field of the
-penalized mode).
+(f64 block CG, or the mixed-precision split solve), the geometric GMG
+of the matrix-free operator, the stored-element-matrix Jacobi CG, or
+the matrix-free Jacobi CG (`assembled_matvec = False`: every Krylov
+iteration applies the Jacobian through one jvp of the residual).  Every
+linear operator is built with the System's `monolithic` flag (the
+clamped phase field of the penalized mode).
 """
 
 from __future__ import annotations
@@ -56,18 +58,20 @@ def krylov_path(sys) -> str:
     assembled_matvec + mixed precision on a uniform lattice), "galerkin"
     (the Galerkin GMG on the stored element matrices: gmg +
     assembled_matvec without the lattice hierarchy; the f64 block CG, or
-    with mixed precision the split solve) or "assembled" (the
-    stored-element-matrix Jacobi CG, also where the Galerkin chain is
-    empty).  Raises for the ones not ported."""
+    with mixed precision the split solve), "geometric" (the geometric
+    GMG of the matrix-free operator: gmg without assembled_matvec, on a
+    forest of more than one level; f64 whatever the precision),
+    "assembled" (the stored-element-matrix Jacobi CG, also where the
+    Galerkin chain is empty) or "matrix-free" (the matrix-free Jacobi
+    CG, with mixed precision one capped f32 pass and an f64
+    correction)."""
     if sys.lattice_hierarchy is not None:
         return "lattice"
-    if not sys.params.assembled_matvec:
-        raise NotImplementedError(
-            "the matrix-free jvp CG and the geometric GMG "
-            "(assembled_matvec=False) are not ported: ROADMAP A12")
-    if sys.galerkin_hierarchy is not None:
+    if sys.params.assembled_matvec and sys.galerkin_hierarchy is not None:
         return "galerkin"
-    return "assembled"
+    if sys.hierarchy is not None:
+        return "geometric"
+    return "assembled" if sys.params.assembled_matvec else "matrix-free"
 
 
 def uses_direct(sys) -> bool:
@@ -81,10 +85,9 @@ def uses_direct(sys) -> bool:
 
 
 def check_linear_solver(sys) -> str:
-    """The linear solve a replicated Newton will take ("direct",
-    "lattice", "galerkin" or "assembled"); raises NotImplementedError
-    for the unported ones before any work.  A singular direct factor
-    falls through to `krylov_path`, checked then."""
+    """The linear solve a replicated Newton will take: "direct" or one
+    of `krylov_path`'s names.  A singular direct factor falls through
+    to `krylov_path`."""
     return "direct" if uses_direct(sys) else krylov_path(sys)
 
 
@@ -106,13 +109,17 @@ def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
                 monolithic=sys.monolithic)
         except linear.DirectSolveRefused:
             pass
-    if krylov_path(sys) != "lattice":
+    path = krylov_path(sys)
+    if path == "lattice":
+        du, dp, its = lattice.solve_lattice(sys, u, phi, phi_old, phi_oold,
+                                            active, rhs_u, rhs_p, with_split)
+        du, dp = expand_update(du, dp, con, active)
+        return du, dp, its
+    if path in ("galerkin", "assembled"):
         return _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active,
                                 rhs_u, rhs_p, with_split)
-    du, dp, its = lattice.solve_lattice(sys, u, phi, phi_old, phi_oold,
-                                        active, rhs_u, rhs_p, with_split)
-    du, dp = expand_update(du, dp, con, active)
-    return du, dp, its
+    return _solve_matrix_free(sys, u, phi, phi_old, phi_oold, con, active,
+                              rhs_u, rhs_p, with_split)
 
 
 def _norm(ru, rp) -> float:
@@ -199,6 +206,67 @@ def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
         dp = dp + cp
         break
     return (*expand_update(du, dp, con, active), total_its)
+
+
+def _solve_matrix_free(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
+                       rhs_p, with_split):
+    """The matrix-free solve (JAX ``newton._solve`` without
+    assembled_matvec).  With the geometric hierarchy: the f64
+    GMG-preconditioned block CG to cg_rtol (mixed precision is not used
+    there, as in JAX).  Without it, the Jacobi block CG on the analytic
+    diagonal; with mixed precision, first one f32 pass on the f32 cell
+    arrays (at most min(cg_maxiter, 10 cg_chunk) iterations, relative
+    tolerance max(cg_rtol, 1e-4)), then the f64 correction solve on the
+    f64 jvp residual to an absolute tolerance of cg_rtol |b|.  Returns
+    (du, dp, iterations) with the constraints distributed."""
+    p = sys.params
+    kw = dict(dim=sys.dim, with_split=with_split, monolithic=sys.monolithic)
+    cs = sys.cell_scatter
+    if sys.hierarchy is not None:
+        return linear.solve_cg_gmg(
+            u, phi, phi_old, phi_oold, sys.ca, sys.scalars, cs, con, active,
+            rhs_u, rhs_p, sys.hierarchy, p.cg_rtol, 1e-300,
+            maxiter=p.cg_maxiter, **kw)
+    total_its = 0
+    du = dp = None
+    atol = 1e-300
+    if sys.mixed_precision:
+        # iterative refinement: the capped f32 pass takes the cheap
+        # iterations, the f64 correction finishes to the tolerance (f32
+        # CG stagnates at its kappa*eps floor late in Newton)
+        f32 = lambda x: x.to(torch.float32)
+        con32 = con._replace(hang_weights=f32(con.hang_weights),
+                             hang_weights_u=f32(con.hang_weights_u))
+        sc32 = physics.Scalars(*(f32(v) for v in sys.scalars))
+        args32 = (f32(u), f32(phi), f32(phi_old), f32(phi_oold))
+        diag_u, diag_p = physics.jacobi_diagonal_approx(
+            *args32, sys.ca32, sc32, cs, dim=sys.dim,
+            monolithic=sys.monolithic)
+        du32, dp32, its = linear.solve_cg_block(
+            *args32, sys.ca32, sc32, cs, con32, active, f32(rhs_u),
+            f32(rhs_p), diag_u, diag_p, max(p.cg_rtol, 1e-4), 1e-300,
+            maxiter=linear.chunked_maxiter(
+                min(p.cg_maxiter, 10 * p.cg_chunk), p.cg_chunk), **kw)
+        total_its += its
+        du = du32.to(u.dtype)
+        dp = dp32.to(u.dtype)
+        ju, jp = physics.jacobian_vector_product(
+            u, phi, du, dp, phi_old, phi_oold, sys.ca, sys.scalars, cs, **kw)
+        ju, jp = condense_residual(ju, jp, con, active)
+        atol = max(p.cg_rtol * _norm(rhs_u, rhs_p), 1e-300)
+        rhs_u = rhs_u - ju
+        rhs_p = rhs_p - jp
+    diag_u, diag_p = physics.jacobi_diagonal_approx(
+        u, phi, phi_old, phi_oold, sys.ca, sys.scalars, cs, dim=sys.dim,
+        monolithic=sys.monolithic)
+    cu, cp, its = linear.solve_cg_block(
+        u, phi, phi_old, phi_oold, sys.ca, sys.scalars, cs, con, active,
+        rhs_u, rhs_p, diag_u, diag_p, p.cg_rtol, atol,
+        maxiter=linear.chunked_maxiter(p.cg_maxiter, p.cg_chunk), **kw)
+    total_its += its
+    if du is None:
+        return cu, cp, total_its
+    return du + cu, dp + cp, total_its
 
 
 def _assemble(sys, u, phi, phi_old, phi_oold, con, active, with_split):

@@ -16,8 +16,9 @@ and tests/test_torch_cases_shear_adaptive.py).
 - the failed-solve rules: a Miehe step is cut by 10, a three-point
   step retried once at the same time with the old phase field, and a
   second failure propagates;
-- the refusals that remain (the monolithic solver, gmg with mixed
-  precision on the uniformly refined slit mesh), and the formerly
+- the refusals that remain (gmg with mixed precision on the uniformly
+  refined slit mesh across devices; the monolithic solver on the
+  matrix-free operator now runs its first step), and the formerly
   refused cases that now run (the multiple-crack cases, gmg without
   mixed precision on the slit and the three-point meshes, held to the
   JAX runs);
@@ -245,19 +246,29 @@ def test_failed_solve_rules(case, retried, monkeypatch):
 
 
 @pytest.mark.parametrize("case,override,item", [
-    # the monolithic solver (ported) with the matrix-free operator
+    # the monolithic solver with the matrix-free operator: runs
     ("miehe_shear_1", dict(outer_solver="simple monolithic",
                            linear_solver="cg", assembled_matvec=False),
-     "A12"),
+     None),
     # gmg + mixed precision on the uniformly refined slit mesh (the seam
     # lattice, ported) with replicated vectors across devices
     ("miehe_tension_adaptive_1", dict(
         preconditioner="gmg", linear_solver="cg", mixed_precision_cg=True,
         n_devices=2), "A11b"),
-])
+], ids=["miehe_shear_1-override0-A12",
+        "miehe_tension_adaptive_1-override1-A11b"])
 def test_remaining_refusals(case, override, item):
     """Each raises before any Newton work: at construction, or at the
-    first system setup or solve."""
+    first system setup or solve.  The matrix-free case (item None) runs
+    to its first step instead."""
+    if item is None:
+        p = config.load_parameters(_prm(case), output_dir="",
+                                   max_no_timesteps=0, **override)
+        sim = Simulation(p, device="cpu", verbose=False)
+        sim.run()
+        assert sim.step_cuts == 0 and sim.statistics.data["Bulk Energy"][0] > 0
+        assert newton.check_linear_solver(sim.sys) == "matrix-free"
+        return
     p = config.load_parameters(_prm(case), output_dir="", **override)
     with pytest.raises(NotImplementedError, match=item):
         Simulation(p, device="cpu", verbose=False).run()

@@ -46,7 +46,10 @@ of its split solve agree between the card and the CPU (V-cycle rtol
 1e-5 / atol 1e-4 of its largest value; the pass's update rel 1e-5, its
 iterations within one) and repeat bit for bit, and two card runs of the
 f64 Galerkin block CG are bit-equal and equal the CPU run to rel
-1e-8."""
+1e-8.  The matrix-free operator (`assembled_matvec = False`, the Jacobi
+CG in f64 and with mixed precision, its iterations replayed from CUDA
+graphs) on Sneddon 2d refine 2 repeats bit for bit on the card and
+equals the CPU run to rel 1e-8 with equal Newton counts."""
 
 import os
 
@@ -645,3 +648,37 @@ def test_hetero_3d_gmg_on_card_repeats_and_matches_cpu(cuda):
     assert np.array_equal(e_c, e_c2) and eff_c == eff_c2
     np.testing.assert_allclose(e_c, e_h, rtol=1e-8, atol=0)
     assert [e[1] for e in eff_c] == [e[1] for e in eff_h]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(preconditioner="jacobi", mixed_precision_cg=False),
+    dict(preconditioner="jacobi", mixed_precision_cg=True),
+], ids=["jacobi-f64", "jacobi-mixed"])
+def test_matrix_free_refine2_matches_cpu(cuda, over):
+    """The matrix-free operator (assembled_matvec = False) on Sneddon 2d
+    refine 2, two load steps: the card run (its CG iterations replayed
+    from CUDA graphs) repeats bit for bit and equals the CPU run to rel
+    1e-8 with equal Newton counts."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.solvers import newton
+    prm = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "params", "parameters_sneddon_2d.prm")
+    p = config.load_parameters(
+        prm, n_global_pre_refine=2, n_local_pre_refine=0,
+        n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+        linear_solver="cg", cg_rtol=1e-8, cg_maxiter=3000,
+        assembled_matvec=False, **over)
+    runs = []
+    for dev in (torch.device("cpu"), cuda, cuda):
+        sim = Simulation(p, device=dev, verbose=False)
+        sim.run()
+        assert newton.check_linear_solver(sim.sys) == "matrix-free"
+        d = sim.statistics.data
+        runs.append((np.array([d["Bulk Energy"], d["Crack Energy"]]),
+                     [e[1:3] for e in sim.solver_effort]))
+    (e_h, eff_h), (e_c, eff_c), (e_c2, eff_c2) = runs
+    assert np.array_equal(e_c, e_c2) and eff_c == eff_c2
+    np.testing.assert_allclose(e_c, e_h, rtol=1e-8, atol=0)
+    assert [e[0] for e in eff_c] == [e[0] for e in eff_h]
