@@ -200,6 +200,34 @@ without printing the final line:
    rel 1e-7 of the small f64 Jacobi run's.  Each prints per step the
    Newton and linear iterations and seconds, and the peak memory; no
    time-step cut, finite statistics, positive bulk energy.
+19. the multi-shard modes, D shards on the one card (no new kernel; the
+   halo pool computes with gathers, einsums and ordered scatters on the
+   stored element matrices).  Small, card against the CPU port (spawned
+   workers): the mesh of __graft_entry__.dryrun_multichip's halo step
+   (sneddon_2d_1.prm, one local pre-refinement at phase-field value
+   0.5: 453 DoFs, 12 hanging vertices, two load steps, the Jacobi CG)
+   at n_devices = 4 and 8, dof_sharding = lattice (the owned+ghost halo
+   pool), and hetero_3d_1 as shipped (5,288 DoFs) at n_devices = 4
+   under tests/test_halo_newton.py's settings (cg + gmg, cg_rtol 1e-10,
+   mixed precision; the pool takes its Jacobi CG all the same):
+   statistics within rel 1e-7, equal Newton iterations per step; the
+   hetero run also within the JAX np1/np8 tolerance (abs 1e-6 or rel
+   1e-7) of the replicated card run.  On the card alone: the halo run
+   with assembled_matvec = False bit-equal to the D = 4 one; the
+   replicated mode at n_devices = 4 (Sneddon 2d refine 3) bit-equal to
+   n_devices = 1; mesh_dcn = 2 at n_devices = 4, dof_sharding =
+   lattice bit-equal to the flat D = 4 lattice run, the sharded kernel
+   launched; the monolithic solver with dof_sharding = lattice (the
+   replicated fallback) bit-equal to n_devices = 1.  Full width: phase
+   11's production run at n_devices = 4, dof_sharding = lattice, the
+   halo pool on every epoch: no time-step cut, finite statistics,
+   positive bulk energy, phase 11's DoFs per epoch, the TCV within rel
+   1e-6 of phase 11's in every epoch in which no block CG reached its
+   2000-iteration cap (such an epoch is printed, not exempt from the
+   rest), its error falling; per epoch the DoFs, pool size B and slots
+   per shard, s/step, Newton and linear iterations per step, the
+   largest block-CG count and the peak device memory, and the device's
+   idle share during one solve of the last epoch (torch.profiler).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -829,7 +857,8 @@ def _instrument_epochs(sim):
         torch.cuda.synchronize()
         records.append(dict(dofs=sim.mesh.n_dofs,
                             host_s=refine_s[0] + time.perf_counter() - t0,
-                            solve=newton.check_linear_solver(sim.sys)))
+                            solve=("halo" if sim.sys.use_halo_state
+                                   else newton.check_linear_solver(sim.sys))))
         refine_s[0] = 0.0
 
     sim._refine_and_transfer = timed_refine
@@ -911,10 +940,11 @@ def shipped_phase():
                              + "\n".join(fails[:20]))
 
 
-def production_phase(label="production", **overrides):
+def production_phase(label="production", instrument=None, **overrides):
     """The shipped file four times finer (last epoch 168,609 DoFs), on
-    the Jacobi CG or, with `overrides`, another solve (phase 16).
-    Returns the epochs, the TCV per epoch and the seconds."""
+    the Jacobi CG or, with `overrides`, another solve (phases 16, 19;
+    `instrument(sim)` is called before the run).  Returns the epochs,
+    the TCV per epoch and the seconds."""
     from cracks_tpu_torch import config, qoi
     from cracks_tpu_torch.driver import Simulation
     t0 = time.perf_counter()
@@ -923,6 +953,8 @@ def production_phase(label="production", **overrides):
                                **{**PRODUCTION, **overrides})
     sim = Simulation(p, device="cuda", verbose=False)
     records = _instrument_epochs(sim)
+    if instrument is not None:
+        instrument(sim)
     base = _fresh_memory_baseline()
     sim.run()
     secs = time.perf_counter() - t0
@@ -1310,6 +1342,43 @@ def _phase_timers():
     return secs, lambda: [setattr(galerkin, n, f) for n, f in saved.items()]
 
 
+def _profiler(calls):
+    """(a dict, wrap): wrap(fn) is fn with a call counter shared by
+    every function wrapped this way; the `calls`-th call runs under
+    torch.profiler and writes into the dict its wall seconds, summed
+    device-kernel seconds, kernel launches and (a tuple result's third
+    entry) iterations."""
+    out = {}
+    n = [0]
+
+    def wrap(fn):
+        def wrapped(*args, **kw):
+            n[0] += 1
+            if n[0] != calls:
+                return fn(*args, **kw)
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = fn(*args, **kw)
+                torch.cuda.synchronize()
+                out["wall_s"] = time.perf_counter() - t0
+            averages = prof.key_averages()
+            out["device_s"] = sum(
+                getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in averages) * 1e-6
+            out["kernels"] = sum(
+                e.count for e in averages
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset")))
+            if isinstance(res, tuple) and len(res) >= 3:
+                out["its"] = int(res[2])
+            return res
+        return wrapped
+    return out, wrap
+
+
 def _profile_solve(calls, module=None, name="solve_split"):
     """Wrap `module.name` (galerkin.solve_split by default) so that its
     `calls`-th call runs under torch.profiler: returns (a dict that
@@ -1317,34 +1386,9 @@ def _profile_solve(calls, module=None, name="solve_split"):
     an undo)."""
     if module is None:
         from cracks_tpu_torch.solvers import galerkin as module
-    out = {}
     fn = getattr(module, name)
-    n = [0]
-
-    def wrapped(*args, **kw):
-        n[0] += 1
-        if n[0] != calls:
-            return fn(*args, **kw)
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = fn(*args, **kw)
-            torch.cuda.synchronize()
-            out["wall_s"] = time.perf_counter() - t0
-        averages = prof.key_averages()
-        out["device_s"] = sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-            for e in averages) * 1e-6
-        out["kernels"] = sum(
-            e.count for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset")))
-        if isinstance(res, tuple) and len(res) == 3:
-            out["its"] = int(res[2])
-        return res
-    setattr(module, name, wrapped)
+    out, wrap = _profiler(calls)
+    setattr(module, name, wrap(fn))
     return out, lambda: setattr(module, name, fn)
 
 
@@ -1994,6 +2038,270 @@ def matrix_free_phase():
         _mf_small_compare(card, cpu)
 
 
+# phase 19: the multi-shard modes, D shards on the one card.  The halo
+# pool's small cases: the mesh of __graft_entry__.dryrun_multichip's
+# halo step, and hetero_3d_1 under tests/test_halo_newton.py's settings
+# (BASE, :28-29)
+HALO_PRM = MONO_PRM
+DRYRUN = dict(n_local_pre_refine=1, value_phase_field_for_refinement=0.5,
+              n_refinement_cycles=0, max_no_timesteps=1, linear_solver="cg",
+              preconditioner="jacobi", output_dir="")
+HALO_BASE = dict(output_dir="", linear_solver="cg", preconditioner="gmg",
+                 cg_rtol=1e-10, mixed_precision_cg=True)
+HALO_SMALL = [
+    ("dryrun halo D=4", HALO_PRM, dict(DRYRUN, n_devices=4,
+                                       dof_sharding="lattice"), 453),
+    ("dryrun halo D=8", HALO_PRM, dict(DRYRUN, n_devices=8,
+                                       dof_sharding="lattice"), 453),
+    ("hetero_3d_1 halo D=4", HETERO_PRM, dict(HALO_BASE, n_devices=4,
+                                              dof_sharding="lattice"),
+     5_288),
+]
+HALO_CG_CAP = 2000   # solvers/halo_newton.py::HALO_CG_MAXITER
+
+
+def _run_sharded_mode(prm, overrides, device, n_threads=None):
+    """One run of a multi-shard case: (DoFs of the first step,
+    statistics per column and step, (Newton, linear) its per step,
+    time-step cuts, seconds, the mode, the Newton logs' largest
+    block-CG count, (B, n_loc) of the halo partition).  On the CPU it
+    runs in a worker process of sharded_modes_phase."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.solvers import halo_newton
+    if n_threads:
+        torch.set_num_threads(n_threads)
+    t0 = time.perf_counter()
+    sim = Simulation(config.load_parameters(prm, **overrides), device=device,
+                     verbose=False)
+    blocks = []
+    newton_halo = halo_newton.newton_active_set_halo
+
+    def logged(sys_, state, *args, **kw):
+        out = newton_halo(sys_, state, *args, **kw)
+        blocks.append(state.last_log.max_block_iterations)
+        return out
+    halo_newton.newton_active_set_halo = logged
+    try:
+        sim.run()
+    finally:
+        halo_newton.newton_active_set_halo = newton_halo
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sys_ = sim.sys
+    mode = ("halo" if sys_.use_halo_state else "lattice"
+            if sys_.use_lattice_state else "replicated")
+    part = sys_.halo_partition
+    return (sim.statistics.data["DoFs"][0],
+            np.array([sim.statistics.data[c] for c in MIEHE_COLUMNS[:2]],
+                     dtype=float),
+            [(e[1], e[2]) for e in sim.solver_effort], sim.step_cuts,
+            time.perf_counter() - t0, mode, max(blocks, default=0),
+            None if part is None else (part.n_pool, part.n_loc))
+
+
+def _bit_equal(label, a, b):
+    """Two card runs (_run_sharded_mode's tuples) with equal statistics
+    to the last bit and equal iterations."""
+    same = np.array_equal(a[1], b[1]) and a[2] == b[2]
+    print(f"{label}: modes {a[5]} / {b[5]}, statistics {a[1].tolist()}, "
+          f"Newton/linear its {a[2]} / {b[2]}: bit-equal {same}")
+    if not same or a[3] or b[3]:
+        raise AssertionError(f"{label}: the runs differ")
+
+
+def sharded_small_phase():
+    """Phase 19, small: the halo cases on the card against the CPU port
+    (spawned workers), hetero_3d_1 also against the replicated card
+    run; the card-only bit-equalities of the other modes."""
+    ctx = multiprocessing.get_context("spawn")
+    threads = max(1, ((os.cpu_count() or 4) - 1) // len(HALO_SMALL))
+    with concurrent.futures.ProcessPoolExecutor(len(HALO_SMALL),
+                                                mp_context=ctx) as pool:
+        cpu = [pool.submit(_run_sharded_mode, prm, ov, "cpu", threads)
+               for _, prm, ov, _ in HALO_SMALL]
+        card = {}
+        for label, prm, ov, n_dofs in HALO_SMALL:
+            _zero_stencil_counts()
+            run = card[label] = _run_sharded_mode(prm, ov, "cuda")
+            counts = _stencil_counts()
+            print(f"{label} on cuda: {run[0]} DoFs, mode {run[5]}, pool B "
+                  f"and slots per shard {run[7]}, {run[4]:.1f} s, "
+                  f"statistics {run[1].tolist()}, Newton/linear its "
+                  f"{run[2]}, largest block CG {run[6]}, stencil launches "
+                  f"{counts}")
+            if run[0] != n_dofs or run[5] != "halo" or any(counts):
+                raise AssertionError(f"{label}: {run[0]} DoFs, mode "
+                                     f"{run[5]}, stencil launches {counts}")
+        # the replicated runs: the f64 Galerkin block CG to cg_rtol, the
+        # gate; BASE's mixed precision, printed: at this size JAX runs
+        # its fused solve, which converges to cg_rtol like the f64 one,
+        # while the port has only the split solve, which stops step 1
+        # one Newton iteration earlier, 1.1e-5 off in bulk energy on
+        # the CPU (ROADMAP C9)
+        rep = _run_sharded_mode(HETERO_PRM, dict(HALO_BASE,
+                                                 mixed_precision_cg=False),
+                                "cuda")
+        rep_mixed = _run_sharded_mode(HETERO_PRM, HALO_BASE, "cuda")
+        # the matrix-free flag does not reach the pool's stored-matrix CG
+        mf = _run_sharded_mode(HALO_PRM, dict(HALO_SMALL[0][2],
+                                              assembled_matvec=False),
+                               "cuda")
+        _bit_equal("dryrun halo D=4, assembled_matvec=False vs True, cuda",
+                   mf, card[HALO_SMALL[0][0]])
+        launches = sharded_card_only_phase()
+        for (label, _, _, _), fut in zip(HALO_SMALL, cpu):
+            host = fut.result()
+            print(f"{label} on cpu: {host[0]} DoFs, mode {host[5]}, "
+                  f"{host[4]:.1f} s, statistics {host[1].tolist()}, "
+                  f"largest block CG {host[6]}")
+            _agree(f"{label} cuda vs cpu", card[label], host)
+    # JAX's np1/np8 tolerance (tests/test_halo_newton.py:44-49): every
+    # entry within abs 1e-6 or rel 1e-7
+    halo = card[HALO_SMALL[2][0]]
+    for label, run in (("mixed-precision split solve, not gated",
+                        rep_mixed), ("f64 Galerkin block CG", rep)):
+        d = np.abs(halo[1] - run[1])
+        ok = bool(((d <= 1e-6) | (d <= 1e-7 * np.abs(run[1]))).all())
+        print(f"hetero_3d_1 halo D=4 vs replicated ({label}) on cuda "
+              f"({run[4]:.1f} s, Newton/linear its {run[2]}, statistics "
+              f"{run[1].tolist()}): max abs difference {d.max():.3e}, max "
+              f"rel {float((d / np.abs(run[1])).max()):.3e} (abs 1e-6 or "
+              f"rel 1e-7: {ok})")
+    if not ok or rep[3] or [n for n, _ in rep[2]] != [
+            n for n, _ in halo[2]]:
+        raise AssertionError("hetero_3d_1: the halo pool and the replicated "
+                             "run disagree")
+    return launches
+
+
+def sharded_card_only_phase():
+    """Phase 19, on the card alone: replicated vectors at n_devices = 4
+    are the one-device run; the (2, 2) product mesh is the flat D = 4
+    lattice run, its sharded kernel launched; the monolithic solver
+    falls back to replicated vectors."""
+    sneddon = os.path.join(ROOT, "params", "parameters_sneddon_2d.prm")
+    lattice_run = dict(n_global_pre_refine=3, n_local_pre_refine=0,
+                       n_refinement_cycles=0, max_no_timesteps=1,
+                       output_dir="", linear_solver="cg",
+                       preconditioner="gmg", cg_rtol=1e-8, cg_maxiter=3000,
+                       dtype="float64", mixed_precision_cg=True)
+    pairs = [("replicated n_devices=4 vs 1, sneddon 2d refine 3", sneddon,
+              dict(lattice_run, n_devices=4), lattice_run),
+             ("mesh_dcn=2 vs flat, n_devices=4 dof_sharding=lattice, "
+              "sneddon 2d refine 3", sneddon,
+              dict(lattice_run, mesh_dcn=2, **SHARDED),
+              dict(lattice_run, **SHARDED)),
+             ("simple monolithic, dof_sharding=lattice n_devices=4 vs 1, "
+              "sneddon_2d_1 refine 1", MONO_PRM,
+              dict(MONO, **MONO_LATTICE, n_global_pre_refine=1, **SHARDED),
+              dict(MONO, **MONO_LATTICE, n_global_pre_refine=1))]
+    from cracks_tpu_torch.ops import stencil
+    launches = dict(phi=0, rest=0, sharded=0)
+    for label, prm, ov, base in pairs:
+        _zero_stencil_counts()
+        a = _run_sharded_mode(prm, ov, "cuda")
+        counts = _stencil_counts()
+        phi = stencil.stencil_matvec2d.phi_launches
+        launches["phi"] += phi
+        launches["rest"] += counts[0] - phi
+        launches["sharded"] += counts[2]
+        b = _run_sharded_mode(prm, base, "cuda")
+        print(f"{label}: {a[0]} DoFs, {a[4]:.1f} s, stencil launches "
+              f"{counts}")
+        _bit_equal(label, a, b)
+        want = "lattice" if "mesh_dcn" in label else "replicated"
+        if a[5] != want or (want == "lattice") != (counts[2] > 0):
+            raise AssertionError(f"{label}: mode {a[5]}, sharded launches "
+                                 f"{counts[2]}")
+    return launches
+
+
+def _profile_halo_solve(calls):
+    """Run the `calls`-th halo block-CG solve (each Newton solve builds
+    its own, `halo_newton.build_halo_cg`) under torch.profiler: returns
+    (the dict of `_profiler`, an undo)."""
+    from cracks_tpu_torch.solvers import halo_newton
+    build = halo_newton.build_halo_cg
+    out, wrap = _profiler(calls)
+    halo_newton.build_halo_cg = lambda *a, **kw: wrap(build(*a, **kw))
+    return out, lambda: setattr(halo_newton, "build_halo_cg", build)
+
+
+def sharded_full_phase(jacobi):
+    """Phase 19, full width: phase 11's production run at n_devices =
+    4, dof_sharding = lattice (the halo pool on every epoch) against
+    phase 11's epochs and TCV."""
+    from cracks_tpu_torch.solvers import halo_newton
+    pools, blocks = [], []
+    newton_halo = halo_newton.newton_active_set_halo
+
+    def instrument(sim):
+        setup = sim.setup_system
+
+        def recorded():
+            setup()
+            part = sim.sys.halo_partition
+            pools.append((sim.mesh.n_dofs, part.n_pool, part.n_loc))
+        sim.setup_system = recorded
+
+        def logged(sys_, state, *args, **kw):
+            out = newton_halo(sys_, state, *args, **kw)
+            blocks.append((sys_.mesh.n_dofs,
+                           state.last_log.max_block_iterations))
+            return out
+        halo_newton.newton_active_set_halo = logged
+
+    # a solve of the last epoch: 4 epochs of 4 steps of 2 Newton
+    # iterations (phase 11)
+    prof, undo = _profile_halo_solve(27)
+    try:
+        out = production_phase("production halo", instrument=instrument,
+                               **SHARDED)
+    finally:
+        undo()
+        halo_newton.newton_active_set_halo = newton_halo
+    epochs = out["epochs"]
+    if [e["dofs"] for e in epochs] != [e["dofs"] for e in jacobi["epochs"]]:
+        raise AssertionError("production halo: DoFs per epoch differ from "
+                             "phase 11's")
+    for i, (ep, tcv, tcv_ref) in enumerate(zip(epochs, out["tcv"],
+                                               jacobi["tcv"])):
+        pool = [p for p in pools if p[0] == ep["dofs"]][-1]
+        top = max(b for d, b in blocks if d == ep["dofs"])
+        rel = abs(tcv - tcv_ref) / abs(tcv_ref)
+        capped = top >= HALO_CG_CAP
+        print(f"production halo epoch {i + 1}: {ep['dofs']} DoFs, mode "
+              f"{ep['solve']}, pool B {pool[1]}, {pool[2]} slots per shard "
+              f"of {ep['dofs'] // 3} vertices, largest block CG {top} (cap "
+              f"{HALO_CG_CAP}{', reached' if capped else ''}), TCV "
+              f"{tcv!r} vs phase 11's {tcv_ref!r}: rel {rel:.3e} (bound "
+              f"1e-6{', exempt: a block CG reached its cap' if capped else ''})")
+        if ep["solve"] != "halo" or (rel > 1e-6 and not capped):
+            raise AssertionError(f"production halo epoch {i + 1}: mode "
+                                 f"{ep['solve']}, TCV off phase 11's")
+    if prof.get("device_s", 0.0) > 0 and prof.get("its"):
+        print(f"production halo idle share (solve 27, of the last "
+              f"epoch): {prof['wall_s']:.3f} s wall, "
+              f"{prof['device_s']:.3f} s of device kernels: idle "
+              f"{100 * (1 - prof['device_s'] / prof['wall_s']):.1f} %; "
+              f"{prof['kernels']} kernel launches over {prof['its']} CG "
+              f"iterations: {prof['kernels'] / prof['its']:.1f} per "
+              f"iteration, {1e3 * prof['wall_s'] / prof['its']:.3f} ms wall "
+              f"per iteration")
+    else:
+        print(f"production halo idle share: not measured ({prof})")
+
+
+def sharded_modes_phase(jacobi):
+    """Phase 19: the multi-shard modes on the one card.  Returns the 2d
+    kernels' launches in its lattice runs (the halo pool launches
+    none)."""
+    launches = sharded_small_phase()
+    sharded_full_phase(jacobi)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     device_phase()
@@ -2023,6 +2331,9 @@ def main():
     t0 = time.perf_counter()
     matrix_free_phase()
     print(f"matrix_free_phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi = sharded_modes_phase(jacobi)
+    print(f"sharded_modes_phase: {time.perf_counter() - t0:.1f} s")
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]
@@ -2044,6 +2355,7 @@ def main():
             "library_ms": head["library_ms"], "shapes": taken})
         if k["dim"] == 2:
             entries[-1]["launches_seam"] = seam["phi_launches"]
+            entries[-1]["launches_multi_shard"] = multi["phi"]
         head = shapes[0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
@@ -2058,6 +2370,7 @@ def main():
             entries[-1]["launches_seam"] = (seam["launches"]
                                             - seam["phi_launches"])
             entries[-1]["seam_products"] = seam["products"]
+            entries[-1]["launches_multi_shard"] = multi["rest"]
         head = records[k["name"]][1][0]   # the sharded f32 u block
         entries.append({
             "name": k["sharded"], "route": "cuda",
@@ -2072,6 +2385,7 @@ def main():
             "shapes": records[k["name"]][1]})
         if k["dim"] == 2:
             entries[-1]["launches_seam"] = seam["sharded"]
+            entries[-1]["launches_multi_shard"] = multi["sharded"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

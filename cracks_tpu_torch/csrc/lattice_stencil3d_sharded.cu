@@ -43,7 +43,7 @@
 // itself).  The tensor map is encoded on the host at each launch
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda).
 //
-// Several cards (ROADMAP A11b) are not served: there the in-kernel
+// Several cards (ROADMAP A11c) are not served: there the in-kernel
 // halo read becomes an explicit exchange (NCCL) into halo planes.
 //
 // The kernel allocates nothing and runs on the caller's stream; each

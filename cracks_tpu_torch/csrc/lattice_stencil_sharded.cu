@@ -40,7 +40,7 @@
 // the host at each launch (cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint: no -lcuda).
 //
-// Several cards (ROADMAP A11b) are not served: there the in-kernel
+// Several cards (ROADMAP A11c) are not served: there the in-kernel
 // halo read becomes an explicit exchange (NCCL) into halo rows.
 //
 // The kernel allocates nothing and runs on the caller's stream; each

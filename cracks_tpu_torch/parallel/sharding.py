@@ -21,11 +21,25 @@ padded with zero rows to gyp = ceil(G0/D)*D, and shard i owns rows
 
 Where shards live: all D shards sit on the run's one device, as the
 JAX tests run 8 virtual CPU devices on one host.  Shards on several
-cards (NCCL or peer copies) are ROADMAP A11b, and asking for them
-raises.  The JAX placements under GSPMD -- ``shard_cell_arrays_nopad``
-(``parallel/sharding.py:146``) and ``lattice._maybe_shard_jacs``
+cards (NCCL or peer copies) are ROADMAP A11c, and asking for them
+raises.  The JAX placements under GSPMD -- ``shard_cell_core``,
+``shard_cell_arrays``, ``shard_cell_arrays_nopad``, ``pad_cell_arrays``
+(``parallel/sharding.py:102-173``) and ``lattice._maybe_shard_jacs``
 (``lattice.py:1735``) -- move no value between shards and change no
-result, so on one device they are no-ops and have no code here.
+result, so on one device they are no-ops and have no code here.  That
+is all the replicated cell-axis mode (``n_devices > 1`` with replicated
+DoF vectors) is: the port runs it as the one-shard run.
+
+The product mesh (``mesh_dcn > 1``, JAX's ("dcn", "cells") mesh) keeps
+the flat partition: the same D shards in the same order, since
+``jax.devices()`` is process-major.  Only the lowering of JAX's
+collectives changes, so here it is the mesh's shape and nothing else.
+
+Collectives: the code of the sharded modes reaches other shards only
+through `psum_shards`, `pmax_shards` (JAX's ``psum`` / ``pmax`` over the
+shard axis) and `ppermute_rows`.  On one device they are tensor ops
+across the leading shard axis, the sum in shard order so that every run
+gives the same bits.
 """
 
 from __future__ import annotations
@@ -36,10 +50,20 @@ import torch
 
 
 class ShardMesh(NamedTuple):
-    """D row-slab shards of the leading grid axis, on one device."""
+    """D shards on one device: row slabs of the leading grid axis (the
+    lattice layout) or contiguous cell ranges (the halo pool).  `dcn`
+    is the product mesh's leading extent (1: the flat mesh)."""
 
     n_shards: int
     device: torch.device
+    dcn: int = 1
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """The mesh's shape: (D,) flat, (dcn, D / dcn) as a product."""
+        if self.dcn == 1:
+            return (self.n_shards,)
+        return (self.dcn, self.n_shards // self.dcn)
 
     def padded(self, g0: int) -> int:
         """gyp: the leading extent g0 padded to a multiple of D."""
@@ -50,23 +74,43 @@ class ShardMesh(NamedTuple):
         return self.padded(g0) // self.n_shards
 
 
-def make_shard_mesh(devices: Sequence) -> ShardMesh:
-    """One shard per entry of `devices`, all on one device.  Shards on
-    more than one distinct device raise NotImplementedError (A11b)."""
+def make_shard_mesh(devices: Sequence, dcn: int = 1) -> ShardMesh:
+    """One shard per entry of `devices`, all on one device; with
+    dcn > 1 the product mesh's shape (JAX ``make_device_mesh``:51-81),
+    whose `dcn` must divide D (ValueError, as in JAX).  Shards on more
+    than one distinct device raise NotImplementedError (A11c)."""
     devs = [torch.device(d) for d in devices]
     if not devs:
         raise ValueError("a shard mesh needs at least one shard")
+    if dcn > 1 and len(devs) % dcn:
+        raise ValueError(f"dcn={dcn} does not divide n_devices={len(devs)}")
     if len(set(devs)) > 1:
         raise NotImplementedError(
             f"shards on {len(set(devs))} distinct devices "
             f"({sorted(map(str, set(devs)))}): several cards through "
-            "torch.distributed/NCCL or peer copies are ROADMAP A11b; the "
+            "torch.distributed/NCCL or peer copies are ROADMAP A11c; the "
             "port runs all D shards on one device")
     dev = devs[0]
     if dev.type == "cuda" and dev.index is None:
         # the device a tensor made on "cuda" reports
         dev = torch.device("cuda", torch.cuda.current_device())
-    return ShardMesh(len(devs), dev)
+    return ShardMesh(len(devs), dev, max(dcn, 1))
+
+
+def psum_shards(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``psum`` over the shard axis: x is (D, ...) with one entry
+    per shard; every shard's entry of the result is the total, summed in
+    shard order.  Returns a (D, ...) view of one total."""
+    total = x[0]
+    for s in range(1, x.shape[0]):
+        total = total + x[s]
+    return total.unsqueeze(0).expand(x.shape)
+
+
+def pmax_shards(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``pmax`` over the shard axis: every shard's entry of the
+    (D, ...) result is the largest entry.  Returns a (D, ...) view."""
+    return x.amax(dim=0, keepdim=True).expand(x.shape)
 
 
 def pad_rows(X, gyp: int):

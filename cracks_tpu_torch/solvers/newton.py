@@ -42,6 +42,9 @@ class NewtonLog:
     newton_steps: int = 0
     linear_iterations: int = 0
     active_set_size: int = 0
+    # the largest single block-CG count of the solve (the halo pool's
+    # capped Jacobi CG; 0 elsewhere)
+    max_block_iterations: int = 0
     lines: list = field(default_factory=list)
 
     def print_line(self, *cols, verbose=True):

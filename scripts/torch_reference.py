@@ -29,7 +29,21 @@ The runs (all of them without arguments, else the named ones):
 - ``sneddon_2d_matrix_free_r4``: ``params/parameters_sneddon_2d.prm``
   at global refinement 4 (77,763 DoFs), two load steps, on the
   matrix-free operator (``assembled_matvec=False``) under the
-  mixed-precision Jacobi CG (`ROUND1`).
+  mixed-precision Jacobi CG (`ROUND1`);
+- ``sneddon_2d_1_halo8``: ``params/tests/sneddon_2d_1.prm`` on the mesh
+  of ``__graft_entry__.dryrun_multichip``'s halo step (one local
+  pre-refinement at phase-field value 0.5, no refinement cycle: 453
+  DoFs, 12 hanging vertices), two load steps under the Jacobi CG, at
+  ``n_devices=8, dof_sharding=lattice``: the owned+ghost halo pool on 8
+  virtual CPU devices (`HALO8`; about twelve minutes on an 8-core CPU,
+  nearly all of it XLA compiling the pool's ``shard_map`` programs);
+- ``halo_cg_2d``: one call of the halo pool's block CG
+  (``cracks_tpu.solvers.halo_newton.build_halo_cg``, the split on) at
+  D = 8 on the hanging-node mesh of
+  ``tests/test_halo_newton.py::test_halo_partition_hanging_condensation``,
+  on inputs drawn from ``numpy.random.default_rng(13)``; writes
+  ``halo_cg_2d.npz``: the global inputs and JAX's updates and
+  iteration count (about a minute, the compilation of its while loops).
 
 ``chip_smoke.py`` holds the port's runs of the same files on the card
 against these (the card's machine has no JAX).
@@ -51,6 +65,10 @@ ROUND1 = dict(n_global_pre_refine=4, n_local_pre_refine=0,
               linear_solver="cg", preconditioner="jacobi", cg_rtol=1e-8,
               cg_maxiter=3000, dtype="float64", mixed_precision_cg=True,
               assembled_matvec=False)
+# the halo pool: the dryrun's hanging-node mesh on 8 shards
+HALO8 = dict(n_local_pre_refine=1, value_phase_field_for_refinement=0.5,
+             n_refinement_cycles=0, max_no_timesteps=1, linear_solver="cg",
+             preconditioner="jacobi", n_devices=8, dof_sharding="lattice")
 # name -> (the .prm under params/, overrides)
 RUNS = {
     "parameters_sneddon_2d": ("parameters_sneddon_2d", dict()),
@@ -59,6 +77,7 @@ RUNS = {
     "parameters_miehe_tension_adaptive": (
         "parameters_miehe_tension_adaptive", dict(max_no_timesteps=85)),
     "sneddon_2d_matrix_free_r4": ("parameters_sneddon_2d", ROUND1),
+    "sneddon_2d_1_halo8": (os.path.join("tests", "sneddon_2d_1"), HALO8),
 }
 
 
@@ -69,6 +88,8 @@ def write_reference(name, prm, overrides):
     with tempfile.TemporaryDirectory() as tmp:
         sim, _ = run_prm(os.path.join(ROOT, "params", f"{prm}.prm"),
                          output_dir=tmp, **overrides)
+        if overrides.get("dof_sharding") == "lattice":
+            assert sim.sys.use_halo_state or sim.sys.use_lattice_state
         shutil.copy(os.path.join(tmp, "statistics"),
                     os.path.join(OUT, f"{name}.statistics"))
     dofs = {step: n for step, n, _ in sim.step_times}
@@ -81,15 +102,99 @@ def write_reference(name, prm, overrides):
           f"{len(sim.step_times)} steps, final DoFs {sim.mesh.n_dofs}")
 
 
+def hanging_mesh_2d(Forest, rect_mesh):
+    """The 2d hanging-node mesh of the JAX package's pooled-condensation
+    test: 4 x 4 cells, once refined, a corner patch refined again under
+    the 2:1 balance (91 cells, 114 vertices, 6 hanging)."""
+    import numpy as np
+    forest = Forest(rect_mesh([0, 0], [1, 1], [4, 4]))
+    forest.refine_global(1)
+    flags = np.zeros(forest.n_cells, bool)
+    centers = forest.extract().cell_coords.mean(axis=1)
+    flags[(centers[:, 0] < 0.4) & (centers[:, 1] < 0.4)] = True
+    forest.execute_refinement(forest.balance_flags(flags))
+    return forest.extract()
+
+
+def write_halo_cg():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from cracks_tpu.mesh import Forest
+    from cracks_tpu.meshio import rect_mesh
+    from cracks_tpu.ops import physics
+    from cracks_tpu.parallel import halo
+    from cracks_tpu.parallel.sharding import make_device_mesh
+    from cracks_tpu.solvers.halo_newton import build_halo_cg
+
+    t0 = time.perf_counter()
+    mesh = hanging_mesh_2d(Forest, rect_mesh)
+    n_v = mesh.n_vertices
+    rng = np.random.default_rng(13)
+    x = mesh.vert_coords[:, 0]
+    # clamped left and right edges; an active set on a tenth of the
+    # phase field
+    dir_u = np.repeat((x < 1e-12) | (x > 1 - 1e-12), 2)
+    inp = dict(
+        u=rng.standard_normal(2 * n_v) * 1e-3,
+        phi=rng.uniform(0.3, 1.0, n_v), phi_old=rng.uniform(0.3, 1.0, n_v),
+        dirichlet_u=dir_u, dirichlet_p=np.zeros(n_v, bool),
+        active=rng.uniform(size=n_v) < 0.1,
+        rhs_u=rng.standard_normal(2 * n_v), rhs_p=rng.standard_normal(n_v),
+        lam=0.463, mu=0.417, rtol=1e-10,
+        # pressure, constant_k, alpha_eps, G_c, gamma_dt, theta,
+        # use_old_pf, decompose_rhs
+        scalars=np.array([1e-3, 1e-3, 0.1, 1.0, 0.0, 2.0, 0.0, 1.0]))
+    part = halo.device_put_partition(
+        halo.build_halo_partition(mesh, inp["lam"], inp["mu"], 8),
+        make_device_mesh(8))
+    place = lambda a: jax.device_put(jnp.asarray(a), NamedSharding(
+        make_device_mesh(8), P(halo.AXIS)))
+    lp = lambda a: place(halo.global_to_local_p(part, a))
+    lu = lambda a: place(halo.global_to_local_u(part, a))
+    solve = build_halo_cg(make_device_mesh(8), part, dim=2,
+                          with_split=True)
+    du, dp, its, _ = solve(
+        lu(inp["u"]), lp(inp["phi"]), lp(inp["phi_old"]), lp(inp["phi_old"]),
+        place(halo.global_to_local_p(part, inp["active"] * 1.0) > 0.5),
+        place(halo.global_to_local_u(part, inp["dirichlet_u"] * 1.0) > 0.5),
+        place(halo.global_to_local_p(part, inp["dirichlet_p"] * 1.0) > 0.5),
+        lu(inp["rhs_u"]), lp(inp["rhs_p"]), jnp.asarray(inp["rtol"]),
+        part.arrays, physics.Scalars(*(jnp.asarray(v)
+                                       for v in inp["scalars"])))
+    np.savez(os.path.join(OUT, "halo_cg_2d.npz"), **inp,
+             n_vertices=n_v, du=halo.local_to_global_u(part, np.asarray(du)),
+             dp=halo.local_to_global_p(part, np.asarray(dp)),
+             iterations=int(its))
+    print(f"halo_cg_2d: {time.perf_counter() - t0:.1f} s, {int(its)} its")
+
+
+# name -> a writer of its own (the runs above are driver runs)
+WRITERS = {"halo_cg_2d": write_halo_cg}
+
+
 def main(names):
     os.environ["JAX_PLATFORMS"] = "cpu"
+    names = names or list(RUNS) + list(WRITERS)
+    devices = max(8 if n in WRITERS else RUNS[n][1].get("n_devices", 1)
+                  for n in names)
+    if devices > 1:
+        # virtual CPU devices, as tests/conftest.py makes them
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count={devices}").strip()
     import jax
     jax.config.update("jax_enable_x64", True)
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ROOT)
     os.makedirs(OUT, exist_ok=True)
-    for name in names or RUNS:
-        write_reference(name, *RUNS[name])
+    for name in names:
+        if name in WRITERS:
+            WRITERS[name]()
+        else:
+            write_reference(name, *RUNS[name])
 
 
 if __name__ == "__main__":

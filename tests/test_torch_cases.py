@@ -258,20 +258,21 @@ def test_failed_solve_rules(case, retried, monkeypatch):
 ], ids=["miehe_shear_1-override0-A12",
         "miehe_tension_adaptive_1-override1-A11b"])
 def test_remaining_refusals(case, override, item):
-    """Each raises before any Newton work: at construction, or at the
-    first system setup or solve.  The matrix-free case (item None) runs
-    to its first step instead."""
+    """Formerly refused: each runs to its first step.  The matrix-free
+    case (item None) takes the matrix-free CG; the seam lattice with
+    replicated vectors on 2 devices (A11b) is the one-device run of the
+    replicated Newton, no shard mesh."""
+    p = config.load_parameters(_prm(case), output_dir="",
+                               max_no_timesteps=0, **override)
+    sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert sim.step_cuts == 0 and sim.statistics.data["Bulk Energy"][0] > 0
     if item is None:
-        p = config.load_parameters(_prm(case), output_dir="",
-                                   max_no_timesteps=0, **override)
-        sim = Simulation(p, device="cpu", verbose=False)
-        sim.run()
-        assert sim.step_cuts == 0 and sim.statistics.data["Bulk Energy"][0] > 0
         assert newton.check_linear_solver(sim.sys) == "matrix-free"
         return
-    p = config.load_parameters(_prm(case), output_dir="", **override)
-    with pytest.raises(NotImplementedError, match=item):
-        Simulation(p, device="cpu", verbose=False).run()
+    assert sim.sys.shard_mesh is None and not sim.sys.use_lattice_state
+    assert sim.sys.lattice_hierarchy.seam is not None
+    assert newton.check_linear_solver(sim.sys) == "lattice"
 
 
 @pytest.mark.parametrize("case,override", [

@@ -66,44 +66,55 @@ def test_device_is_explicit():
                   "n_refinement_cycles=0"])
 
 
-# the matrix-free operator (assembled_matvec = False) now runs: its cases
-# keep their ids and run the configuration to its first step (at refine
-# 2 and 0: on the CPU the matrix-free V-cycle costs a thousand jvps per
-# iteration, and without a coarser level the solve is the matrix-free
-# Jacobi CG, as in JAX)
-MATRIX_FREE_RUNS = {"override0-A12": dict(n_global_pre_refine=2),
-                    "override2-A12": dict(n_global_pre_refine=0)}
+# every case now runs (the matrix-free operator, PR 12; the multi-shard
+# modes on one device): each keeps its id and runs the configuration to
+# its first step, cut in size (the matrix-free cases at refine 2 and 0:
+# on the CPU the matrix-free V-cycle costs a thousand jvps per iteration,
+# and without a coarser level the solve is the matrix-free Jacobi CG, as
+# in JAX), and asserts the mode that engaged: the linear solve, the halo
+# pool, or replicated DoF vectors (no shard mesh)
+FIRST_STEP_RUNS = {
+    "override0-A12": (dict(n_global_pre_refine=2), "matrix-free"),
+    "override1-A11b": (dict(n_global_pre_refine=1), "halo"),
+    "override2-A12": (dict(n_global_pre_refine=0), "matrix-free"),
+    "override3-A11b": (dict(n_global_pre_refine=2), "replicated"),
+    "override4-A11": (dict(n_global_pre_refine=2), "replicated")}
 
 
 @pytest.mark.parametrize("override,item", [
     (dict(assembled_matvec=False, preconditioner="jacobi"), None),
+    # a hanging-node mesh on 4 shards: the owned+ghost halo pool
     (dict(n_local_pre_refine=1, n_devices=4, dof_sharding="lattice"),
      "A11b"),
     # the monolithic solver with the matrix-free operator
     (dict(outer_solver="simple monolithic", assembled_matvec=False), None),
-    # the seam lattice (ported) on shards of several devices' mesh
-    (dict(test_case="miehe shear", n_devices=2, mesh_dcn=2), "A11b"),
+    # the (2, 1) product mesh with replicated vectors (the seam lattice
+    # replicated on 2 devices runs in test_torch_cases.py; this file's
+    # Sneddon physics does not converge on the Miehe shear mesh)
+    (dict(n_devices=2, mesh_dcn=2), "A11b"),
+    # the replicated cell-axis mode
     (dict(n_devices=2), "A11"),
 ], ids=["override0-A12", "override1-A11b", "override2-A12", "override3-A11b",
         "override4-A11"])
 def test_unported_configurations_raise(override, item, request):
-    """Each raises before any Newton work: at construction, or for the
-    linear solve, the seam lattice and the halo pool at the first setup
-    or solve of run().  The matrix-free cases (item None) run to their
-    first step instead."""
-    if item is None:
-        cut = MATRIX_FREE_RUNS[request.node.callspec.id]
-        p = config.load_parameters(PRM, **{**BENCH, **override, **cut,
-                                           "max_no_timesteps": 0})
-        sim = Simulation(p, device="cpu", verbose=False)
-        sim.run()
-        assert sim.step_cuts == 0 and len(sim.solver_effort) == 1
-        assert sim.statistics.data["Bulk Energy"][0] > 0
-        assert newton.check_linear_solver(sim.sys) == "matrix-free"
-        return
-    p = config.load_parameters(PRM, **{**BENCH, **override})
-    with pytest.raises(NotImplementedError, match=item):
-        Simulation(p, device="cpu", verbose=False).run()
+    """Formerly refused configurations (the ROADMAP item in each id):
+    each runs to its first step, cut in size, and engages its mode."""
+    cut, mode = FIRST_STEP_RUNS[request.node.callspec.id]
+    p = config.load_parameters(PRM, **{**BENCH, **override, **cut,
+                                       "max_no_timesteps": 0})
+    sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert sim.step_cuts == 0 and len(sim.solver_effort) == 1
+    assert sim.statistics.data["Bulk Energy"][0] > 0
+    if mode == "halo":
+        assert sim.sys.use_halo_state and sim.sys.shard_mesh.n_shards == 4
+        assert len(sim.mesh.hang_child) > 0
+    elif mode == "replicated":
+        assert sim.sys.shard_mesh is None
+        assert not (sim.sys.use_halo_state or sim.sys.use_lattice_state)
+        assert newton.check_linear_solver(sim.sys) == "lattice"
+    else:
+        assert newton.check_linear_solver(sim.sys) == mode
 
 
 # formerly refused (refinement, VTU, checkpoints, the direct solve, the
@@ -189,22 +200,24 @@ SHARDED = dict(n_devices=4, dof_sharding="lattice")
         "no-mixed-precision-lattice"])
 def test_unported_linear_solvers_raise(override, item, sharding):
     """Without mixed precision or the stored element matrices there is
-    no lattice hierarchy: the sharded mode refuses the halo pool
-    (A11b), while the replicated Newton takes the matrix-free CG (item
-    None: run to its first step).  (gmg without mixed precision on the
+    no lattice hierarchy: the replicated Newton takes the matrix-free CG
+    (item None), and the sharded mode the owned+ghost halo pool (A11b),
+    whose solve is its own Jacobi block CG whatever the linear solver.
+    Each runs to its first step.  (gmg without mixed precision on the
     replicated Newton takes the Galerkin hierarchy:
     test_formerly_refused_configurations_run.)"""
-    first_step = dict(max_no_timesteps=0) if item is None else {}
     p = config.load_parameters(PRM, **{**BENCH, **override, **sharding,
-                                       **first_step})
+                                       "max_no_timesteps": 0})
     sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert sim.step_cuts == 0 and len(sim.solver_effort) == 1
     if item is None:
-        sim.run()
-        assert sim.step_cuts == 0 and len(sim.solver_effort) == 1
         assert newton.check_linear_solver(sim.sys) == "matrix-free"
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        sim.run()
+    else:
+        assert sim.sys.use_halo_state and sim.sys.halo_partition.n_shards == 4
+        assert (sim.sys.galerkin_hierarchy is None
+                and sim.sys.hierarchy is None)
+        assert sim.statistics.data["Bulk Energy"][0] > 0
 
 
 def test_cli_parses_overrides(monkeypatch):

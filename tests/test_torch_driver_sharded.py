@@ -14,7 +14,9 @@ four load steps so that the stationary last step records TCV:
 - that run against the port's replicated run (flat Newton, the same
   lattice solve): rel 1e-8, equal Newton iterations.
 
-Unported multi-device modes raise NotImplementedError naming A11b."""
+The product mesh (mesh_dcn = 2) runs the np8 run bit for bit; the
+replicated mode at n_devices = 2 and the (2, 1) product mesh run; only
+shards on distinct devices raise (A11c)."""
 
 import numpy as np
 import pytest
@@ -127,18 +129,40 @@ def test_np1_lattice_matches_replicated(runs):
     assert _newton(s1) == _newton(rep)
 
 
+def test_np8_product_mesh_matches_flat(runs):
+    """mesh_dcn = 2: the (2, 4) product mesh keeps the flat partition,
+    so its run is the np8 run bit for bit."""
+    p = config.Parameters(**SNEDDON, **RUNS["np8"], mesh_dcn=2)
+    sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert sim.sys.use_lattice_state and sim.sys.shard_mesh.shape == (2, 4)
+    assert sim.statistics.data == runs["np8"].statistics.data
+    assert sim.solver_effort == runs["np8"].solver_effort
+
+
 @pytest.mark.parametrize("override", [
     dict(n_devices=2),                                   # replicated
     dict(n_devices=2, dof_sharding="lattice", mesh_dcn=2),
 ], ids=["replicated", "mesh_dcn"])
 def test_unported_multi_device_modes_raise(override):
-    p = config.Parameters(**SNEDDON, **override)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        Simulation(p, device="cpu", verbose=False)
+    """Formerly refused (A11b), now run to their first step: replicated
+    vectors at n_devices = 2 are the one-device replicated run (no shard
+    mesh); the (2, 1) product mesh runs the lattice-layout Newton on its
+    2 row slabs."""
+    p = config.Parameters(**{**SNEDDON, **override, "max_no_timesteps": 0})
+    sim = Simulation(p, device="cpu", verbose=False)
+    sim.run()
+    assert sim.step_cuts == 0 and sim.statistics.data["Bulk Energy"][0] > 0
+    if override.get("dof_sharding") == "lattice":
+        assert sim.sys.use_lattice_state and sim.sys.shard_mesh.shape == (2, 1)
+    else:
+        assert sim.sys.shard_mesh is None and not sim.sys.use_lattice_state
 
 
 def test_shards_on_distinct_devices_raise():
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11c"):
         make_shard_mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
     mesh = make_shard_mesh([torch.device("cpu")] * 2)
     assert (mesh.n_shards, mesh.device) == (2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="divide"):
+        make_shard_mesh([torch.device("cpu")] * 3, dcn=2)
