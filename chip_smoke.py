@@ -2135,10 +2135,11 @@ def sharded_small_phase():
                                      f"{run[5]}, stencil launches {counts}")
         # the replicated runs: the f64 Galerkin block CG to cg_rtol, the
         # gate; BASE's mixed precision, printed: at this size JAX runs
-        # its fused solve, which converges to cg_rtol like the f64 one,
-        # while the port has only the split solve, which stops step 1
-        # one Newton iteration earlier, 1.1e-5 off in bulk energy on
-        # the CPU (ROADMAP C9)
+        # its fused solve, while the port has only the split solve,
+        # whose absolute floor (1e-3 x the Newton lower bound) stops
+        # step 1 one Newton iteration earlier on a stale active set,
+        # as JAX's split solve does, 1.1e-5 off in bulk energy on the
+        # CPU (ROADMAP C15)
         rep = _run_sharded_mode(HETERO_PRM, dict(HALO_BASE,
                                                  mixed_precision_cg=False),
                                 "cuda")

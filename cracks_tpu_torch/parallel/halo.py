@@ -322,8 +322,7 @@ def make_halo_ops(part: HaloPartition):
             lambda r: combine(r, dim), lambda r: combine(r, 1))
 
 
-def halo_residual_fn(part: HaloPartition, *, with_split: bool,
-                     monolithic: bool):
+def halo_residual_fn(part: HaloPartition, *, with_split: bool):
     """The residual on pooled vectors (JAX ``halo_residual_fn``): inputs
     (D, n_loc * dim) / (D, n_loc), ghosts refreshed inside; outputs
     owner-combined (ghost, pad and trash slots zero).  No hanging-node
@@ -335,7 +334,7 @@ def halo_residual_fn(part: HaloPartition, *, with_split: bool,
             gr_u(u).reshape(-1), gr_p(phi).reshape(-1),
             gr_p(phi_old).reshape(-1), gr_p(phi_oold).reshape(-1), part.ca,
             sc, part.cs, dim=part.dim, with_split=with_split,
-            monolithic=monolithic)
+            monolithic=False)
         return (cb_u(ru.reshape(u.shape)), cb_p(rp.reshape(phi.shape)))
 
     return fn

@@ -217,15 +217,14 @@ def build_halo_heads(part: HaloPartition, *, with_split: bool,
 # the linear solve
 # ---------------------------------------------------------------------------
 
-def build_halo_cg(part: HaloPartition, *, with_split: bool,
-                  maxiter: int = HALO_CG_MAXITER):
+def build_halo_cg(part: HaloPartition, *, with_split: bool):
     """The split solve on the pool (JAX ``build_halo_cg``): the stored
     f64 element matrices at the current iterate, then two
     Jacobi-preconditioned CGs, the u block and the phi block with the
     J_pu du coupling moved to its right-hand side.  A matvec is a local
     gather / einsum / ordered scatter, H^T and the owner combine: the
     surface crosses shards, not the volume.  A block CG iterates while
-    |r|^2 > max(rtol, 1e-14)^2 |b|^2 and fewer than `maxiter`
+    |r|^2 > max(rtol, 1e-14)^2 |b|^2 and fewer than HALO_CG_MAXITER
     iterations were taken, and stops at the cap without raising.
 
     Returns solve(u, phi, phi_old, phi_oold, active, dir_u, dir_p,
@@ -290,7 +289,7 @@ def build_halo_cg(part: HaloPartition, *, with_split: bool,
             x = torch.zeros_like(b)
             r, p = b, z
             k = 0
-            while k < maxiter and bool(pdot(r, r) > tol2):
+            while k < HALO_CG_MAXITER and bool(pdot(r, r) > tol2):
                 Ap = op(p)
                 denom = pdot(p, Ap)
                 alpha = torch.where(denom != 0, rz / denom, 0.0)

@@ -43,7 +43,9 @@ class NewtonLog:
     linear_iterations: int = 0
     active_set_size: int = 0
     # the largest single block-CG count of the solve (the halo pool's
-    # capped Jacobi CG; 0 elsewhere)
+    # Jacobi CG, 0 elsewhere): the one reading that shows whether a
+    # block stopped at its fixed 2000-iteration cap without raising
+    # (chip_smoke.py phase 19 prints it per epoch)
     max_block_iterations: int = 0
     lines: list = field(default_factory=list)
 

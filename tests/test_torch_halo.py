@@ -176,8 +176,7 @@ def test_halo_residual_matches_jax(meshes, with_split):
     assert part.ca.JxW.shape[-1] > mesh.n_cells
     u, phi, phi_old = _state(mesh)
     sc = physics.make_scalars(**SCALARS, dtype=torch.float64, device=CPU)
-    fn = halo.halo_residual_fn(part, with_split=with_split,
-                               monolithic=False)
+    fn = halo.halo_residual_fn(part, with_split=with_split)
     loc = lambda x, f: f(part, _t(x))
     ru_l, rp_l = fn(loc(u, halo.global_to_local_u),
                     loc(phi, halo.global_to_local_p),

@@ -6,9 +6,9 @@ and the other multi-shard modes of the driver, against the JAX package:
   (its while loops take the JAX package about a minute of XLA
   compilation on the CPU; `scripts/torch_reference.py halo_cg_2d`
   rewrites it): the updates to 1e-9 of their largest entry, the
-  iteration count within 2 per block (the pool's sums round in another
-  order than JAX's psum over 8 devices, and the stop test sits at
-  cg_rtol);
+  iteration count of the two blocks together within 2 of JAX's (JAX's
+  solve returns only the total; the pool's sums round in another order
+  than JAX's psum over 8 devices, and the stop test sits at cg_rtol);
 - the driver on the mesh of ``__graft_entry__.dryrun_multichip``'s halo
   step (sneddon_2d_1, one local pre-refinement at phase-field value 0.5:
   453 DoFs, 12 hanging vertices), two load steps at n_devices = 8,
@@ -77,7 +77,7 @@ def test_halo_cg_matches_jax():
         lp(t("dirichlet_p").double()) > 0.5, lu(t("rhs_u")), lp(t("rhs_p")),
         float(ref["rtol"]), sc)
     assert 0 < max(it_u, it_p) < HALO_CG_MAXITER
-    assert abs(its - int(ref["iterations"])) <= 4, (its, ref["iterations"])
+    assert abs(its - int(ref["iterations"])) <= 2, (its, ref["iterations"])
     for got, key in ((halo.local_to_global_u(part, du), "du"),
                      (halo.local_to_global_p(part, dp), "dp")):
         want = ref[key]
