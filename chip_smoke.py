@@ -41,7 +41,8 @@ without printing the final line:
    of the streaming kernel must equal the sharded kernel at D = 1 bit
    for bit;
 4. main paths, small: the port's Simulation on the card and on the CPU
-   (plain versions) at 2d refine 3 and 3d refine 1, replicated and with
+   (plain versions) at 2d refine 3 (two load steps) and 3d refine 1
+   (load step 0), replicated and with
    dof_sharding = lattice on 4 shards; the energies must agree to rel
    1e-7 with equal Newton iterations per step (the four CPU runs go to
    spawned worker processes at once, while the card runs its side);
@@ -102,7 +103,8 @@ without printing the final line:
    prints its time, time-step cuts, redone steps and Newton iterations
    per solve;
 13. the shipped Miehe shear file: params/parameters_miehe_shear_adaptive
-   .prm as shipped (200 steps, the split, one adaptive cycle under the
+   .prm as shipped but cut to its first 100 of 200 steps (the load peak
+   is at step 97; the split, one adaptive cycle under the
    level cap, 3,315 DoFs until the crack grows) against the JAX
    package's table of its first 100 steps (tests/torch_reference/
    parameters_miehe_shear_adaptive.statistics, written by
@@ -131,7 +133,8 @@ without printing the final line:
    process) with equal Newton counts;
 15. the full-width hetero-3d run: params/parameters_hetero_3d.prm with
    bench.py's hetero_3d overrides (global refinement 5 + local 5, cg +
-   gmg + mixed precision, cg_rtol 1e-8, cg_maxiter 3000, 3 load steps):
+   gmg + mixed precision, cg_rtol 1e-8, cg_maxiter 3000, load step 0 of
+   bench.py's 3):
    no time-step cut, finite statistics, positive bulk energy, at most
    60 linear iterations per Newton iteration; it prints the DoFs, s,
    Newton and linear iterations per step, the seconds of the f32
@@ -142,7 +145,8 @@ without printing the final line:
    the solve's wall time);
 16. the production run of phase 11 under preconditioner = gmg (the
    Galerkin hierarchy on every epoch above the dense cap), with and
-   without mixed precision: per epoch the DoFs, s/step, linear
+   without mixed precision, its first 2 of 4 epochs (to 16,953 DoFs):
+   per epoch the DoFs, s/step, linear
    iterations per step and TCV beside phase 11's Jacobi numbers; the
    TCV within rel 1e-6 of phase 11's in every epoch and its error
    falling from epoch to epoch.
@@ -228,6 +232,20 @@ without printing the final line:
    per shard, s/step, Newton and linear iterations per step, the
    largest block-CG count and the peak device memory, and the device's
    idle share during one solve of the last epoch (torch.profiler).
+20. the halo pool on W ranks of the one card (torch.distributed; the
+   ranks share the card, so gloo with CUDA tensors staged through
+   pinned host memory; `parallel.dist.launch`), held to phase 19's card
+   runs: its small halo cases at W = 2 and 4 (the dryrun mesh at D = 4
+   on W = 2 and 4, at D = 8 on W = 4, hetero_3d_1 at D = 4 on W = 2)
+   within rel 1e-12 with equal Newton iterations and every rank's
+   statistics bit-equal, whether bit-equal to phase 19 printed; then
+   its production run at W = 4: phase 19's DoFs per epoch, TCV within
+   abs 1e-12 and rel 1e-11 in every epoch, equal Newton iterations per
+   step, no cut.
+   Each rank's device and the transport are printed, and per epoch
+   s/step, ms, collectives and bytes per CG iteration, each rank's peak
+   device memory, and the card's idle share during the last epoch's
+   solves (nvidia-smi utilization samples; no rank runs the profiler).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -297,6 +315,9 @@ KERNELS = [
 # the main paths: small (dim, refine, DoFs) and full size dim -> (refine,
 # DoFs)
 SMALL = [(2, 3, 19_683), (3, 1, 37_044)]
+# the small cases' depth: the 3d ones run load step 0 only (their CPU
+# runs bound phase 3; the smoke's time limit)
+SMALL_STEPS = {2: dict(), 3: dict(max_no_timesteps=0)}
 FULL = {2: (6, 1_232_643), 3: (3, 2_125_764)}
 # the sharded runs: D row slabs of the leading grid axis on the one card
 D_SHARDS = 4
@@ -526,13 +547,13 @@ def kernel_phase(spec):
 
 def _params(dim, refine, **overrides):
     from cracks_tpu_torch import config
+    base = dict(n_global_pre_refine=refine, n_local_pre_refine=0,
+                n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+                linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+                cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
     return config.load_parameters(
         os.path.join(ROOT, "params", f"parameters_sneddon_{dim}d.prm"),
-        n_global_pre_refine=refine, n_local_pre_refine=0,
-        n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
-        linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
-        cg_maxiter=3000, dtype="float64", mixed_precision_cg=True,
-        **overrides)
+        **{**base, **overrides})
 
 
 def _label(overrides):
@@ -561,12 +582,13 @@ def _run_small(dim, refine, overrides, device, n_threads=None):
             time.perf_counter() - t0)
 
 
-def small_phases():
+def small_phases(meanwhile=lambda: None):
     """Each small case, replicated and sharded, on the card vs the plain
     versions on the CPU.  The CPU runs (the 3d ones take minutes of
     plain einsums) go to spawned worker processes at once, splitting the
-    host's cores, while the card runs its side; nothing here is
-    timed."""
+    host's cores, while the card runs its side and then `meanwhile`
+    (the main paths); nothing here is timed.  Returns what `meanwhile`
+    returns."""
     jobs = [(dim, refine, n_dofs, ov) for dim, refine, n_dofs in SMALL
             for ov in ({}, SHARDED)]
     # the two 3d runs take minutes, the two 2d runs seconds: the 3d ones
@@ -575,11 +597,14 @@ def small_phases():
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=ctx) as pool:
-        cpu = [pool.submit(_run_small, dim, refine, ov, "cpu", threads[dim])
+        cpu = [pool.submit(_run_small, dim, refine,
+                           {**SMALL_STEPS[dim], **ov}, "cpu", threads[dim])
                for dim, refine, _, ov in jobs]
-        for (dim, refine, n_dofs, ov), fut in zip(jobs, cpu):
-            runs = {"cuda": _run_small(dim, refine, ov, "cuda")}
-            runs["cpu"] = fut.result()
+        card = [_run_small(dim, refine, {**SMALL_STEPS[dim], **ov}, "cuda")
+                for dim, refine, _, ov in jobs]
+        out = meanwhile()
+        for (dim, refine, n_dofs, ov), fut, on_card in zip(jobs, cpu, card):
+            runs = {"cuda": on_card, "cpu": fut.result()}
             name = f"{dim}d refine {refine}{_label(ov)}"
             for dev, (dofs, energies, its, secs) in runs.items():
                 print(f"{name} on {dev} ({dofs} DoFs, {secs:.1f} s"
@@ -599,6 +624,7 @@ def small_phases():
             if newton[0] != newton[1]:
                 raise AssertionError(f"Newton iterations per step differ "
                                      f"between card and CPU: {newton}")
+    return out
 
 
 def main_phase(dim, refine=None, n_dofs=None, replicated=None,
@@ -1090,9 +1116,15 @@ def goldens_phase():
             raise AssertionError(f"golden {name}:\n" + "\n".join(fails[:20]))
 
 
+# the shipped Miehe file's first 100 of its 200 steps: the JAX table's
+# 100 rows, the load peak (step 97) and its fall
+SHIPPED_MIEHE_STEPS = 100
+
+
 def shipped_miehe_phase():
-    """The shipped Miehe shear file as shipped against the JAX package's
-    table of its first 100 steps, then its own checks to the end."""
+    """The shipped Miehe shear file, its first SHIPPED_MIEHE_STEPS
+    steps, against the JAX package's table of its first 100 steps, then
+    its own checks to the end of the cut."""
     from cracks_tpu_torch import config
     from cracks_tpu_torch.driver import Simulation
     name = "parameters_miehe_shear_adaptive"
@@ -1102,9 +1134,10 @@ def shipped_miehe_phase():
         ref_names, ref = parse_statistics(f.read())
     t0 = time.perf_counter()
     _zero_stencil_counts()
-    sim = Simulation(config.load_parameters(SHIPPED_MIEHE_PRM,
-                                            output_dir=""),
-                     device="cuda", verbose=False)
+    sim = Simulation(config.load_parameters(
+        SHIPPED_MIEHE_PRM, output_dir="",
+        max_no_timesteps=SHIPPED_MIEHE_STEPS - 1), device="cuda",
+        verbose=False)
     records = _instrument_epochs(sim)
     base = _fresh_memory_baseline()
     sim.run()
@@ -1217,12 +1250,15 @@ def shipped_tension_phase():
 
 HETERO_PRM = os.path.join(PRM_TESTS, "hetero_3d_1.prm")
 GMG_CG = dict(linear_solver="cg", preconditioner="gmg")
+HETERO_MIXED = dict(mixed_precision_cg=True, **GMG_CG)
 # phase 15: the parameters_hetero_3d.prm physics on its production mesh
 # with bench.py's overrides (_make_params("hetero_3d", 5, "float64",
 # "gmg", 3))
 HETERO3D_PRM = os.path.join(ROOT, "params", "parameters_hetero_3d.prm")
+# its load step 0 (with its redo) of bench.py's 3 (the smoke's time
+# limit)
 HETERO3D = dict(n_global_pre_refine=5, n_local_pre_refine=5,
-                n_refinement_cycles=0, max_no_timesteps=2, output_dir="",
+                n_refinement_cycles=0, max_no_timesteps=0, output_dir="",
                 cg_rtol=1e-8, cg_maxiter=3000, dtype="float64",
                 mixed_precision_cg=True, **GMG_CG)
 
@@ -1245,69 +1281,66 @@ def _lin_per_newton(sim):
     return max(e[2] / e[1] for e in sim.solver_effort)
 
 
-def hetero_goldens_phase():
+def hetero_goldens_phase(cpu):
     """Phase 14: hetero_3d_1 (3d, bitmap material, hanging nodes) as
     shipped against its golden; under cg + gmg (the Galerkin GMG, f64)
     against the golden's first row, twice, bit for bit; with mixed
-    precision (the split solve) against the CPU port."""
-    mixed = dict(mixed_precision_cg=True, **GMG_CG)
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
-        cpu = pool.submit(_run_hetero_cpu, mixed,
-                          max(1, (os.cpu_count() or 2) - 1))
+    precision (the split solve) against the CPU port (`cpu`, the future
+    of _run_hetero_cpu(HETERO_MIXED), started with phase 12)."""
+    t0 = time.perf_counter()
+    _zero_stencil_counts()
+    sim = _run_quiet(HETERO_PRM, output_dir="")
+    names, ours = parse_statistics(sim.statistics.write_text())
+    with open(os.path.join(GOLDEN_DIR,
+                           "hetero_3d_1.mpirun-4.statistics")) as f:
+        g_names, golden = parse_statistics(f.read())
+    fails = golden_failures(names, ours, g_names, golden,
+                            {"Energy": (1e-6, 3e-3)}, None, {})
+    dofs_ok = np.array_equal(ours[:, g_names.index("DoFs")],
+                             golden[:, g_names.index("DoFs")])
+    print(f"hetero_3d_1 as shipped on cuda: "
+          f"{time.perf_counter() - t0:.2f} s, {len(ours)} rows, DoFs "
+          f"{sim.statistics.data['DoFs']}, Newton/linear its per step "
+          f"{[(e[1], e[2]) for e in sim.solver_effort]}, stencil "
+          f"launches {_stencil_counts()}, {len(fails)} cells off the "
+          "golden (Energy columns |d| <= 1e-6 or rel <= 3e-3)")
+    if fails or not dofs_ok or sim.step_cuts:
+        raise AssertionError("hetero_3d_1 as shipped:\n"
+                             + "\n".join(fails))
+    runs = []
+    for _ in range(2):
         t0 = time.perf_counter()
-        _zero_stencil_counts()
-        sim = _run_quiet(HETERO_PRM, output_dir="")
+        sim = _run_quiet(HETERO_PRM, output_dir="", max_no_timesteps=0,
+                         **GMG_CG)
         names, ours = parse_statistics(sim.statistics.write_text())
-        with open(os.path.join(GOLDEN_DIR,
-                               "hetero_3d_1.mpirun-4.statistics")) as f:
-            g_names, golden = parse_statistics(f.read())
-        fails = golden_failures(names, ours, g_names, golden,
-                                {"Energy": (1e-6, 3e-3)}, None, {})
-        dofs_ok = np.array_equal(ours[:, g_names.index("DoFs")],
-                                 golden[:, g_names.index("DoFs")])
-        print(f"hetero_3d_1 as shipped on cuda: "
-              f"{time.perf_counter() - t0:.2f} s, {len(ours)} rows, DoFs "
-              f"{sim.statistics.data['DoFs']}, Newton/linear its per step "
-              f"{[(e[1], e[2]) for e in sim.solver_effort]}, stencil "
-              f"launches {_stencil_counts()}, {len(fails)} cells off the "
-              "golden (Energy columns |d| <= 1e-6 or rel <= 3e-3)")
-        if fails or not dofs_ok or sim.step_cuts:
-            raise AssertionError("hetero_3d_1 as shipped:\n"
+        fails = table_failures(ours[:1], golden[:1], 1e-6, 3e-3)
+        runs.append((_energies(sim), sim.solver_effort))
+        levels = [int(lv.inject_p.numel())
+                  for lv in sim.sys.galerkin_hierarchy.levels]
+        print(f"hetero_3d_1 cg + gmg (f64 Galerkin block CG) on cuda: "
+              f"{time.perf_counter() - t0:.2f} s, Galerkin levels of "
+              f"{levels} vertices, Newton/linear its "
+              f"{[(e[1], e[2]) for e in sim.solver_effort]} (at most "
+              f"{_lin_per_newton(sim):.1f} per Newton iteration, bound "
+              f"60), energies "
+              f"{[repr(float(e)) for e in runs[-1][0].ravel()]}"
+              f", {len(fails)} cells of the first row off the golden")
+        if fails or _lin_per_newton(sim) > 60 or sim.step_cuts:
+            raise AssertionError("hetero_3d_1 cg + gmg:\n"
                                  + "\n".join(fails))
-        runs = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            sim = _run_quiet(HETERO_PRM, output_dir="", max_no_timesteps=0,
-                             **GMG_CG)
-            names, ours = parse_statistics(sim.statistics.write_text())
-            fails = table_failures(ours[:1], golden[:1], 1e-6, 3e-3)
-            runs.append((_energies(sim), sim.solver_effort))
-            levels = [int(lv.inject_p.numel())
-                      for lv in sim.sys.galerkin_hierarchy.levels]
-            print(f"hetero_3d_1 cg + gmg (f64 Galerkin block CG) on cuda: "
-                  f"{time.perf_counter() - t0:.2f} s, Galerkin levels of "
-                  f"{levels} vertices, Newton/linear its "
-                  f"{[(e[1], e[2]) for e in sim.solver_effort]} (at most "
-                  f"{_lin_per_newton(sim):.1f} per Newton iteration, bound "
-                  f"60), energies "
-                  f"{[repr(float(e)) for e in runs[-1][0].ravel()]}"
-                  f", {len(fails)} cells of the first row off the golden")
-            if fails or _lin_per_newton(sim) > 60 or sim.step_cuts:
-                raise AssertionError("hetero_3d_1 cg + gmg:\n"
-                                     + "\n".join(fails))
-        if not (np.array_equal(runs[0][0], runs[1][0])
-                and runs[0][1] == runs[1][1]):
-            raise AssertionError(f"two card runs of hetero_3d_1 cg + gmg "
-                                 f"differ: {runs}")
-        print("hetero_3d_1 cg + gmg: two card runs bit-equal")
-        t0 = time.perf_counter()
-        sim = _run_quiet(HETERO_PRM, output_dir="", **mixed)
-        e_cpu, newton_cpu, lin_cpu = cpu.result()
+    if not (np.array_equal(runs[0][0], runs[1][0])
+            and runs[0][1] == runs[1][1]):
+        raise AssertionError(f"two card runs of hetero_3d_1 cg + gmg "
+                             f"differ: {runs}")
+    print("hetero_3d_1 cg + gmg: two card runs bit-equal")
+    t0 = time.perf_counter()
+    sim = _run_quiet(HETERO_PRM, output_dir="", **HETERO_MIXED)
+    secs = time.perf_counter() - t0
+    e_cpu, newton_cpu, lin_cpu = cpu.result()
     rel = float(np.max(np.abs(_energies(sim) - e_cpu) / np.abs(e_cpu)))
     newton = [e[1] for e in sim.solver_effort]
     print(f"hetero_3d_1 cg + gmg + mixed precision (the split solve) on "
-          f"cuda: {time.perf_counter() - t0:.2f} s, Newton/linear its "
+          f"cuda: {secs:.2f} s, Newton/linear its "
           f"{[(e[1], e[2]) for e in sim.solver_effort]} (CPU port: "
           f"{list(zip(newton_cpu, lin_cpu))}), max relative energy "
           f"difference to the CPU port {rel:.3e} (bound 1e-6)")
@@ -1342,6 +1375,32 @@ def _phase_timers():
     return secs, lambda: [setattr(galerkin, n, f) for n, f in saved.items()]
 
 
+def _start_trace(**kw):
+    """Start a kineto trace of the activities that
+    torch.autograd.profiler.profile(**kw) would record; returns a stop()
+    that gives its raw events.  Through torch's own calls beneath the
+    profiler: its exit would first parse every event into a Python tree
+    (tens of seconds per 10^5 launches, where a torch version does that
+    eagerly).  Where those calls differ, torch.profiler itself."""
+    from torch.autograd import profiler as ap
+    prof = ap.profile(use_kineto=True, **kw)
+    try:
+        try:
+            cfg = prof.config(create_trace_id=False)
+        except TypeError:
+            cfg = prof.config()
+        torch.autograd._prepare_profiler(cfg, prof.kineto_activities)
+        torch.autograd._enable_profiler(cfg, prof.kineto_activities)
+    except (AttributeError, TypeError, RuntimeError):
+        prof.__enter__()
+
+        def stop():
+            prof.__exit__(None, None, None)
+            return prof.kineto_results.events()
+        return stop
+    return lambda: torch.autograd._disable_profiler().events()
+
+
 def _profiler(calls):
     """(a dict, wrap): wrap(fn) is fn with a call counter shared by
     every function wrapped this way; the `calls`-th call runs under
@@ -1356,22 +1415,23 @@ def _profiler(calls):
             n[0] += 1
             if n[0] != calls:
                 return fn(*args, **kw)
-            from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                res = fn(*args, **kw)
-                torch.cuda.synchronize()
-                out["wall_s"] = time.perf_counter() - t0
-            averages = prof.key_averages()
-            out["device_s"] = sum(
-                getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-                for e in averages) * 1e-6
+            stop = _start_trace(use_cpu=False, use_device="cuda")
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            try:
+                events = stop()
+            except RuntimeError as e:
+                print(f"torch.profiler: {e}")
+                return res
+            device = [e for e in events
+                      if e.device_type() == torch.autograd.DeviceType.CUDA]
+            out["device_s"] = sum(e.duration_ns() for e in device) * 1e-9
             out["kernels"] = sum(
-                e.count for e in averages
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith(("Memcpy", "Memset")))
+                1 for e in device
+                if not e.name().startswith(("Memcpy", "Memset")))
             if isinstance(res, tuple) and len(res) >= 3:
                 out["its"] = int(res[2])
             return res
@@ -1394,7 +1454,7 @@ def _profile_solve(calls, module=None, name="solve_split"):
 
 def hetero3d_phase():
     """Phase 15: the full-width hetero-3d run (global refinement 5 +
-    local pre-refinement 5, the split solve, 3 load steps)."""
+    local pre-refinement 5, the split solve, load step 0)."""
     from cracks_tpu_torch import config
     from cracks_tpu_torch.driver import Simulation
     t0 = time.perf_counter()
@@ -1445,7 +1505,7 @@ def hetero3d_phase():
     else:
         print(f"hetero-3d idle share: not measured (the profiler recorded "
               f"no device time: {prof})")
-    if (sim.step_cuts or len(sim.step_times) != 3
+    if (sim.step_cuts or len(sim.step_times) != 1
             or not all(math.isfinite(v) for v in values)
             or not min(data["Bulk Energy"]) > 0
             or _lin_per_newton(sim) > 60):
@@ -1455,14 +1515,22 @@ def hetero3d_phase():
                              "per Newton iteration")
 
 
+# phase 16 runs the production run's first 2 of its 4 epochs (the
+# smoke's time limit)
+PRODUCTION_GMG_CYCLES = 1
+
+
 def production_gmg_phase(jacobi):
     """Phase 16: the production run of phase 11 under the Galerkin GMG,
-    with and without mixed precision: per epoch its TCV equal to phase
+    with and without mixed precision, cut to its first
+    PRODUCTION_GMG_CYCLES + 1 epochs: per epoch its TCV equal to phase
     11's (the Jacobi CG) to rel 1e-6, and the TCV error falling."""
+    n_epochs = PRODUCTION_GMG_CYCLES + 1
     for label, ov in (("production gmg + mixed precision",
                        dict(preconditioner="gmg", mixed_precision_cg=True)),
                       ("production gmg f64", dict(preconditioner="gmg"))):
-        out = production_phase(label, **ov)
+        out = production_phase(
+            label, n_refinement_cycles=PRODUCTION_GMG_CYCLES, **ov)
         for i, (a, b) in enumerate(zip(out["epochs"], jacobi["epochs"])):
             print(f"{label} epoch {i + 1}: {a['dofs']} DoFs, solve "
                   f"{a['solve']}, s/step {a['s_per_step']:.3f} (Jacobi "
@@ -1475,9 +1543,9 @@ def production_gmg_phase(jacobi):
         print(f"{label}: {out['secs']:.2f} s (Jacobi {jacobi['secs']:.2f} "
               f"s), TCV relative difference to the Jacobi run per epoch "
               f"{rel} (bound 1e-6)")
-        if (len(out["tcv"]) != len(jacobi["tcv"]) or max(rel) > 1e-6
+        if (len(out["tcv"]) != n_epochs or max(rel) > 1e-6
                 or [e["dofs"] for e in out["epochs"]]
-                != [e["dofs"] for e in jacobi["epochs"]]):
+                != [e["dofs"] for e in jacobi["epochs"][:n_epochs]]):
             raise AssertionError(f"{label}: the TCV or the epochs differ "
                                  "from the Jacobi run's")
         if any(e["solve"] != "galerkin" for e in out["epochs"]
@@ -1501,8 +1569,13 @@ MIEHE_FULL = dict(refine=8, dofs=790_275, grid=(514, 513), seam=(256, 257),
                   levels=7)
 # the steps of the full-width run in the smoke (the bench case's 25
 # steps are recorded in PERF.md with the command that ran them)
-MIEHE_FULL_STEPS = 25
+# the bench case's first 3 of bench.py's 25 steps: the whole smoke must
+# stay inside its time limit with phase 20 (PERF.md)
+MIEHE_FULL_STEPS = 3
 MIEHE_SMALL = [(3, 891), (5, 12_771)]
+# phase 17's small cases on the CPU: (kind, refinement, DoFs)
+SEAM_JOBS = ([("miehe", r, n) for r, n in MIEHE_SMALL]
+             + [("mono", 0, 363), ("mono", 1, 1323)])
 MIEHE_COLUMNS = ("Bulk Energy", "Crack Energy", "Load x")
 # the simple monolithic solver on the Sneddon golden's file, the cases
 # of tests/test_torch_monolithic.py: refinement 0 (363 DoFs, the dense
@@ -1572,58 +1645,51 @@ def _agree(label, a, b, bound=(1e-7,), floor=0.0):
         raise AssertionError(f"{label}: the runs disagree")
 
 
-def seam_small_phase():
+def seam_small_phase(cpu):
     """Phase 17, small: miehe_shear_2.prm at refinement 3 and 5 under the
     bench's solver settings, 3 steps, on the card against the CPU port
-    (spawned workers), and on 4 row slabs against the replicated card
-    run; the small monolithic Sneddon run, card against CPU."""
-    jobs = ([("miehe", r, n) for r, n in MIEHE_SMALL]
-            + [("mono", 0, 363), ("mono", 1, 1323)])
-    ctx = multiprocessing.get_context("spawn")
-    threads = max(1, ((os.cpu_count() or 4) - 1) // len(jobs))
-    with concurrent.futures.ProcessPoolExecutor(len(jobs),
-                                                mp_context=ctx) as pool:
-        cpu = [pool.submit(_run_case, kind, r, {}, "cpu", threads)
-               for kind, r, _ in jobs]
-        for (kind, r, n_dofs), fut in zip(jobs, cpu):
+    (`cpu`: the futures of each SEAM_JOBS case on the CPU, started with
+    phase 16), and on 4 row slabs against the replicated card run; the
+    small monolithic Sneddon run, card against CPU."""
+    for (kind, r, n_dofs), fut in zip(SEAM_JOBS, cpu):
+        _zero_stencil_counts()
+        card = _run_case(kind, r, {}, "cuda")
+        counts = _stencil_counts()
+        host = fut.result()
+        name = (f"miehe_shear_2 refine {r}" if kind == "miehe"
+                else f"simple monolithic sneddon_2d_1 refine {r}")
+        for dev, run in (("cuda", card), ("cpu", host)):
+            print(f"{name} on {dev}: {run[0]} DoFs, {run[4]:.1f} s, "
+                  f"statistics {run[1].tolist()}")
+            if run[0] != n_dofs:
+                raise AssertionError(f"{run[0]} DoFs, expected {n_dofs}")
+        print(f"{name} on cuda: stencil launches {counts}")
+        if (counts[0] > 0) != (r > 0):
+            raise AssertionError(f"{name}: {counts[0]} 2d stencil "
+                                 "launches")
+        if kind == "miehe" or r == 0:
+            _agree(f"{name} cuda vs cpu", card, host)
+        else:
+            # the lattice monolithic run: its step-1 bulk energy
+            # (2e-15) is ten orders below step 0's, the rounding
+            # floor of the sum; its crack energy (6e-10) is set by
+            # how far 1 - phi (~1e-5) has converged when the Newton
+            # stops at residual 1e-7, after 24 iterations of step 1
+            # at a reduction ~0.97 each (measured 1.2e-7 card vs
+            # CPU, 3e-8 port vs JAX on the CPU)
+            _agree(f"{name} cuda vs cpu", card, host,
+                   bound=(1e-7, 1e-6), floor=1e-6)
+        if kind == "miehe":
             _zero_stencil_counts()
-            card = _run_case(kind, r, {}, "cuda")
+            sharded = _run_case(kind, r, SHARDED, "cuda")
             counts = _stencil_counts()
-            host = fut.result()
-            name = (f"miehe_shear_2 refine {r}" if kind == "miehe"
-                    else f"simple monolithic sneddon_2d_1 refine {r}")
-            for dev, run in (("cuda", card), ("cpu", host)):
-                print(f"{name} on {dev}: {run[0]} DoFs, {run[4]:.1f} s, "
-                      f"statistics {run[1].tolist()}")
-                if run[0] != n_dofs:
-                    raise AssertionError(f"{run[0]} DoFs, expected {n_dofs}")
-            print(f"{name} on cuda: stencil launches {counts}")
-            if (counts[0] > 0) != (r > 0):
-                raise AssertionError(f"{name}: {counts[0]} 2d stencil "
-                                     "launches")
-            if kind == "miehe" or r == 0:
-                _agree(f"{name} cuda vs cpu", card, host)
-            else:
-                # the lattice monolithic run: its step-1 bulk energy
-                # (2e-15) is ten orders below step 0's, the rounding
-                # floor of the sum; its crack energy (6e-10) is set by
-                # how far 1 - phi (~1e-5) has converged when the Newton
-                # stops at residual 1e-7, after 24 iterations of step 1
-                # at a reduction ~0.97 each (measured 1.2e-7 card vs
-                # CPU, 3e-8 port vs JAX on the CPU)
-                _agree(f"{name} cuda vs cpu", card, host,
-                       bound=(1e-7, 1e-6), floor=1e-6)
-            if kind == "miehe":
-                _zero_stencil_counts()
-                sharded = _run_case(kind, r, SHARDED, "cuda")
-                counts = _stencil_counts()
-                print(f"{name} sharded (D={D_SHARDS}) on cuda: "
-                      f"{sharded[4]:.1f} s, stencil launches {counts}")
-                if counts[2] <= 0:
-                    raise AssertionError(f"{name} sharded: no sharded "
-                                         "launch")
-                _agree(f"{name} sharded vs replicated on cuda", sharded,
-                       card)
+            print(f"{name} sharded (D={D_SHARDS}) on cuda: "
+                  f"{sharded[4]:.1f} s, stencil launches {counts}")
+            if counts[2] <= 0:
+                raise AssertionError(f"{name} sharded: no sharded "
+                                     "launch")
+            _agree(f"{name} sharded vs replicated on cuda", sharded,
+                   card)
 
 
 def seam_kernel_phase():
@@ -1797,9 +1863,10 @@ def miehe_full_phase():
     return out
 
 
-def seam_phase():
-    """Phase 17: the seam lattice and the monolithic solver."""
-    seam_small_phase()
+def seam_phase(cpu):
+    """Phase 17: the seam lattice and the monolithic solver (`cpu`: see
+    seam_small_phase)."""
+    seam_small_phase(cpu)
     products = seam_kernel_phase()
     return dict(products=products, **miehe_full_phase())
 
@@ -2022,20 +2089,22 @@ def matrix_free_full_phase(small):
         torch.cuda.empty_cache()
 
 
-def matrix_free_phase():
+def mf_cpu_jobs(pool):
+    """Phase 18's CPU runs of the small cases, submitted to `pool` (the
+    3d one, minutes of eager jvps, with three threads): their
+    futures."""
+    return [pool.submit(_run_mf, prm, ov, "cpu", 3 if "3d" in label else 1)
+            for label, prm, ov, _ in MF_SMALL]
+
+
+def matrix_free_phase(cpu):
     """Phase 18: the matrix-free operator.  The CPU runs of the small
-    cases go to spawned workers at once (the 3d one, minutes of eager
-    jvps, with three threads) and are compared when the card has run
-    the small and the full-size cases."""
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(len(MF_SMALL),
-                                                mp_context=ctx) as pool:
-        cpu = [pool.submit(_run_mf, prm, ov, "cpu",
-                           3 if "3d" in label else 1)
-               for label, prm, ov, _ in MF_SMALL]
-        card = _mf_small_card()
-        matrix_free_full_phase(card)
-        _mf_small_compare(card, cpu)
+    cases (`cpu`, the futures of mf_cpu_jobs, started with phase 17)
+    are compared when the card has run the small and the full-size
+    cases."""
+    card = _mf_small_card()
+    matrix_free_full_phase(card)
+    _mf_small_compare(card, cpu)
 
 
 # phase 19: the multi-shard modes, D shards on the one card.  The halo
@@ -2113,12 +2182,17 @@ def _bit_equal(label, a, b):
 def sharded_small_phase():
     """Phase 19, small: the halo cases on the card against the CPU port
     (spawned workers), hetero_3d_1 also against the replicated card
-    run; the card-only bit-equalities of the other modes."""
+    run; the card-only bit-equalities of the other modes.  Returns the
+    2d kernels' launches of the lattice runs and the halo card runs by
+    label."""
     ctx = multiprocessing.get_context("spawn")
-    threads = max(1, ((os.cpu_count() or 4) - 1) // len(HALO_SMALL))
+    # one thread for each dryrun case, the rest for hetero_3d_1 (the
+    # longest: ~28 s on two threads, what the phase waited for)
+    spare = max(1, (os.cpu_count() or 4) - 1 - (len(HALO_SMALL) - 1))
     with concurrent.futures.ProcessPoolExecutor(len(HALO_SMALL),
                                                 mp_context=ctx) as pool:
-        cpu = [pool.submit(_run_sharded_mode, prm, ov, "cpu", threads)
+        cpu = [pool.submit(_run_sharded_mode, prm, ov, "cpu",
+                           spare if prm == HETERO_PRM else 1)
                for _, prm, ov, _ in HALO_SMALL]
         card = {}
         for label, prm, ov, n_dofs in HALO_SMALL:
@@ -2133,13 +2207,9 @@ def sharded_small_phase():
             if run[0] != n_dofs or run[5] != "halo" or any(counts):
                 raise AssertionError(f"{label}: {run[0]} DoFs, mode "
                                      f"{run[5]}, stencil launches {counts}")
-        # the replicated runs: the f64 Galerkin block CG to cg_rtol, the
-        # gate; BASE's mixed precision, printed: at this size JAX runs
-        # its fused solve, while the port has only the split solve,
-        # whose absolute floor (1e-3 x the Newton lower bound) stops
-        # step 1 one Newton iteration earlier on a stale active set,
-        # as JAX's split solve does, 1.1e-5 off in bulk energy on the
-        # CPU (ROADMAP C15)
+        # the replicated runs: the f64 Galerkin block CG to cg_rtol, and
+        # BASE's mixed precision, the split solve with the fused
+        # solve's target at this size, as JAX takes it (C15, closed)
         rep = _run_sharded_mode(HETERO_PRM, dict(HALO_BASE,
                                                  mixed_precision_cg=False),
                                 "cuda")
@@ -2160,8 +2230,8 @@ def sharded_small_phase():
     # JAX's np1/np8 tolerance (tests/test_halo_newton.py:44-49): every
     # entry within abs 1e-6 or rel 1e-7
     halo = card[HALO_SMALL[2][0]]
-    for label, run in (("mixed-precision split solve, not gated",
-                        rep_mixed), ("f64 Galerkin block CG", rep)):
+    for label, run in (("mixed-precision split solve", rep_mixed),
+                       ("f64 Galerkin block CG", rep)):
         d = np.abs(halo[1] - run[1])
         ok = bool(((d <= 1e-6) | (d <= 1e-7 * np.abs(run[1]))).all())
         print(f"hetero_3d_1 halo D=4 vs replicated ({label}) on cuda "
@@ -2169,11 +2239,11 @@ def sharded_small_phase():
               f"{run[1].tolist()}): max abs difference {d.max():.3e}, max "
               f"rel {float((d / np.abs(run[1])).max()):.3e} (abs 1e-6 or "
               f"rel 1e-7: {ok})")
-    if not ok or rep[3] or [n for n, _ in rep[2]] != [
-            n for n, _ in halo[2]]:
-        raise AssertionError("hetero_3d_1: the halo pool and the replicated "
-                             "run disagree")
-    return launches
+        if not ok or run[3] or [n for n, _ in run[2]] != [
+                n for n, _ in halo[2]]:
+            raise AssertionError(f"hetero_3d_1: the halo pool and the "
+                                 f"replicated run ({label}) disagree")
+    return launches, card
 
 
 def sharded_card_only_phase():
@@ -2232,7 +2302,7 @@ def _profile_halo_solve(calls):
 def sharded_full_phase(jacobi):
     """Phase 19, full width: phase 11's production run at n_devices =
     4, dof_sharding = lattice (the halo pool on every epoch) against
-    phase 11's epochs and TCV."""
+    phase 11's epochs and TCV.  Returns production_phase's dict."""
     from cracks_tpu_torch.solvers import halo_newton
     pools, blocks = [], []
     newton_halo = halo_newton.newton_active_set_halo
@@ -2292,49 +2362,316 @@ def sharded_full_phase(jacobi):
               f"per iteration")
     else:
         print(f"production halo idle share: not measured ({prof})")
+    return out
 
 
 def sharded_modes_phase(jacobi):
     """Phase 19: the multi-shard modes on the one card.  Returns the 2d
     kernels' launches in its lattice runs (the halo pool launches
-    none)."""
-    launches = sharded_small_phase()
-    sharded_full_phase(jacobi)
-    return launches
+    none), its small halo card runs ("small") and its production run
+    ("production"): phase 20's references."""
+    launches, card = sharded_small_phase()
+    return dict(launches, small=card, production=sharded_full_phase(jacobi))
+
+
+# phase 20: the halo pool on W ranks of the one card.  The ranks share
+# the card, so the transport is gloo with CUDA tensors staged through
+# pinned host buffers (NCCL refuses two ranks on one device); each rank
+# holds D / W shards.  Small: phase 19's halo cases at W = 2 and 4;
+# full width: phase 19's production run at W = 4.  Phase 19's card runs
+# are the references.
+RANKED_SMALL = [
+    (f"{label} W={W}", prm, ov, W, label)
+    for (label, prm, ov, _), worlds in zip(HALO_SMALL, ((2, 4), (4,), (2,)))
+    for W in worlds]
+RANKED_FULL_W = 4
+
+
+def _host_resident_bytes():
+    """This process's resident host memory now (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _rank_info(ranks):
+    from cracks_tpu_torch.parallel import dist
+    return dict(rank=ranks.rank, device=str(ranks.device),
+                transport=dist.describe(ranks),
+                peak_bytes=(torch.cuda.max_memory_allocated()
+                            if ranks.device.type == "cuda" else 0),
+                host_bytes=_host_resident_bytes())
+
+
+def _ranked_cases(ranks, cases, production):
+    """A rank of a phase-20 launch: each small case's
+    _run_sharded_mode tuple, the rank's device, transport and peak
+    memory after them, and with `production` then the production run
+    (_ranked_production's dict)."""
+    small = [_run_sharded_mode(prm, ov, ranks.device.type)
+             for prm, ov in cases]
+    return (small, _rank_info(ranks),
+            _ranked_production(ranks) if production else None)
+
+
+def _ranked_production(ranks):
+    """A rank of the phase-20 production run: production_phase's dict
+    (printed by rank 0 alone), every halo solve's (DoFs, synchronized
+    wall seconds, CG iterations, collectives, bytes, start and end on
+    the host's clock), and the rank's device, transport and peak
+    memory.  No rank runs torch.profiler: the device's idle share comes
+    from nvidia-smi's utilization samples (`_gpu_sampler`)."""
+    from cracks_tpu_torch.parallel import dist
+    from cracks_tpu_torch.solvers import halo_newton
+    if ranks.rank:
+        sys.stdout = open(os.devnull, "w")
+    build = halo_newton.build_halo_cg
+    solves = []
+
+    def timed_build(part, **kw):
+        solve = build(part, **kw)
+
+        def timed(*args, **kws):
+            torch.cuda.synchronize()
+            c0, b0 = dist.COUNTS["collectives"], dist.COUNTS["bytes"]
+            t0, w0 = time.perf_counter(), time.time()
+            out = solve(*args, **kws)
+            torch.cuda.synchronize()
+            solves.append((part.n_vertices * (part.dim + 1),
+                           time.perf_counter() - t0, int(out[2]),
+                           dist.COUNTS["collectives"] - c0,
+                           dist.COUNTS["bytes"] - b0, w0, time.time()))
+            d, w, its, c = solves[-1][:4]
+            print(f"  solve {len(solves)}: {d} DoFs, {its} CG its, "
+                  f"{1e3 * w / max(its, 1):.3f} ms and "
+                  f"{c / max(its, 1):.2f} collectives per iteration",
+                  flush=True)
+            return out
+        return timed
+
+    halo_newton.build_halo_cg = timed_build
+    try:
+        out = production_phase(f"production halo W={ranks.world}",
+                               **SHARDED)
+    finally:
+        halo_newton.build_halo_cg = build
+    return dict(out, solves=solves, **_rank_info(ranks))
+
+
+def _gpu_sampler(stop, samples):
+    """Until `stop` is set: every 2 s, (host time, the card's
+    utilization.gpu in %: the share of the last sample period in which
+    a kernel ran) from nvidia-smi (polled every 0.5 s it slowed a
+    collective by ~10 %, scripts/bench_rank_transport.py)."""
+    while not stop.wait(2.0):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "--id=0"],
+            capture_output=True, text=True, timeout=30)
+        if smi.returncode == 0 and smi.stdout.strip().isdigit():
+            samples.append((time.time(), int(smi.stdout.strip())))
+
+
+def _host_guard(stop, floor_bytes=12 << 30):
+    """Until `stop` is set: every 2 s, if the host's available memory
+    falls below `floor_bytes`, kill this process's children (the
+    launch then fails on the dead ranks) rather than let the machine
+    run out."""
+    while not stop.wait(2.0):
+        with open("/proc/meminfo") as f:
+            info = dict(line.split(":", 1) for line in f)
+        avail = int(info["MemAvailable"].split()[0]) * 1024
+        if avail < floor_bytes:
+            print(f"host memory guard: {avail} B available, killing the "
+                  "ranks", flush=True)
+            for child in multiprocessing.active_children():
+                child.kill()
+
+
+def _launch_on_card(fn, world, args, tmp, samples=None):
+    """dist.launch under the host-memory guard; with `samples` (a list)
+    nvidia-smi's utilization samples of the card are appended to it
+    meanwhile."""
+    import threading
+    from cracks_tpu_torch.parallel import dist
+    stop = threading.Event()
+    threads = [threading.Thread(target=_host_guard, args=(stop,),
+                                daemon=True)]
+    if samples is not None:
+        threads.append(threading.Thread(target=_gpu_sampler,
+                                        args=(stop, samples), daemon=True))
+    for t in threads:
+        t.start()
+    try:
+        return dist.launch(fn, world, args=args, device="cuda",
+                           rendezvous_dir=tmp, timeout_s=300,
+                           deadline_s=900,
+                           n_threads=max(1, (os.cpu_count() or 8) // world))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+
+
+def ranked_small_phase(entries, outs, card, secs):
+    """Phase 20, small: each case on W ranks within rel 1e-12 of phase
+    19's one-process card run, with equal Newton iterations, all ranks
+    bit-equal."""
+    infos = [o[1] for o in outs]
+    W = len(outs)
+    print(f"phase 20 on cuda, {W} ranks ("
+          + "; ".join(f"rank {i['rank']} on {i['device']}" for i in infos)
+          + f"), {infos[0]['transport']}: {secs:.1f} s with the ranks' "
+          f"start, peak device memory per rank after the small cases "
+          f"{[i['peak_bytes'] for i in infos]} B, resident host memory "
+          f"per rank then {[i['host_bytes'] for i in infos]} B")
+    for n, (label, _, _, _, ref_label) in enumerate(entries):
+        ref = card[ref_label]
+        run = outs[0][0][n]
+        same_ranks = all(np.array_equal(o[0][n][1], run[1])
+                         and o[0][n][2] == run[2] for o in outs)
+        bits = np.array_equal(run[1], ref[1]) and run[2] == ref[2]
+        rel = float((np.abs(run[1] - ref[1]) / np.abs(ref[1])).max())
+        print(f"{label} on cuda: {run[4]:.1f} s, mode {run[5]}, "
+              f"statistics {run[1].tolist()}, Newton/linear its {run[2]} "
+              f"(phase 19: {ref[2]}, {ref[4]:.1f} s), max rel difference "
+              f"to phase 19 {rel:.3e} (bound 1e-12), bit-equal to phase "
+              f"19: {bits}, ranks bit-equal: {same_ranks}")
+        if (run[5] != "halo" or rel > 1e-12 or not same_ranks or run[3]
+                or [n for n, _ in run[2]] != [n for n, _ in ref[2]]):
+            raise AssertionError(f"{label}: off phase 19's run")
+
+
+def ranked_full_phase(outs, samples, production):
+    """Phase 20, full width: phase 19's production run on W = 4 ranks:
+    its DoFs per epoch, TCV within abs 1e-12 and rel 1e-11 in every
+    epoch, equal Newton iterations per step, no time-step cut (production_phase's
+    gate); per epoch s/step, ms, collectives and bytes per CG
+    iteration, and each rank's peak memory; the device's idle share
+    during the last epoch's solves from nvidia-smi's samples."""
+    W = len(outs)
+    out = outs[0]
+    print(f"production halo W={W}: {out['secs']:.2f} s in rank 0's run "
+          f"(phase 19 {production['secs']:.2f} s), "
+          + "; ".join(f"rank {o['rank']} on {o['device']}" for o in outs)
+          + f", {out['transport']}, resident host memory per rank at "
+          f"its end {[o['host_bytes'] for o in outs]} B")
+    ref_epochs = production["epochs"]
+    if [e["dofs"] for e in out["epochs"]] != [e["dofs"] for e in ref_epochs]:
+        raise AssertionError(f"production halo W={W}: DoFs per epoch "
+                             "differ from phase 19's")
+    for o in outs[1:]:
+        if o["tcv"] != out["tcv"]:
+            raise AssertionError(f"production halo W={W}: rank "
+                                 f"{o['rank']}'s TCV differs from rank 0's")
+    for i, (ep, ref, tcv, tcv_ref) in enumerate(zip(
+            out["epochs"], ref_epochs, out["tcv"], production["tcv"])):
+        mine = [s for s in out["solves"] if s[0] == ep["dofs"]]
+        wall, its, coll, nbytes = (sum(s[k] for s in mine)
+                                   for k in (1, 2, 3, 4))
+        diff = abs(tcv - tcv_ref)
+        newton = [n for n, _ in ep["its"]]
+        newton_ref = [n for n, _ in ref["its"]]
+        print(f"production halo W={W} epoch {i + 1}: {ep['dofs']} DoFs, "
+              f"s/step {[round(x, 3) for x in ep['step_s']]} (phase 19 "
+              f"{[round(x, 3) for x in ref['step_s']]}), Newton/linear "
+              f"its per step {ep['its']} (phase 19 {ref['its']}), "
+              f"{1e3 * wall / max(its, 1):.3f} ms per CG iteration over "
+              f"{len(mine)} solves, {coll / max(its, 1):.2f} collectives "
+              f"and {nbytes / max(its, 1):.0f} B per CG iteration per "
+              f"rank, TCV {tcv!r} vs phase 19's {tcv_ref!r}: "
+              f"{diff:.3e} apart (bound 1e-12), rel "
+              f"{diff / abs(tcv_ref):.3e} (bound 1e-11), peak memory per "
+              f"rank {[o['epochs'][i]['peak_bytes'] for o in outs]} B (phase "
+              f"19: {ref['peak_bytes']} B)")
+        if (diff > 1e-12 or diff > 1e-11 * abs(tcv_ref)
+                or newton != newton_ref):
+            raise AssertionError(f"production halo W={W} epoch {i + 1}: "
+                                 "TCV or Newton iterations off phase 19's")
+    last = [(a, b) for d, _, _, _, _, a, b in out["solves"]
+            if d == out["epochs"][-1]["dofs"]]
+    busy = [u for t, u in samples if any(a <= t <= b for a, b in last)]
+    if busy:
+        share = sum(busy) / len(busy)
+        print(f"production halo W={W} idle share during the last epoch's "
+              f"{len(last)} solves: {100 - share:.1f} % (nvidia-smi "
+              f"utilization.gpu, {len(busy)} samples, mean busy "
+              f"{share:.1f} %; {len(samples)} samples over the run, mean "
+              f"busy {sum(u for _, u in samples) / len(samples):.1f} %)")
+    else:
+        print(f"production halo W={W} idle share: not measured "
+              f"({len(samples)} samples)")
+
+
+def ranked_phase(multi):
+    """Phase 20: the halo pool on W ranks of the one card, held to
+    phase 19's runs: one launch per W, its small cases, and at
+    RANKED_FULL_W then the production run."""
+    worlds = {}
+    for entry in RANKED_SMALL:
+        worlds.setdefault(entry[3], []).append(entry)
+    for W, entries in sorted(worlds.items()):
+        production = W == RANKED_FULL_W
+        samples = [] if production else None
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _launch_on_card(
+                _ranked_cases, W,
+                ([(prm, ov) for _, prm, ov, _, _ in entries], production),
+                tmp, samples)
+        ranked_small_phase(entries, outs, multi["small"],
+                           time.perf_counter() - t0)
+        if production:
+            ranked_full_phase([o[2] for o in outs], samples,
+                              multi["production"])
+
+
+def _main_paths():
+    """The main path of each dimension at full width, replicated and
+    then sharded: ({dim: main_phase's dict}, the same sharded)."""
+    full = {k["dim"]: _timed(main_phase, k["dim"]) for k in KERNELS}
+    return full, {dim: main_phase(dim, replicated=full[dim], **SHARDED)
+                  for dim in full}
+
+
+def _timed(phase, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main():
     t_start = time.perf_counter()
     device_phase()
-    build_phase()
-    records = {k["name"]: kernel_phase(k) for k in KERNELS}
-    small_phases()
-    full = {k["dim"]: main_phase(k["dim"]) for k in KERNELS}
-    full_sharded = {dim: main_phase(dim, replicated=full[dim], **SHARDED)
-                    for dim in full}
-    golden2d_phase()
-    golden3d_phase()
-    shipped_phase()
-    jacobi = production_phase()
-    goldens_phase()
-    shipped_miehe_phase()
-    t0 = time.perf_counter()
-    shipped_tension_phase()
-    print(f"shipped_tension_phase: {time.perf_counter() - t0:.1f} s")
-    for phase, args in ((hetero_goldens_phase, ()), (hetero3d_phase, ()),
-                        (production_gmg_phase, (jacobi,))):
-        t0 = time.perf_counter()
-        phase(*args)
-        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    seam = seam_phase()
-    print(f"seam_phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    matrix_free_phase()
-    print(f"matrix_free_phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    multi = sharded_modes_phase(jacobi)
-    print(f"sharded_modes_phase: {time.perf_counter() - t0:.1f} s")
+    _timed(build_phase)
+    records = {k["name"]: _timed(kernel_phase, k) for k in KERNELS}
+    full, full_sharded = _timed(small_phases, _main_paths)
+    print(f"main_phase, sharded: {time.perf_counter() - t_start:.1f} s "
+          "since the start")
+    for phase in (golden2d_phase, golden3d_phase, shipped_phase):
+        _timed(phase)
+    jacobi = _timed(production_phase)
+    # the CPU references of phases 14, 17 and 18 start a phase ahead of
+    # them, beside the card's phases 12-13, 16 and 17 (they were what
+    # 14, 17 and 18 waited for)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            1 + len(SEAM_JOBS) + len(MF_SMALL), mp_context=ctx) as early:
+        hetero_cpu = early.submit(_run_hetero_cpu, HETERO_MIXED, 4)
+        for phase in (goldens_phase, shipped_miehe_phase,
+                      shipped_tension_phase):
+            _timed(phase)
+        _timed(hetero_goldens_phase, hetero_cpu)
+        _timed(hetero3d_phase)
+        seam_cpu = [early.submit(_run_case, kind, r, {}, "cpu", 1)
+                    for kind, r, _ in SEAM_JOBS]
+        _timed(production_gmg_phase, jacobi)
+        mf_cpu = mf_cpu_jobs(early)
+        seam = _timed(seam_phase, seam_cpu)
+        _timed(matrix_free_phase, mf_cpu)
+    multi = _timed(sharded_modes_phase, jacobi)
+    _timed(ranked_phase, multi)
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]

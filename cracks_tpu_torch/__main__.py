@@ -7,8 +7,20 @@ Runs the simulation described by the parameter file, with any
 ``Parameters`` field overridable as ``key=value``, on the given device.
 The device defaults to ``cuda``, and a missing card raises; the port
 never falls back to the CPU on its own.
+
+On W ranks, one process each::
+
+    torchrun --standalone --nproc-per-node W -m cracks_tpu_torch \
+        <parameters.prm> n_devices=D dof_sharding=lattice [device=cpu]
+
+Each rank joins the process group from torchrun's environment and takes
+card LOCAL_RANK % device_count (or the CPU), NCCL when every rank has a
+card of its own, else gloo (`parallel/dist.py`); W must divide D, and
+the halo pool runs D / W shards on each rank.  Rank 0 prints and writes
+the output.  Without torchrun the run is one process.
 """
 
+import os
 import sys
 
 
@@ -42,6 +54,17 @@ def main(argv=None):
             device = value
         else:
             overrides[key] = _convert(getattr(base, key), value)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .parallel import dist
+        ranks = dist.init_process_group(device=device)
+        try:
+            if ranks.rank == 0:
+                print(f"Problem dimension: "
+                      f"{base.replace(**overrides).dimension}")
+            run_prm(argv[0], device=ranks.device, **overrides)
+        finally:
+            dist.destroy_process_group()
+        return 0
     print(f"Problem dimension: {base.replace(**overrides).dimension}")
     run_prm(argv[0], device=device, **overrides)
     return 0

@@ -23,7 +23,11 @@ shards all sit on the run's one device: replicated DoF vectors (the JAX
 cell-axis mode) run as the one-shard run; `dof_sharding = lattice` runs
 the lattice-layout Newton on D row slabs where the lattice hierarchy
 exists, else the owned+ghost halo pool (`solvers.halo_newton`); the
-product mesh (`mesh_dcn`) keeps the flat partition.
+product mesh (`mesh_dcn`) keeps the flat partition.  On W ranks
+(`parallel.dist`, one process per rank) the halo pool runs its D shards
+D / W to a rank; every rank runs the host work (forest, refinement,
+Kelly, QoI, statistics) on the gathered state, so every rank builds the
+same next mesh, and rank 0 alone prints and writes files.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from .ops.constraints import (Constraints, hanging_interpolate_p,
                               hanging_interpolate_u, make_constraints)
 from .ops.scatter import CellScatter, cell_scatter
 from .output import PvdWriter, write_vtu
-from .parallel import halo
+from .parallel import dist, halo
 from .parallel.sharding import make_shard_mesh
 from .solvers import (galerkin, halo_newton, lattice, lattice_newton,
                       multigrid, newton)
@@ -84,7 +88,7 @@ class System:
     sharded-DoF modes, and the physics scalars (refreshed per solve
     context)."""
 
-    def __init__(self, params, mesh, bitmap=None, *, device):
+    def __init__(self, params, mesh, bitmap=None, *, device, ranks=None):
         self.params = params
         self.mesh = mesh
         self.dim = mesh.dim
@@ -135,15 +139,15 @@ class System:
         self._galerkin_levels_cache = None
         # dof_sharding = lattice (set by Simulation.setup_system): the
         # lattice-layout Newton, with n_devices = D > 1 on D row slabs,
-        # or the halo pool of D shards; all on this System's one device.
-        # Replicated DoF vectors need no shard mesh (the cell-axis mode
-        # moves no value on one device).
+        # or the halo pool of D shards, on this System's one device or,
+        # on W ranks, D / W to a rank.  Replicated DoF vectors need no
+        # shard mesh (the cell-axis mode moves no value on one device).
         self.use_lattice_state = False
         self.use_halo_state = False
         self.halo_partition = None
         self.shard_mesh = (
             make_shard_mesh([self.device] * params.n_devices,
-                            dcn=params.mesh_dcn)
+                            dcn=params.mesh_dcn, ranks=ranks)
             if params.n_devices > 1 and params.dof_sharding == "lattice"
             else None)
         # energy Lame fields on the device (qoi.energy_tcv_device); the
@@ -272,10 +276,42 @@ class Simulation:
     """The driver object (FracturePhaseFieldProblem analogue) on one
     explicit device."""
 
-    def __init__(self, params, *, device, verbose: bool = True):
+    def __init__(self, params, *, device, verbose: bool = True,
+                 ranks: dist.Ranks | None = None):
+        """With `ranks` (by default the process group this process set
+        up through `dist.init_process_group`, if any) of W > 1 ranks the
+        run takes the rank's device, and only rank 0 prints and writes
+        files.  W must divide n_devices, and the only mode on W > 1
+        ranks is the halo pool: the replicated cell-axis mode raises
+        NotImplementedError (ROADMAP A11e), as a solve on the lattice
+        layout does (A11d, `_solve_step`)."""
+        ranks = dist.current() if ranks is None else ranks
+        self.ranks = ranks if ranks is not None and ranks.world > 1 else None
+        if self.ranks is not None:
+            if torch.device(device).type != ranks.device.type:
+                raise ValueError(f"device {device} on a rank of "
+                                 f"{ranks.device}")
+            device = ranks.device
+            if params.n_devices % ranks.world:
+                raise ValueError(f"the world size {ranks.world} does not "
+                                 f"divide n_devices={params.n_devices}")
+            if (params.dof_sharding != "lattice"
+                    or params.outer_solver != "active set"):
+                raise NotImplementedError(
+                    "the replicated cell-axis mode on "
+                    f"{ranks.world} ranks is ROADMAP A11e (dof_sharding="
+                    f"{params.dof_sharding}, outer solver "
+                    f"{params.outer_solver!r}); one process (W = 1) runs "
+                    "it")
+            if ranks.rank > 0:
+                verbose = False
+                params = params.replace(output_dir="")
         self.p = params
         self.device = resolve_device(device)
         self.verbose = verbose
+        if self.ranks is not None:
+            self.log(f"{dist.describe(self.ranks)}; rank 0 on "
+                     f"{self.device}")
         if params.n_devices > 1:
             shape = ("" if params.mesh_dcn == 1 else
                      f" (the ({params.mesh_dcn}, "
@@ -355,7 +391,8 @@ class Simulation:
         vectors (cracks_tpu/driver.py:361-396)."""
         p = self.p
         self.sys = None
-        self.sys = System(p, self.mesh, self.bitmap, device=self.device)
+        self.sys = System(p, self.mesh, self.bitmap, device=self.device,
+                          ranks=self.ranks)
         self.sys.constant_k = self.constant_k
         self.sys.alpha_eps = self.alpha_eps
 
@@ -394,13 +431,17 @@ class Simulation:
             part = halo.build_halo_partition(
                 self.mesh, self.sys.lam_cells, self.sys.mu_cells,
                 self.sys.shard_mesh.n_shards, dtype=self.sys.dtype,
-                device=self.device)
+                device=self.device, shard_mesh=self.sys.shard_mesh)
             self.sys.halo_partition = part
             self.sys.use_halo_state = True
+            where = ("" if self.ranks is None else
+                     f", {part.n_local} per rank, "
+                     f"{dist.describe(self.ranks)}")
             self.log("DoF sharding = lattice: no tensor-grid fast path on "
                      "this mesh; engaging the owned+ghost halo-pool sharded "
                      f"mode (D = {part.n_shards}, pool B = {part.n_pool}, "
-                     f"n_loc = {part.n_loc} of {part.n_vertices} vertices)")
+                     f"n_loc = {part.n_loc} of {part.n_vertices} vertices"
+                     f"{where})")
         elif p.dof_sharding == "lattice":
             self.sys.shard_mesh = None
             self.log("DoF sharding = lattice requested but unavailable "
@@ -814,6 +855,11 @@ class Simulation:
         (`_solve_step_monolithic`)."""
         if self.sys.monolithic:
             return self._solve_step_monolithic(state)
+        if self.sys.use_lattice_state and self.ranks is not None:
+            raise NotImplementedError(
+                f"the lattice layout on {self.ranks.world} ranks is ROADMAP "
+                "A11d (the global-view lattice GMG split by slab); one "
+                "process (W = 1) runs it")
         solve = (lattice_newton.newton_active_set_lattice
                  if self.sys.use_lattice_state
                  else halo_newton.newton_active_set_halo

@@ -14,16 +14,21 @@ totals the partial sums of interface rows and hands them to their owners
 extended with the masters of its hanging vertices, so the hanging-node
 constraints are shard-local (solvers/halo_newton.py).
 
-Layout, all shards in one launch: every pooled vector is (D, n_loc *
-comps), slot order per shard [owned | ghost | pad | trash], the trash
-slot n_loc - 1.  JAX's per-shard cell tables ((D, ..., C)) are flattened
-into one `physics.CellArrays` over the D * C cells (`HaloPartition.ca`,
-shard-major), each shard's gathers offset by s * n_loc (* dim for u)
-into the flattened (D * n_loc) vector, so each per-shard step of JAX's
-``shard_map`` bodies is one batched call of the port's `ops/physics.py`
-for all shards.  The partition is built on the
-System's device; JAX's ``halo_specs``, ``device_put_partition`` and
-``_shard_ca`` are ``shard_map`` plumbing and have no counterpart.
+Layout, all of a process's shards in one launch: every pooled vector
+is (D_local, n_loc * comps), slot order per shard [owned | ghost | pad |
+trash], the trash slot n_loc - 1.  JAX's per-shard cell tables ((D,
+..., C)) are flattened into one `physics.CellArrays` over the D_local *
+C cells (`HaloPartition.ca`, shard-major), each shard's gathers offset
+by its local index * n_loc (* dim for u) into the flattened (D_local *
+n_loc) vector, so each per-shard step of JAX's ``shard_map`` bodies is
+one batched call of the port's `ops/physics.py` for the process's
+shards.  In one process D_local = D.  On W ranks every rank builds the
+whole partition on the host (it is deterministic, so every rank builds
+the same one) and moves to its device only the rows of its own D / W
+shards; the pool sums go through `psum_shards` across the ranks, and
+`local_to_global_*` gathers every rank's owned slots.  JAX's
+``halo_specs``, ``device_put_partition`` and ``_shard_ca`` are
+``shard_map`` plumbing and have no counterpart.
 """
 
 from __future__ import annotations
@@ -37,13 +42,13 @@ import torch
 from .. import fem
 from ..ops import physics
 from ..ops.scatter import CellScatter, ScatterTable, cell_scatter, scatter_table
-from .sharding import psum_shards
+from .sharding import ShardMesh, gather_shards, psum_shards
 
 
 class HaloArrays(NamedTuple):
-    """Device tensors, each with the leading shard axis D (JAX's
-    HaloArrays without its cell tables, which `HaloPartition.ca` holds
-    flattened)."""
+    """Device tensors, each with the leading axis of the process's
+    D_local shards (JAX's HaloArrays without its cell tables, which
+    `HaloPartition.ca` holds flattened)."""
 
     own_mask_p: torch.Tensor   # (D, n_loc) bool: slot owned (not pad)
     loc2glob: torch.Tensor     # (D, n_loc) int64: global vertex (or n_v)
@@ -62,14 +67,24 @@ class HaloPartition:
     arrays: HaloArrays
     n_loc: int                 # local vertex slots per shard (incl. trash)
     n_pool: int                # B interface vertices
-    n_shards: int
+    n_shards: int              # D, over all ranks
     dim: int
     n_vertices: int            # global count
-    ca: physics.CellArrays     # the D * C shard-local cells, shard-major
+    ca: physics.CellArrays     # the D_local * C cells, shard-major
     cs: CellScatter            # its ordered scatter tables
-    pool_pos: torch.Tensor     # flat (D * n_loc) slots that have a pool slot
-    pool_tgt: torch.Tensor     # their flat (D * (B + 1)) pool positions
-    hang_scatter: ScatterTable  # the masters' rows, flat (D * n_loc)
+    pool_pos: torch.Tensor     # flat (D_local * n_loc) slots with a pool slot
+    pool_tgt: torch.Tensor     # their flat (D_local * (B + 1)) pool positions
+    hang_scatter: ScatterTable  # the masters' rows, flat (D_local * n_loc)
+    # every owned slot of all D shards: its flat (D * n_loc) position and
+    # its global vertex (the gather of local_to_global_*)
+    own_pos: torch.Tensor
+    own_glob: torch.Tensor
+    mesh: ShardMesh | None = None  # the ranks (None: one process)
+
+    @property
+    def n_local(self) -> int:
+        """D_local: the shards this process holds."""
+        return self.n_shards if self.mesh is None else self.mesh.n_local
 
 
 def _local_cell_arrays(mesh, lam, mu, cells_s, g2l):
@@ -92,14 +107,18 @@ def _local_cell_arrays(mesh, lam, mu, cells_s, g2l):
 
 
 def build_halo_partition(mesh, lam, mu, n_shards: int, *,
-                         dtype=torch.float64, device) -> HaloPartition:
+                         dtype=torch.float64, device,
+                         shard_mesh: ShardMesh | None = None
+                         ) -> HaloPartition:
     """Host-side construction (JAX ``build_halo_partition``, copied
     exactly): contiguous Morton cell ranges (the forest sorts cells along
     its space-filling curve), vertex ownership by the lowest shard that
     touches the vertex through a cell, the pool = the vertices seen by
     more than one shard.  On meshes with hanging nodes each shard's
     vertex set is extended with the masters of its hanging vertices, so
-    H / H^T are shard-local; "seen by" uses the extended sets."""
+    H / H^T are shard-local; "seen by" uses the extended sets.  With a
+    `shard_mesh` of W > 1 ranks only this rank's shards reach
+    `device`."""
     n_c, n_v, dim = mesh.n_cells, mesh.n_vertices, mesh.dim
     bounds = np.linspace(0, n_c, n_shards + 1).astype(np.int64)
     shard_of_cell = np.searchsorted(bounds[1:], np.arange(n_c), "right")
@@ -192,6 +211,23 @@ def build_halo_partition(mesh, lam, mu, n_shards: int, *,
     flt = dict(dtype=dtype, device=device)
     dev = lambda a, kw: torch.as_tensor(np.ascontiguousarray(a), **kw)
     b = dict(dtype=torch.bool, device=device)
+    # the gather of local_to_global_*, over all D shards
+    own_pos = np.nonzero(own_mask.reshape(-1))[0]
+    own_glob = loc2glob.reshape(-1)[own_pos]
+    # this process's shards
+    if shard_mesh is not None and shard_mesh.world > 1:
+        lo = shard_mesh.first
+        mine = slice(lo, lo + shard_mesh.n_local)
+        own_mask, loc2glob, loc2pool, is_ghost, hang_mask_l = (
+            a[mine] for a in (own_mask, loc2glob, loc2pool, is_ghost,
+                              hang_mask_l))
+        h_child, h_masters, h_weights = (a[mine] for a in (
+            h_child, h_masters, h_weights))
+        ca_parts = ca_parts[mine]
+        shards = shards[mine]
+    else:
+        shard_mesh = None
+    n_local = len(shards)
     arrays = HaloArrays(
         own_mask_p=dev(own_mask, b), loc2glob=dev(loc2glob, i64),
         loc2pool=dev(loc2pool, i64), is_ghost=dev(is_ghost, b),
@@ -200,9 +236,10 @@ def build_halo_partition(mesh, lam, mu, n_shards: int, *,
                                          device=device)),
         hang_mask=dev(hang_mask_l, b))
 
-    # the flattened cells: shard s's gathers offset into the (D * n_loc)
-    # vector, the shard axis folded into the cell axis (shard-major)
-    shard = np.arange(n_shards)
+    # the flattened cells: local shard s's gathers offset into the
+    # (D_local * n_loc) vector, the shard axis folded into the cell axis
+    # (shard-major)
+    shard = np.arange(n_local)
     offsets = [shard * n_loc * dim, shard * n_loc, 0, 0, 0, 0, 0]
 
     def flat(i, kw):
@@ -216,7 +253,7 @@ def build_halo_partition(mesh, lam, mu, n_shards: int, *,
         grads=flat(3, flt),
         shape_v=dev(fem.element_tables(dim).shape_v, flt),
         lam=flat(4, flt), mu=flat(5, flt), inv_diam2=flat(6, flt))
-    cs = cell_scatter(ca, n_shards * n_loc * dim, n_shards * n_loc)
+    cs = cell_scatter(ca, n_local * n_loc * dim, n_local * n_loc)
     # the pool exchange's targets: one slot per (shard, pool vertex)
     on_pool = np.nonzero((loc2pool < B).reshape(-1))[0]
     pool_tgt = (np.repeat(shard, n_loc) * (B + 1)
@@ -235,7 +272,9 @@ def build_halo_partition(mesh, lam, mu, n_shards: int, *,
         pool_tgt=dev(pool_tgt, i64),
         hang_scatter=scatter_table(dev(hang_tgt, i64),
                                    dev(real, dict(dtype=torch.bool,
-                                                  device=device))))
+                                                  device=device))),
+        own_pos=dev(own_pos, i64), own_glob=dev(own_glob, i64),
+        mesh=shard_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -243,60 +282,68 @@ def build_halo_partition(mesh, lam, mu, n_shards: int, *,
 # ---------------------------------------------------------------------------
 
 def global_to_local_p(part: HaloPartition, x: torch.Tensor) -> torch.Tensor:
-    """A flat (n_v,) vector -> (D, n_loc), ghosts filled, pad and trash
+    """A flat (n_v,) vector -> (D_local, n_loc), ghosts filled, pad and trash
     slots zero."""
     xe = torch.cat([x, x.new_zeros(1)])
     return xe[part.arrays.loc2glob]
 
 
 def global_to_local_u(part: HaloPartition, x: torch.Tensor) -> torch.Tensor:
-    """A flat (n_v * dim,) vector -> (D, n_loc * dim)."""
+    """A flat (n_v * dim,) vector -> (D_local, n_loc * dim)."""
     xe = torch.cat([x.reshape(part.n_vertices, part.dim),
                     x.new_zeros((1, part.dim))])
-    return xe[part.arrays.loc2glob].reshape(part.n_shards, -1)
+    return xe[part.arrays.loc2glob].reshape(part.n_local, -1)
 
 
-def local_to_global_p(part: HaloPartition, xl: torch.Tensor) -> torch.Tensor:
-    """(D, n_loc) -> the flat (n_v,) vector of the owned slots."""
-    mask = part.arrays.own_mask_p
-    out = xl.new_zeros(part.n_vertices)
-    out[part.arrays.loc2glob[mask]] = xl[mask]
+def _to_global(part: HaloPartition, xl: torch.Tensor, comps: int):
+    """(D_local, n_loc * comps) -> the (n_v, comps) rows of the owned
+    slots of all D shards (every rank's, gathered on W > 1 ranks)."""
+    if part.mesh is not None:
+        xl = gather_shards(xl, part.mesh)
+    out = xl.new_zeros((part.n_vertices, comps))
+    out[part.own_glob] = xl.reshape(-1, comps)[part.own_pos]
     return out
 
 
+def local_to_global_p(part: HaloPartition, xl: torch.Tensor) -> torch.Tensor:
+    """(D_local, n_loc) -> the flat (n_v,) vector of the owned slots."""
+    return _to_global(part, xl, 1).reshape(-1)
+
+
 def local_to_global_u(part: HaloPartition, xl: torch.Tensor) -> torch.Tensor:
-    """(D, n_loc * dim) -> the flat (n_v * dim,) vector."""
-    mask = part.arrays.own_mask_p
-    out = xl.new_zeros((part.n_vertices, part.dim))
-    xs = xl.reshape(part.n_shards, part.n_loc, part.dim)
-    out[part.arrays.loc2glob[mask]] = xs[mask]
-    return out.reshape(-1)
+    """(D_local, n_loc * dim) -> the flat (n_v * dim,) vector."""
+    return _to_global(part, xl, part.dim).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
 # the halo primitives, all shards at once
 # ---------------------------------------------------------------------------
 
-def _pool_exchange(part: HaloPartition, vals: torch.Tensor) -> torch.Tensor:
-    """Write each shard's (n_loc, comps) values into its own pool (D, B+1,
-    comps), psum the pools over the shards; returns the (D, B+1, comps)
-    totals.  Within one shard a pool slot has at most one local slot,
-    so the write is a scatter without duplicates."""
-    D, comps = part.n_shards, vals.shape[-1]
+def write_pools(part: HaloPartition, vals: torch.Tensor) -> torch.Tensor:
+    """Each shard's (n_loc, comps) values written into its own pool:
+    (D_local, B+1, comps).  Within one shard a pool slot has at most one
+    local slot, so the write is a scatter without duplicates."""
+    D, comps = part.n_local, vals.shape[-1]
     pools = vals.new_zeros((D * (part.n_pool + 1), comps))
     pools[part.pool_tgt] = vals.reshape(-1, comps)[part.pool_pos]
-    return psum_shards(pools.reshape(D, part.n_pool + 1, comps))
+    return pools.reshape(D, part.n_pool + 1, comps)
 
 
-def _from_pool(part: HaloPartition, pool: torch.Tensor) -> torch.Tensor:
-    """Each slot's row of its shard's pool: (D, n_loc, comps)."""
-    shard = torch.arange(part.n_shards, device=pool.device)[:, None]
+def _pool_exchange(part: HaloPartition, vals: torch.Tensor) -> torch.Tensor:
+    """The pools of `write_pools` summed over all shards: the (D_local,
+    B+1, comps) totals."""
+    return psum_shards(write_pools(part, vals), part.mesh)
+
+
+def read_pools(part: HaloPartition, pool: torch.Tensor) -> torch.Tensor:
+    """Each slot's row of its shard's pool: (D_local, n_loc, comps)."""
+    shard = torch.arange(part.n_local, device=pool.device)[:, None]
     return pool[shard, part.arrays.loc2pool]
 
 
 def make_halo_ops(part: HaloPartition):
-    """(ghost_read_u, ghost_read_p, combine_u, combine_p) on (D, n_loc *
-    comps) vectors.  A ghost read refreshes the ghost slots from their
+    """(ghost_read_u, ghost_read_p, combine_u, combine_p) on (D_local,
+    n_loc * comps) vectors.  A ghost read refreshes the ghost slots from their
     owners; a combine totals every interface row over the shards and
     keeps the owned rows (ghost, pad and trash slots zero)."""
     arr = part.arrays
@@ -306,15 +353,15 @@ def make_halo_ops(part: HaloPartition):
     ghost = arr.is_ghost[..., None]
 
     def ghost_read(x, comps):
-        xm = x.reshape(part.n_shards, n_loc, comps)
+        xm = x.reshape(part.n_local, n_loc, comps)
         pool = _pool_exchange(part, torch.where(own, xm, 0.0))
-        xm = torch.where(ghost, _from_pool(part, pool), xm)
+        xm = torch.where(ghost, read_pools(part, pool), xm)
         return xm.reshape(x.shape)
 
     def combine(r, comps):
-        rm = r.reshape(part.n_shards, n_loc, comps)
+        rm = r.reshape(part.n_local, n_loc, comps)
         pool = _pool_exchange(part, rm)
-        rm = torch.where(on_pool, _from_pool(part, pool), rm)
+        rm = torch.where(on_pool, read_pools(part, pool), rm)
         rm = torch.where(own, rm, 0.0)
         return rm.reshape(r.shape)
 
@@ -324,7 +371,7 @@ def make_halo_ops(part: HaloPartition):
 
 def halo_residual_fn(part: HaloPartition, *, with_split: bool):
     """The residual on pooled vectors (JAX ``halo_residual_fn``): inputs
-    (D, n_loc * dim) / (D, n_loc), ghosts refreshed inside; outputs
+    (D_local, n_loc * dim) / (D_local, n_loc), ghosts refreshed inside; outputs
     owner-combined (ghost, pad and trash slots zero).  No hanging-node
     constraints (solvers/halo_newton.py adds them)."""
     gr_u, gr_p, cb_u, cb_p = make_halo_ops(part)

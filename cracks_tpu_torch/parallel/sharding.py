@@ -19,11 +19,14 @@ Layout: a vertex lattice with G0 rows along its leading grid axis is
 padded with zero rows to gyp = ceil(G0/D)*D, and shard i owns rows
 [i*rows_loc, (i+1)*rows_loc) with rows_loc = gyp/D.
 
-Where shards live: all D shards sit on the run's one device, as the
-JAX tests run 8 virtual CPU devices on one host.  Shards on several
-cards (NCCL or peer copies) are ROADMAP A11c, and asking for them
-raises.  The JAX placements under GSPMD -- ``shard_cell_core``,
-``shard_cell_arrays``, ``shard_cell_arrays_nopad``, ``pad_cell_arrays``
+Where shards live: in one process all D shards sit on the run's one
+device, as the JAX tests run 8 virtual CPU devices on one host.  On W
+ranks (torch.distributed, one process per rank, `dist.py`) rank r
+holds the D/W consecutive shards from r * D/W on its own device; the
+halo pool runs there (the lattice layout and the replicated cell-axis
+mode on W > 1 are ROADMAP A11d and A11e).  The JAX placements under
+GSPMD -- ``shard_cell_core``, ``shard_cell_arrays``,
+``shard_cell_arrays_nopad``, ``pad_cell_arrays``
 (``parallel/sharding.py:102-173``) and ``lattice._maybe_shard_jacs``
 (``lattice.py:1735``) -- move no value between shards and change no
 result, so on one device they are no-ops and have no code here.  That
@@ -39,7 +42,11 @@ Collectives: the code of the sharded modes reaches other shards only
 through `psum_shards`, `pmax_shards` (JAX's ``psum`` / ``pmax`` over the
 shard axis) and `ppermute_rows`.  On one device they are tensor ops
 across the leading shard axis, the sum in shard order so that every run
-gives the same bits.
+gives the same bits.  On W ranks `psum_shards` gathers every rank's
+entries and sums them in the same shard order, so each rank holds the
+one-process bits; `pmax_shards` is an all-reduce of the maximum, exact
+in any order; `ppermute_rows` (the lattice layout) stays in one
+process.
 """
 
 from __future__ import annotations
@@ -48,15 +55,39 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from . import dist
+
 
 class ShardMesh(NamedTuple):
-    """D shards on one device: row slabs of the leading grid axis (the
-    lattice layout) or contiguous cell ranges (the halo pool).  `dcn`
-    is the product mesh's leading extent (1: the flat mesh)."""
+    """D shards: row slabs of the leading grid axis (the lattice layout)
+    or contiguous cell ranges (the halo pool).  `dcn` is the product
+    mesh's leading extent (1: the flat mesh).  With `ranks` (a process
+    group of W > 1 ranks) this process holds the D / W shards from
+    `first` on `device`."""
 
     n_shards: int
     device: torch.device
     dcn: int = 1
+    ranks: dist.Ranks | None = None
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.ranks is None else self.ranks.rank
+
+    @property
+    def world(self) -> int:
+        """W: the processes the shards are spread over."""
+        return 1 if self.ranks is None else self.ranks.world
+
+    @property
+    def n_local(self) -> int:
+        """Shards this process holds."""
+        return self.n_shards // self.world
+
+    @property
+    def first(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * self.n_local
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -74,43 +105,87 @@ class ShardMesh(NamedTuple):
         return self.padded(g0) // self.n_shards
 
 
-def make_shard_mesh(devices: Sequence, dcn: int = 1) -> ShardMesh:
-    """One shard per entry of `devices`, all on one device; with
-    dcn > 1 the product mesh's shape (JAX ``make_device_mesh``:51-81),
-    whose `dcn` must divide D (ValueError, as in JAX).  Shards on more
-    than one distinct device raise NotImplementedError (A11c)."""
+def make_shard_mesh(devices: Sequence, dcn: int = 1,
+                    ranks: dist.Ranks | None = None) -> ShardMesh:
+    """One shard per entry of `devices`; with dcn > 1 the product mesh's
+    shape (JAX ``make_device_mesh``:51-81), whose `dcn` must divide D
+    (ValueError, as in JAX).  In one process all shards sit on one
+    device: entries naming several devices raise NotImplementedError
+    (one process per device is the port's idiom, A11c).  With `ranks`
+    of world W > 1, W must divide D (ValueError) and this rank's D / W
+    entries must name its own device."""
     devs = [torch.device(d) for d in devices]
     if not devs:
         raise ValueError("a shard mesh needs at least one shard")
     if dcn > 1 and len(devs) % dcn:
         raise ValueError(f"dcn={dcn} does not divide n_devices={len(devs)}")
-    if len(set(devs)) > 1:
-        raise NotImplementedError(
-            f"shards on {len(set(devs))} distinct devices "
-            f"({sorted(map(str, set(devs)))}): several cards through "
-            "torch.distributed/NCCL or peer copies are ROADMAP A11c; the "
-            "port runs all D shards on one device")
-    dev = devs[0]
+    world = 1 if ranks is None else ranks.world
+    if len(devs) % world:
+        raise ValueError(f"the world size {world} does not divide "
+                         f"n_devices={len(devs)}")
+    rank = 0 if ranks is None else ranks.rank
+    n_local = len(devs) // world
+    mine = devs[rank * n_local:(rank + 1) * n_local]
+    dev = mine[0]
     if dev.type == "cuda" and dev.index is None:
         # the device a tensor made on "cuda" reports
         dev = torch.device("cuda", torch.cuda.current_device())
-    return ShardMesh(len(devs), dev, max(dcn, 1))
+    if len(set(mine)) > 1:
+        raise NotImplementedError(
+            f"shards on {len(set(mine))} distinct devices in one process "
+            f"({sorted(map(str, set(mine)))}): the port drives one device "
+            "per process; run one rank per card (torchrun, ROADMAP A11c)")
+    if ranks is not None and world > 1 and dev != ranks.device:
+        raise ValueError(f"rank {rank}'s shards name {dev}, its device is "
+                         f"{ranks.device}")
+    return ShardMesh(len(devs), dev, max(dcn, 1),
+                     ranks if world > 1 else None)
 
 
-def psum_shards(x: torch.Tensor) -> torch.Tensor:
-    """JAX's ``psum`` over the shard axis: x is (D, ...) with one entry
-    per shard; every shard's entry of the result is the total, summed in
-    shard order.  Returns a (D, ...) view of one total."""
-    total = x[0]
-    for s in range(1, x.shape[0]):
-        total = total + x[s]
-    return total.unsqueeze(0).expand(x.shape)
+def gather_shards(x: torch.Tensor, mesh: ShardMesh | None = None
+                  ) -> torch.Tensor:
+    """Every shard's entry of a (D_local, ...) tensor: (D, ...), in
+    shard order (x itself in one process)."""
+    if mesh is None or mesh.world == 1:
+        return x
+    return dist.all_gather_shards(x, mesh.ranks)
 
 
-def pmax_shards(x: torch.Tensor) -> torch.Tensor:
-    """JAX's ``pmax`` over the shard axis: every shard's entry of the
-    (D, ...) result is the largest entry.  Returns a (D, ...) view."""
-    return x.amax(dim=0, keepdim=True).expand(x.shape)
+def _in_shard_order(full: torch.Tensor) -> torch.Tensor:
+    total = full[0]
+    for s in range(1, full.shape[0]):
+        total = total + full[s]
+    return total
+
+
+def psum_shards(x: torch.Tensor, mesh: ShardMesh | None = None, *,
+                host: bool = False):
+    """JAX's ``psum`` over the shard axis: x is (D_local, ...) with one
+    entry per shard of this process; every entry of the result is the
+    total over all D shards, summed in shard order.  Returns a view of
+    one total in x's shape; with `host`, (that view, the total as a
+    host tensor).  Ranks that stage through host memory sum on the host
+    (the same IEEE adds in the same order, so the same bits), and their
+    host total costs no wait; elsewhere it is a copy from the device."""
+    if mesh is not None and mesh.world > 1 and mesh.ranks.staged:
+        total_h = _in_shard_order(
+            dist.all_gather_shards(x, mesh.ranks, to_host=True))
+        view = dist.to_device(total_h, x.device).unsqueeze(0).expand(
+            x.shape)
+        return (view, total_h) if host else view
+    total = _in_shard_order(gather_shards(x, mesh))
+    view = total.unsqueeze(0).expand(x.shape)
+    return (view, total.cpu()) if host else view
+
+
+def pmax_shards(x: torch.Tensor, mesh: ShardMesh | None = None
+                ) -> torch.Tensor:
+    """JAX's ``pmax`` over the shard axis: every entry of the result is
+    the largest over all D shards.  Returns a view in x's shape."""
+    top = x.amax(dim=0, keepdim=True)
+    if mesh is not None and mesh.world > 1:
+        top = dist.all_max(top, mesh.ranks)
+    return top.expand(x.shape)
 
 
 def pad_rows(X, gyp: int):

@@ -145,6 +145,24 @@ def compute_cod(mesh: MeshData, u, phi, eval_line: float):
     return float(cod / 2.0)
 
 
+def _cod_points_2d(X, u_e, phi_e, sv, sg, wq):
+    """compute_cod_array's integrand on (C, 4) cells at (Q,) points in
+    2d: (x of each point, u . grad(pf) JxW), both (C, Q).  Each product
+    over the 4 corners is one matrix product, and grad(pf) det(J) is the
+    reference gradient times the adjugate of J, so no per-point inverse
+    or determinant is formed."""
+    def corners(v):            # (C, 4) corner values -> (C, Q)
+        return v @ sv.T
+
+    J = [[X[..., d] @ sg[..., e].T for e in range(2)] for d in range(2)]
+    g0, g1 = phi_e @ sg[..., 0].T, phi_e @ sg[..., 1].T
+    # grad(pf) det(J) = g_ref adj(J), adj(J) = [[J11, -J01], [-J10, J00]]
+    gp0 = g0 * J[1][1] - g1 * J[1][0]
+    gp1 = g1 * J[0][0] - g0 * J[0][1]
+    cod_q = (corners(u_e[..., 0]) * gp0 + corners(u_e[..., 1]) * gp1) * wq
+    return corners(X[..., 0]), cod_q
+
+
 def compute_cod_array(mesh: MeshData, u, phi, n_buckets: int = 75,
                       n_iter: int = 100):
     """Bucketed COD profile over x in [-1.5, 1.5] using an iterated
@@ -172,19 +190,25 @@ def compute_cod_array(mesh: MeshData, u, phi, n_buckets: int = 75,
     for s in range(0, len(cand), chunk):
         sel = cand[s:s + chunk]
         X = mesh.cell_coords[sel]
-        J = np.einsum("cad,qae->cqde", X, sg)
-        detJ = np.linalg.det(J)
-        invJ = np.linalg.inv(J)
-        grads = np.einsum("qae,cqed->cqad", sg, invJ)
-        JxW = detJ * wq[None, :]
-        qx = np.einsum("qa,cad->cqd", sv, X)
-        u_q = np.einsum("qa,cad->cqd", sv, u[mesh.cell2vert[sel]])
-        grad_pf = np.einsum("ca,cqad->cqd", phi[mesh.cell2vert[sel]], grads)
-        cod_q = np.einsum("cqd,cqd->cq", u_q, grad_pf) * JxW
-        idx = np.floor((qx[..., 0] - x1) / (x2 - x1) * n_buckets
+        u_e = u[mesh.cell2vert[sel]]
+        phi_e = phi[mesh.cell2vert[sel]]
+        if mesh.dim == 2:
+            qx0, cod_q = _cod_points_2d(X, u_e, phi_e, sv, sg, wq)
+        else:
+            J = np.einsum("cad,qae->cqde", X, sg)
+            detJ = np.linalg.det(J)
+            invJ = np.linalg.inv(J)
+            grads = np.einsum("qae,cqed->cqad", sg, invJ)
+            JxW = detJ * wq[None, :]
+            qx0 = np.einsum("qa,ca->cq", sv, X[..., 0])
+            u_q = np.einsum("qa,cad->cqd", sv, u_e)
+            grad_pf = np.einsum("ca,cqad->cqd", phi_e, grads)
+            cod_q = np.einsum("cqd,cqd->cq", u_q, grad_pf) * JxW
+        idx = np.floor((qx0 - x1) / (x2 - x1) * n_buckets
                        + 0.5).astype(int)
         valid = (idx >= 0) & (idx < n_buckets)
-        np.add.at(values, idx[valid], cod_q[valid])
+        values += np.bincount(idx[valid], weights=cod_q[valid],
+                              minlength=n_buckets)
     values = values / width / 2.0
     xs = x1 + np.arange(n_buckets) * width
     exact = 1.92e-3 * np.sqrt(np.maximum(0.0, 1.0 - xs**2))

@@ -34,7 +34,8 @@ preconditioned by the f32 V-cycle, and the exact f64 residual between
 passes through one `torch.func.jvp` of the f64 residual assembly (no
 f64 matrix is built).  The JAX package's fused one-dispatch variant
 (``solve_newton_system``) exists only for the TPU's dispatch latency
-and is not ported; `solve_split` serves every size.  Each CG loop keeps
+and is not ported; `solve_split` serves every size, with the fused
+solve's residual target up to the size JAX fuses (`block_target`).  Each CG loop keeps
 its exit test on the card (iterations after the exit leave the state
 as it was) and reads it every `CHECK_EVERY` iterations, so the host
 waits once per few iterations instead of once per iteration.
@@ -70,6 +71,11 @@ JAC_RTOL = 1e-6
 STALL_WINDOW = 16
 # CG iterations between host reads of a loop's exit flag
 CHECK_EVERY = 4
+# the largest system the JAX package solves in one fused dispatch
+# (``cracks_tpu/solvers/lattice.py:935``, dispatched at
+# ``cracks_tpu/solvers/newton.py:182``); up to it the split solve takes
+# the fused solve's target, above it the split one's
+FUSED_SOLVE_MAX_DOFS = 150000
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +742,20 @@ def _g_pass_apply(sys, u, phi, phi_old, phi_oold, con, active, Xb, scale,
                                                     else None)
 
 
+def block_target(bnorm: float, rtol: float, newton_lower_bound: float,
+                 n_dofs: int) -> float:
+    """A block's residual target in `solve_split`: JAX's fused solve's
+    max(rtol |b|, 100 eps |b|) (``cracks_tpu/solvers/galerkin.py:651``)
+    up to FUSED_SOLVE_MAX_DOFS, and above it JAX's split solve's, which
+    adds the floor 1e-3 x the Newton lower bound
+    (``cracks_tpu/solvers/galerkin.py:1125-1127``)."""
+    eps64 = float(np.finfo(np.float64).eps)
+    target = max(rtol * bnorm, 100.0 * eps64 * bnorm)
+    if n_dofs > FUSED_SOLVE_MAX_DOFS:
+        target = max(target, 1e-3 * newton_lower_bound)
+    return target
+
+
 def solve_split(sys, hier: GalerkinHierarchy, u, phi, phi_old, phi_oold,
                 con, active, rhs_u, rhs_p, with_split, passes: int = 16):
     """The mixed-precision Galerkin solve: per block up to `passes`
@@ -748,7 +768,6 @@ def solve_split(sys, hier: GalerkinHierarchy, u, phi, phi_old, phi_oold,
     p = sys.params
     rtol = p.cg_rtol
     dim = sys.dim
-    eps64 = float(np.finfo(np.float64).eps)
     n_dofs = sys.mesh.n_dofs
     sharp = sharp_spectrum(n_dofs)
     ctx = (u, phi, phi_old, phi_oold, opcache.scalars_vec(sys.scalars))
@@ -772,8 +791,8 @@ def solve_split(sys, hier: GalerkinHierarchy, u, phi, phi_old, phi_oold,
     def block(which, b):
         nonlocal total_its, last_jp
         bnorm = math.sqrt(float(torch.dot(b, b)))
-        target2 = max(rtol * bnorm, 1e-3 * p.lower_bound_newton_residual,
-                      100.0 * eps64 * bnorm) ** 2
+        target2 = block_target(bnorm, rtol, p.lower_bound_newton_residual,
+                               n_dofs) ** 2
         if bnorm * bnorm <= target2:
             return torch.zeros_like(b)
         op32, free, _, _, _ = _pieces(level_ops[-1], which, dim)

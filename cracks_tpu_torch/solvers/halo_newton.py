@@ -13,9 +13,12 @@ is distributed with H^T per shard and owner-combined, which is the flat
 `ops/constraints.py` condensation of the global sum.
 
 Where JAX runs one ``shard_map`` program per head, the port makes one
-batched call over all D shards; the shards meet only in
+batched call over the process's shards; the shards meet only in
 `sharding.psum_shards` / `pmax_shards`.  The host drives the loops and
-reads one scalar per CG iteration.
+reads one scalar per CG iteration.  On W ranks every control decision
+(the CG's stop test, the line search, the active-set bookkeeping and
+the Newton stop) reads totals of those collectives, which are equal on
+every rank, so no rank leaves a loop that another keeps iterating.
 
 The linear solve is the block-lower-triangular split of the flat path
 (u rows see no phi columns, cracks.cc:2353-2366): two Jacobi-
@@ -42,14 +45,14 @@ from .newton import NewtonLog, NoConvergence, _flips_within_band
 HALO_CG_MAXITER = 2000
 
 
-def _psum(x: torch.Tensor) -> torch.Tensor:
-    """The total over shards of per-shard sums of a (D, ...) tensor: a
-    0-d tensor."""
-    return psum_shards(x.reshape(x.shape[0], -1).sum(dim=1))[0]
+def _psum(part: HaloPartition, x: torch.Tensor) -> torch.Tensor:
+    """The total over all shards of per-shard sums of a (D_local, ...)
+    tensor: a 0-d tensor."""
+    return psum_shards(x.reshape(x.shape[0], -1).sum(dim=1), part.mesh)[0]
 
 
-def _pmax(x: torch.Tensor) -> torch.Tensor:
-    return pmax_shards(x.reshape(x.shape[0], -1).amax(dim=1))[0]
+def _pmax(part: HaloPartition, x: torch.Tensor) -> torch.Tensor:
+    return pmax_shards(x.reshape(x.shape[0], -1).amax(dim=1), part.mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +65,7 @@ def make_hang_ops(part: HaloPartition):
     n_loc * comps) vectors.  Pad stencil rows target the trash slot with
     zero weights, so they only re-zero it."""
     arr = part.arrays
-    D, n_loc, dim = part.n_shards, part.n_loc, part.dim
+    D, n_loc, dim = part.n_local, part.n_loc, part.dim
     shard = torch.arange(D, device=arr.hang_child.device)
     H = arr.hang_child.shape[1]
 
@@ -146,7 +149,7 @@ def build_halo_heads(part: HaloPartition, *, with_split: bool,
         return pr["condense"](ru.reshape(u.shape), rp.reshape(phi.shape))
 
     def norm(pu, pp):
-        return torch.sqrt(_psum(pu * pu) + _psum(pp * pp))
+        return torch.sqrt(_psum(part, pu * pu) + _psum(part, pp * pp))
 
     def initial_assemble(u, phi, phi_old, phi_oold, dir_u, dir_p, sc):
         """(tot_p, pde_u, pde_p, residual norm) at the initial iterate,
@@ -177,11 +180,12 @@ def build_halo_heads(part: HaloPartition, *, with_split: bool,
         pde_p = torch.where(free_p, tot_p, 0.0)
         flipped = (active != active_old) & own_p
         stats = dict(
-            n_active=_psum(active.long()), n_cycling=_psum((active
-                                                            & cycling).long()),
-            changed=_psum(flipped.long()),
-            ind_flip_max=_pmax(torch.where(flipped, indicator.abs(), 0.0)),
-            ind_act_max=_pmax(torch.where(active, indicator, 0.0)))
+            n_active=_psum(part, active.long()),
+            n_cycling=_psum(part, (active & cycling).long()),
+            changed=_psum(part, flipped.long()),
+            ind_flip_max=_pmax(part, torch.where(flipped, indicator.abs(),
+                                                 0.0)),
+            ind_act_max=_pmax(part, torch.where(active, indicator, 0.0)))
         left = active_old & ~active
         return (phi, active, tot_p, pde_u, pde_p, left), stats
 
@@ -248,19 +252,18 @@ def build_halo_cg(part: HaloPartition, *, with_split: bool):
             ye = torch.einsum("ijc,jc->ic", blk, x.reshape(-1)[gather])
             return scatter_add(st, ye, x.new_zeros(n_out))
 
-        def mv_u(x):
-            x = torch.where(free_u, x, 0.0)
-            xc = pr["hi_u"](pr["gr_u"](x))
+        # the block matvecs on the ghost read of the masked vector
+        def mv_u(xg):
+            xc = pr["hi_u"](xg)
             y = apply(jac[:nud_l, :nud_l], xc, ca.gather_u, cs.u, cs.n_ud)
             return torch.where(free_u, pr["cb_u"](pr["ht_u"](
-                y.reshape(x.shape))), 0.0)
+                y.reshape(xg.shape))), 0.0)
 
-        def mv_p(x):
-            x = torch.where(free_p, x, 0.0)
-            xc = pr["hi_p"](pr["gr_p"](x))
+        def mv_p(xg):
+            xc = pr["hi_p"](xg)
             y = apply(jac[nud_l:, nud_l:], xc, ca.gather_p, cs.p, cs.n_p)
             return torch.where(free_p, pr["cb_p"](pr["ht_p"](
-                y.reshape(x.shape))), 0.0)
+                y.reshape(xg.shape))), 0.0)
 
         def coupling_pu(xu):
             """J_pu xu (phi rows, u columns) for the triangular rhs."""
@@ -280,34 +283,65 @@ def build_halo_cg(part: HaloPartition, *, with_split: bool):
         Minv_p = torch.where(free_p & (dp_r.abs() > 0), 1.0 / dp_r, 1.0)
 
         def pdot(a, b):
-            return _psum(a * b)
+            return _psum(part, a * b)
 
-        def block_cg(op, b, Minv):
-            tol2 = max(rtol, 1e-14) ** 2 * pdot(b, b)
+        def partials(*pairs):
+            """(D_local, len(pairs)): each shard's sums of a * b."""
+            return torch.stack([(a * b).reshape(a.shape[0], -1).sum(dim=1)
+                                for a, b in pairs], dim=1)
+
+        own = part.arrays.own_mask_p[..., None]
+        ghost = part.arrays.is_ghost[..., None]
+
+        def block_cg(op, gr, b, Minv, free, comps):
+            """The block CG on the ghost read pg of the masked p.  An
+            iteration meets the other shards three times: the matvec's
+            combine, p . Ap, and one collective of r . z, the stop
+            test's r . r (read from its host copy) and the owners'
+            masked z, from which the next pg's ghost values follow by
+            the z + beta p of their owners (the pool total of a ghost
+            is its owner's value plus zeros: the same operands, the
+            same bits as a ghost read of p)."""
+            shape3 = (part.n_local, part.n_loc, comps)
+            n_pools = (part.n_pool + 1) * comps
             z = Minv * b
-            rz = pdot(b, z)
+            dev, host = psum_shards(partials((b, b), (b, z)), part.mesh,
+                                    host=True)
+            rz, bb = dev[0, 1], host[0]
+            tol2 = max(rtol, 1e-14) ** 2 * bb
             x = torch.zeros_like(b)
-            r, p = b, z
+            r, p, rr = b, z, bb
+            pg = gr(torch.where(free, p, 0.0)).reshape(shape3)
             k = 0
-            while k < HALO_CG_MAXITER and bool(pdot(r, r) > tol2):
-                Ap = op(p)
+            while k < HALO_CG_MAXITER and bool(rr > tol2):
+                Ap = op(pg.reshape(p.shape))
                 denom = pdot(p, Ap)
                 alpha = torch.where(denom != 0, rz / denom, 0.0)
                 x = x + alpha * p
                 r = r - alpha * Ap
                 z = Minv * r
-                rz_new = pdot(r, z)
+                zm = torch.where(free, z, 0.0)
+                pools = halo.write_pools(part, torch.where(
+                    own, zm.reshape(shape3), 0.0)).reshape(part.n_local, -1)
+                dev, host = psum_shards(
+                    torch.cat([pools, partials((r, z), (r, r))], dim=1),
+                    part.mesh, host=True)
+                rz_new, rr = dev[0, n_pools], host[n_pools + 1]
+                zg = halo.read_pools(part, dev[:, :n_pools].reshape(
+                    part.n_local, part.n_pool + 1, comps))
                 beta = torch.where(rz != 0, rz_new / rz, 0.0)
                 p = z + beta * p
+                pg = torch.where(ghost, zg + beta * pg,
+                                 torch.where(free, p, 0.0).reshape(shape3))
                 rz = rz_new
                 k += 1
             return x, k
 
         bu = torch.where(free_u, rhs_u, 0.0)
         bp = torch.where(free_p, rhs_p, 0.0)
-        du, it_u = block_cg(mv_u, bu, Minv_u)
+        du, it_u = block_cg(mv_u, pr["gr_u"], bu, Minv_u, free_u, dim)
         bp2 = bp - coupling_pu(du)
-        dp, it_p = block_cg(mv_p, bp2, Minv_p)
+        dp, it_p = block_cg(mv_p, pr["gr_p"], bp2, Minv_p, free_p, 1)
         return du, dp, it_u + it_p, pdot(bp2, bp2), (it_u, it_p)
 
     return solve

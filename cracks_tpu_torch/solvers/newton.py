@@ -135,8 +135,9 @@ def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
                      rhs_p, with_split):
     """Stored-element-matrix solve (JAX ``newton._solve_assembled``).
     With the Galerkin hierarchy: the mixed-precision split solve
-    (`galerkin.solve_split`, at every size: the JAX package's fused
-    variant serves only the TPU's dispatch latency), or without mixed
+    (`galerkin.solve_split`, at every size, with the JAX fused
+    variant's target where JAX fuses: that variant serves only the
+    TPU's dispatch latency), or without mixed
     precision the f64 Galerkin-preconditioned block CG on the element
     Jacobians.  Without it, Jacobi CG on the element Jacobians; with
     mixed precision, iterative refinement: up to 8 capped f32 passes,

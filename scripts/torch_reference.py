@@ -37,6 +37,12 @@ The runs (all of them without arguments, else the named ones):
   ``n_devices=8, dof_sharding=lattice``: the owned+ghost halo pool on 8
   virtual CPU devices (`HALO8`; about twelve minutes on an 8-core CPU,
   nearly all of it XLA compiling the pool's ``shard_map`` programs);
+- ``sneddon_2d_1_halo4``: the same at ``n_devices=4`` (`HALO4`);
+- ``hetero_3d_1_halo4``: ``params/tests/hetero_3d_1.prm`` as shipped
+  (5,288 DoFs), two load steps under ``tests/test_halo_newton.py``'s
+  settings (cg + gmg, cg_rtol 1e-10, mixed precision) at
+  ``n_devices=4, dof_sharding=lattice`` (`HETERO_HALO4`: the pool takes
+  its Jacobi CG all the same);
 - ``halo_cg_2d``: one call of the halo pool's block CG
   (``cracks_tpu.solvers.halo_newton.build_halo_cg``, the split on) at
   D = 8 on the hanging-node mesh of
@@ -69,6 +75,12 @@ ROUND1 = dict(n_global_pre_refine=4, n_local_pre_refine=0,
 HALO8 = dict(n_local_pre_refine=1, value_phase_field_for_refinement=0.5,
              n_refinement_cycles=0, max_no_timesteps=1, linear_solver="cg",
              preconditioner="jacobi", n_devices=8, dof_sharding="lattice")
+HALO4 = dict(HALO8, n_devices=4)
+# tests/test_halo_newton.py's BASE (:28-29), two load steps, on 4 shards
+HETERO_HALO4 = dict(direct_solver=False, linear_solver="cg",
+                    preconditioner="gmg", cg_rtol=1e-10,
+                    mixed_precision_cg=True, max_no_timesteps=1, n_devices=4,
+                    dof_sharding="lattice")
 # name -> (the .prm under params/, overrides)
 RUNS = {
     "parameters_sneddon_2d": ("parameters_sneddon_2d", dict()),
@@ -78,6 +90,9 @@ RUNS = {
         "parameters_miehe_tension_adaptive", dict(max_no_timesteps=85)),
     "sneddon_2d_matrix_free_r4": ("parameters_sneddon_2d", ROUND1),
     "sneddon_2d_1_halo8": (os.path.join("tests", "sneddon_2d_1"), HALO8),
+    "sneddon_2d_1_halo4": (os.path.join("tests", "sneddon_2d_1"), HALO4),
+    "hetero_3d_1_halo4": (os.path.join("tests", "hetero_3d_1"),
+                          HETERO_HALO4),
 }
 
 

@@ -158,6 +158,24 @@ def test_load_and_point_functionals_match_jax(name, mesh, jmesh):
     assert qoi.compute_point_stress(mesh, u, tuple(hi + 1.0)) == -1e100
 
 
+@pytest.mark.parametrize("name,mesh,jmesh", _seeded_meshes(),
+                         ids=["slit", "threepoint"])
+def test_cod_array_matches_jax(name, mesh, jmesh):
+    """The bucketed COD profile (its 2d integrand through the adjugate
+    of J) against the JAX package's per-point inverse, on seeded fields
+    of the slit and the (non-affine) three-point cells."""
+    rng = np.random.default_rng(5)
+    u = rng.normal(scale=1e-3, size=(mesh.n_vertices, 2))
+    phi = rng.uniform(0.0, 1.0, mesh.n_vertices)
+    xs, vals, exact = qoi.compute_cod_array(mesh, u, phi)
+    jxs, jvals, jexact = jqoi.compute_cod_array(jmesh, u, phi)
+    np.testing.assert_array_equal(xs, jxs)
+    np.testing.assert_array_equal(exact, jexact)
+    assert np.abs(jvals).max() > 0
+    np.testing.assert_allclose(vals, jvals, rtol=0,
+                               atol=1e-12 * np.abs(jvals).max())
+
+
 def test_level_capped_flags_match_jax():
     """miehe_shear_1 (level cap 3 + 1 = 4): refine the cells left of
     x = 0.5 to the cap, then flag by a seeded phase field; the capped

@@ -15,9 +15,11 @@ own), in f64 on the CPU:
   eigenproblem is solved in f32 in both packages);
 - `solve_cg_block` on the Newton system of a Sneddon 2d refine 3 run
   within rel 1e-9 of the JAX solve, with the same iteration count;
-- `solve_split` through the whole hetero_3d_1 run with mixed precision
-  against the JAX split solve (``FUSED_SOLVE_MAX_DOFS = 0``; its level
-  cache is off, as the port's is below the sharp-spectrum size): bulk
+- `solve_split` through the whole hetero_3d_1 run with mixed precision,
+  the port's fused-size threshold at 0, against the JAX split solve
+  (``FUSED_SOLVE_MAX_DOFS = 0``; its level cache is off, as the port's
+  is below the sharp-spectrum size; the port's default run against
+  JAX's default fused one is tests/test_torch_hetero_mixed.py's): bulk
   and crack energy within rel 1e-6 and equal Newton counts per step.
   The linear counts differ by at most 2 iterations per Newton solve:
   a pass is 1-10 f32 iterations here, and the f32 element matrices of
@@ -288,7 +290,10 @@ def test_solve_cg_block_matches_jax():
 
 
 def test_solve_split_matches_jax(monkeypatch):
+    """The port with its fused-size threshold at 0 against JAX's split
+    run: both take the split solve's target."""
     monkeypatch.setattr(jlat, "FUSED_SOLVE_MAX_DOFS", 0)
+    monkeypatch.setattr(galerkin, "FUSED_SOLVE_MAX_DOFS", 0)
     monkeypatch.setenv("CRACKS_TPU_REUSE", "0")
     over = dict(output_dir="", max_no_timesteps=1, linear_solver="cg",
                 preconditioner="gmg", mixed_precision_cg=True)

@@ -1,24 +1,21 @@
 """hetero_3d_1 under tests/test_halo_newton.py's settings (BASE: cg, gmg,
 cg_rtol 1e-10, mixed precision), two load steps, replicated vectors:
 the port's mixed-precision Galerkin solve against the JAX package's
-(ROADMAP C15).
+(ROADMAP C15, closed).
 
-- The port has only the split solve (solvers/galerkin.py::solve_split).
-  It equals JAX's split solve (``FUSED_SOLVE_MAX_DOFS = 0``) to rel
-  1e-8 with equal Newton iterations per step: both stop step 1 after 4
-  Newton iterations at bulk energy 0.6248075.
-- At 5,288 DoFs JAX runs its fused solve by default, which ends step 1
-  after 5 Newton iterations at 0.6248006, 1.1e-5 off, outside JAX's
-  np1/np8 tolerance (abs 1e-6 or rel 1e-7,
-  tests/test_halo_newton.py:44-49).  The split solve's target has an
-  absolute floor of 1e-3 x the Newton lower bound (1e-6 in the file:
-  1e-9), which the fused solve lacks; at step 1, iteration 3 its full
-  step misses the previous residual (4.51e-10) by 1 %, the line search
-  fails, and the next head sees an unchanged active set and stops.
-  With the floor at 1e-12 (Newton lower bound 1e-9) the port's split
-  solve takes JAX's fused path: 5 Newton iterations, the fused run's
-  energies.  `test_split_floor_is_the_gap_to_the_fused_solve` pins
-  the gap; it fails once C15 is closed.
+- At 5,288 DoFs JAX runs its fused solve, whose block target is
+  max(rtol |b|, 100 eps |b|); its split solve (``FUSED_SOLVE_MAX_DOFS
+  = 0``) adds the floor 1e-3 x the Newton lower bound (1e-9 here).  The
+  port has only the split solve and takes the fused solve's target up
+  to JAX's threshold (`galerkin.block_target`).
+- Its default run is JAX's default (fused) run within JAX's np1/np8
+  tolerance (abs 1e-6 or rel 1e-7, tests/test_halo_newton.py:44-49),
+  with equal Newton iterations per step: step 1 takes 5 at bulk energy
+  0.6248006.  With the port's threshold monkeypatched to 0 it is JAX's
+  split run to rel 1e-8: the floor stops step 1 after 4 Newton
+  iterations at 0.6248075, 1.1e-5 off, outside that tolerance (at
+  iteration 3 the full step misses the previous residual by 1 %, the
+  line search fails and the next head sees an unchanged active set).
 """
 
 import os
@@ -32,6 +29,7 @@ from cracks_tpu.driver import Simulation as JSimulation
 from cracks_tpu.solvers import lattice as jlat
 from cracks_tpu_torch import config
 from cracks_tpu_torch.driver import Simulation
+from cracks_tpu_torch.solvers import galerkin
 
 from tests.regression import PRM_DIR
 
@@ -79,19 +77,44 @@ def port_mixed():
     return sim
 
 
-def test_mixed_run_is_jax_split_solve(port_mixed):
+@pytest.fixture(scope="module")
+def port_split():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(galerkin, "FUSED_SOLVE_MAX_DOFS", 0)
+        return _port()
+
+
+def test_block_target_sides_of_the_threshold():
+    """The fused target up to FUSED_SOLVE_MAX_DOFS, the split solve's
+    floor above it."""
+    n = galerkin.FUSED_SOLVE_MAX_DOFS
+    assert n == 150000
+    eps = float(np.finfo(np.float64).eps)
+    for bnorm in (1e-4, 1e-12):
+        fused = max(1e-10 * bnorm, 100 * eps * bnorm)
+        assert galerkin.block_target(bnorm, 1e-10, 1e-6, n) == fused
+        assert galerkin.block_target(bnorm, 1e-10, 1e-6, n + 1) == max(
+            fused, 1e-9)
+    # the floor binds only on small right-hand sides
+    assert galerkin.block_target(1e-12, 1e-10, 1e-6, n + 1) == 1e-9
+    assert galerkin.block_target(1e-12, 1e-10, 1e-6, n) < 1e-20
+
+
+def test_mixed_run_is_jax_split_solve(port_split):
+    """The port with its threshold at 0 is JAX's split run."""
     jsim = _jax(fused=False)
-    np.testing.assert_allclose(_stats(port_mixed), _stats(jsim), rtol=1e-8,
+    np.testing.assert_allclose(_stats(port_split), _stats(jsim), rtol=1e-8,
                                atol=0)
-    assert _newton(port_mixed) == _newton(jsim)
-    assert _newton(port_mixed)[1] == 4
+    assert _newton(port_split) == _newton(jsim)
+    assert _newton(port_split)[1] == 4
 
 
-def test_split_floor_is_the_gap_to_the_fused_solve(port_mixed):
+def test_split_floor_is_the_gap_to_the_fused_solve(port_mixed, port_split):
+    """The port's default mixed run is JAX's default (fused) run; the
+    split solve's floor is what parts the two."""
     jsim = _jax(fused=True)
     fused = _stats(jsim)
     assert _newton(jsim)[1] == 5
-    assert not _np1_np8_close(fused, _stats(port_mixed))
-    low = _port(lower_bound_newton_residual=1e-9)
-    assert _newton(low)[1] == 5
-    np.testing.assert_allclose(_stats(low), fused, rtol=1e-12, atol=0)
+    assert _np1_np8_close(fused, _stats(port_mixed))
+    assert _newton(port_mixed) == _newton(jsim)
+    assert not _np1_np8_close(fused, _stats(port_split))

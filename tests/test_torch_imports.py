@@ -25,6 +25,8 @@ PORT_MODULES = [
     "cracks_tpu_torch.ops.physics", "cracks_tpu_torch.ops.constraints",
     "cracks_tpu_torch.ops.stencil", "cracks_tpu_torch.ops.scatter",
     "cracks_tpu_torch.parallel", "cracks_tpu_torch.parallel.sharding",
+    "cracks_tpu_torch.parallel.dist", "cracks_tpu_torch.parallel.halo",
+    "cracks_tpu_torch.solvers.halo_newton",
     "cracks_tpu_torch.solvers.galerkin", "cracks_tpu_torch.solvers.multigrid",
     "cracks_tpu_torch.solvers.lattice", "cracks_tpu_torch.solvers.newton",
     "cracks_tpu_torch.solvers.linear", "cracks_tpu_torch.solvers.assembled",
