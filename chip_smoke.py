@@ -239,13 +239,35 @@ without printing the final line:
    on W = 2 and 4, at D = 8 on W = 4, hetero_3d_1 at D = 4 on W = 2)
    within rel 1e-12 with equal Newton iterations and every rank's
    statistics bit-equal, whether bit-equal to phase 19 printed; then
-   its production run at W = 4: phase 19's DoFs per epoch, TCV within
-   abs 1e-12 and rel 1e-11 in every epoch, equal Newton iterations per
-   step, no cut.
+   its production run at W = 4, its last epoch (168,609 DoFs) cut to its
+   first 2 of 4 load steps (to fit the smoke's time limit): phase 19's
+   DoFs in every epoch, TCV within abs 1e-12 and rel 1e-11 in every
+   whole epoch, the cut epoch's bulk and crack energies within rel
+   1e-11 at each of its steps, equal Newton iterations per step, no
+   cut.
    Each rank's device and the transport are printed, and per epoch
    s/step, ms, collectives and bytes per CG iteration, each rank's peak
    device memory, and the card's idle share during the last epoch's
    solves (nvidia-smi utilization samples; no rank runs the profiler).
+21. the lattice layout on W ranks of the one card (gloo, staged; each
+   rank holds its D / W row slabs of every level split by slab, and the
+   sharded kernels read the rows of the neighbour ranks from two
+   exchanged halo rows).  Kernels: on W = 4 ranks at the full shapes (2d
+   640², 3d 80³ cells, phase 3's seeded inputs) each rank's f32 u and
+   phi sharded products (D = 4) equal the rows of the one-process
+   sharded product bit for bit, each timed on kernel_clock.py (its halo
+   rows exchanged before the clock; the ranks one at a time) beside the
+   one-process product, and its exchange timed on the host.  Small:
+   phase 4's sharded cases (2d refine 3 at D = 4 on W = 2 and 4, 3d
+   refine 1 at D = 4, load step 0, on W = 2) within rel 1e-12 of phase
+   4's card runs with equal Newton iterations, every rank bit-equal.
+   Full width: phase 7's 2d run (refine 6, 1,232,643 DoFs, two load
+   steps, D = 4) on W = 4 ranks: bulk and crack energy within rel 1e-10
+   of phase 7's, equal Newton iterations per step, no cut, and every
+   rank's sharded-kernel launches equal phase 7's.  Printed: each
+   rank's device and the transport, s per step, ms, exchanges,
+   collectives and bytes per CG iteration, each rank's peak device
+   memory and sharded launches, the card's idle share (nvidia-smi).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -588,7 +610,8 @@ def small_phases(meanwhile=lambda: None):
     plain einsums) go to spawned worker processes at once, splitting the
     host's cores, while the card runs its side and then `meanwhile`
     (the main paths); nothing here is timed.  Returns what `meanwhile`
-    returns."""
+    returns and the card's sharded runs by dim, (DoFs, energies, its,
+    seconds)."""
     jobs = [(dim, refine, n_dofs, ov) for dim, refine, n_dofs in SMALL
             for ov in ({}, SHARDED)]
     # the two 3d runs take minutes, the two 2d runs seconds: the 3d ones
@@ -624,7 +647,8 @@ def small_phases(meanwhile=lambda: None):
             if newton[0] != newton[1]:
                 raise AssertionError(f"Newton iterations per step differ "
                                      f"between card and CPU: {newton}")
-    return out
+    return out, {dim: run for (dim, _, _, ov), run in zip(jobs, card)
+                 if ov}
 
 
 def main_phase(dim, refine=None, n_dofs=None, replicated=None,
@@ -650,7 +674,8 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
     host_s = time.perf_counter() - t0
     if sim.mesh.n_dofs != n_dofs:
         raise AssertionError(f"{sim.mesh.n_dofs} DoFs, expected {n_dofs}")
-    torch.cuda.reset_peak_memory_stats()
+    # the peak without what an earlier run left to the cycle collector
+    base = _fresh_memory_baseline()
     stencil.stencil_matvec2d.launches = 0
     stencil.stencil_matvec2d.phi_launches = 0
     stencil.stencil_matvec3d.launches = 0
@@ -690,7 +715,8 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
     print(f"{label}: {sim.mesh.n_dofs} DoFs, kernel launches {launches} "
           f"({route_launches} of {route['name']}), sharded-kernel launches "
           f"{sharded}, peak "
-          f"device memory {torch.cuda.max_memory_allocated()} B, energies "
+          f"device memory {torch.cuda.max_memory_allocated()} B (at its "
+          f"start {base} B), energies "
           f"{[repr(float(e)) for e in out['energies'].ravel()]}")
     if replicated is not None:
         mesh = sim.sys.shard_mesh
@@ -966,11 +992,14 @@ def shipped_phase():
                              + "\n".join(fails[:20]))
 
 
-def production_phase(label="production", instrument=None, **overrides):
+def production_phase(label="production", instrument=None, cut_last=False,
+                     **overrides):
     """The shipped file four times finer (last epoch 168,609 DoFs), on
     the Jacobi CG or, with `overrides`, another solve (phases 16, 19;
-    `instrument(sim)` is called before the run).  Returns the epochs,
-    the TCV per epoch and the seconds."""
+    `instrument(sim)` is called before the run).  With `cut_last` the
+    overrides end the run inside its last epoch, which then has no TCV.
+    Returns the epochs, the TCV per epoch, the bulk and crack energy
+    per step and the seconds."""
     from cracks_tpu_torch import config, qoi
     from cracks_tpu_torch.driver import Simulation
     t0 = time.perf_counter()
@@ -1005,11 +1034,13 @@ def production_phase(label="production", instrument=None, **overrides):
                              "non-finite statistic")
     if not min(data["Bulk Energy"]) > 0:
         raise AssertionError(f"{label}: bulk energy not positive")
-    if len(tcv) != len(epochs) or not all(
+    if len(tcv) != len(epochs) - cut_last or not all(
             b < a for a, b in zip(errors, errors[1:])):
         raise AssertionError(f"{label}: the TCV error does not fall "
                              "from epoch to epoch")
-    return dict(epochs=epochs, tcv=tcv, secs=secs)
+    return dict(epochs=epochs, tcv=tcv, secs=secs,
+                bulk=list(data["Bulk Energy"]),
+                crack=list(data["Crack Energy"]))
 
 
 # the goldens of the other test cases: (file, golden table, column
@@ -2385,6 +2416,10 @@ RANKED_SMALL = [
     for (label, prm, ov, _), worlds in zip(HALO_SMALL, ((2, 4), (4,), (2,)))
     for W in worlds]
 RANKED_FULL_W = 4
+# phase 20's production run: its four epochs, the last one (168,609
+# DoFs) cut to its first RANKED_LAST_STEPS of 4 load steps (the smoke's
+# time limit; phase 19 runs all of it on the same pool)
+RANKED_LAST_STEPS = 2
 
 
 def _host_resident_bytes():
@@ -2451,6 +2486,8 @@ def _ranked_production(ranks):
     halo_newton.build_halo_cg = timed_build
     try:
         out = production_phase(f"production halo W={ranks.world}",
+                               cut_last=True,
+                               max_no_timesteps=11 + RANKED_LAST_STEPS,
                                **SHARDED)
     finally:
         halo_newton.build_halo_cg = build
@@ -2542,12 +2579,15 @@ def ranked_small_phase(entries, outs, card, secs):
 
 
 def ranked_full_phase(outs, samples, production):
-    """Phase 20, full width: phase 19's production run on W = 4 ranks:
-    its DoFs per epoch, TCV within abs 1e-12 and rel 1e-11 in every
-    epoch, equal Newton iterations per step, no time-step cut (production_phase's
-    gate); per epoch s/step, ms, collectives and bytes per CG
-    iteration, and each rank's peak memory; the device's idle share
-    during the last epoch's solves from nvidia-smi's samples."""
+    """Phase 20, full width: phase 19's production run on W = 4 ranks,
+    its last epoch cut to its first RANKED_LAST_STEPS steps: phase 19's
+    DoFs in every epoch, TCV within abs 1e-12 and rel 1e-11 in every
+    whole epoch, the cut epoch's bulk and crack energies within rel
+    1e-11 at each of its steps, equal Newton iterations per step, no
+    time-step cut (production_phase's gate); per epoch s/step, ms,
+    collectives and bytes per CG iteration, and each rank's peak
+    memory; the device's idle share during the last epoch's solves from
+    nvidia-smi's samples."""
     W = len(outs)
     out = outs[0]
     print(f"production halo W={W}: {out['secs']:.2f} s in rank 0's run "
@@ -2560,17 +2600,36 @@ def ranked_full_phase(outs, samples, production):
         raise AssertionError(f"production halo W={W}: DoFs per epoch "
                              "differ from phase 19's")
     for o in outs[1:]:
-        if o["tcv"] != out["tcv"]:
+        if (o["tcv"], o["bulk"], o["crack"]) != (out["tcv"], out["bulk"],
+                                                 out["crack"]):
             raise AssertionError(f"production halo W={W}: rank "
-                                 f"{o['rank']}'s TCV differs from rank 0's")
-    for i, (ep, ref, tcv, tcv_ref) in enumerate(zip(
-            out["epochs"], ref_epochs, out["tcv"], production["tcv"])):
+                                 f"{o['rank']}'s statistics differ from "
+                                 "rank 0's")
+    step0 = 0
+    for i, (ep, ref) in enumerate(zip(out["epochs"], ref_epochs)):
         mine = [s for s in out["solves"] if s[0] == ep["dofs"]]
         wall, its, coll, nbytes = (sum(s[k] for s in mine)
                                    for k in (1, 2, 3, 4))
-        diff = abs(tcv - tcv_ref)
+        n_steps = len(ep["its"])
         newton = [n for n, _ in ep["its"]]
-        newton_ref = [n for n, _ in ref["its"]]
+        newton_ref = [n for n, _ in ref["its"]][:n_steps]
+        if i < len(out["tcv"]):
+            tcv, tcv_ref = out["tcv"][i], production["tcv"][i]
+            diff = abs(tcv - tcv_ref)
+            ok = diff <= 1e-12 and diff <= 1e-11 * abs(tcv_ref)
+            gate = (f"TCV {tcv!r} vs phase 19's {tcv_ref!r}: {diff:.3e} "
+                    f"apart (bound 1e-12), rel {diff / abs(tcv_ref):.3e} "
+                    "(bound 1e-11)")
+        else:
+            steps = slice(step0, step0 + n_steps)
+            rel = max(abs(x - y) / abs(y) for key in ("bulk", "crack")
+                      for x, y in zip(out[key][steps],
+                                      production[key][steps]))
+            ok = rel <= 1e-11 and n_steps == RANKED_LAST_STEPS
+            gate = (f"its first {n_steps} of {len(ref['its'])} steps, bulk "
+                    f"and crack energy per step within rel {rel:.3e} of "
+                    "phase 19's (bound 1e-11)")
+        step0 += n_steps
         print(f"production halo W={W} epoch {i + 1}: {ep['dofs']} DoFs, "
               f"s/step {[round(x, 3) for x in ep['step_s']]} (phase 19 "
               f"{[round(x, 3) for x in ref['step_s']]}), Newton/linear "
@@ -2578,15 +2637,13 @@ def ranked_full_phase(outs, samples, production):
               f"{1e3 * wall / max(its, 1):.3f} ms per CG iteration over "
               f"{len(mine)} solves, {coll / max(its, 1):.2f} collectives "
               f"and {nbytes / max(its, 1):.0f} B per CG iteration per "
-              f"rank, TCV {tcv!r} vs phase 19's {tcv_ref!r}: "
-              f"{diff:.3e} apart (bound 1e-12), rel "
-              f"{diff / abs(tcv_ref):.3e} (bound 1e-11), peak memory per "
+              f"rank, {gate}, peak memory per "
               f"rank {[o['epochs'][i]['peak_bytes'] for o in outs]} B (phase "
               f"19: {ref['peak_bytes']} B)")
-        if (diff > 1e-12 or diff > 1e-11 * abs(tcv_ref)
-                or newton != newton_ref):
+        if not ok or newton != newton_ref:
             raise AssertionError(f"production halo W={W} epoch {i + 1}: "
-                                 "TCV or Newton iterations off phase 19's")
+                                 "statistics or Newton iterations off "
+                                 "phase 19's")
     last = [(a, b) for d, _, _, _, _, a, b in out["solves"]
             if d == out["epochs"][-1]["dofs"]]
     busy = [u for t, u in samples if any(a <= t <= b for a, b in last)]
@@ -2625,6 +2682,288 @@ def ranked_phase(multi):
                               multi["production"])
 
 
+# phase 21: (label, dim, W) of the small cases, the full-width W
+LATTICE_SMALL = [("2d refine 3 lattice D=4 W=2", 2, 2),
+                 ("2d refine 3 lattice D=4 W=4", 2, 4),
+                 ("3d refine 1 lattice D=4 W=2", 3, 2)]
+LATTICE_FULL_W = 4
+
+
+def _ranked_products(ranks):
+    """A rank of phase 21's kernel check: for each KERNELS library at its
+    full shapes (phase 3's seeded inputs) the f32 u and phi blocks'
+    sharded products on D_SHARDS shards, one process (all rows) and
+    this rank (its rows, the halo rows exchanged), compared bit for bit;
+    the rank's product timed on kernel_clock.py with the halo rows in
+    hand, the ranks one at a time, beside the one-process product (each
+    rank times that too), and the exchange's host time."""
+    import torch.distributed as tdist
+    from cracks_tpu_torch.kernel_clock import KernelClock
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.parallel.sharding import make_shard_mesh
+    dev = ranks.device
+    one = make_shard_mesh([dev] * D_SHARDS)
+    mesh = make_shard_mesh([dev] * D_SHARDS, ranks=ranks)
+    clock = KernelClock(dev)
+    out = []
+    for spec in KERNELS:
+        cells, dim = spec["cells"], spec["dim"]
+        ndl = 2 ** dim * (dim + 1)
+        grid = tuple(c + 1 for c in cells)
+        rng = np.random.default_rng(SEED)
+        jac = torch.as_tensor(rng.standard_normal((ndl, ndl) + cells,
+                                                  dtype=np.float32),
+                              device=dev)
+        x = torch.as_tensor(rng.standard_normal((dim,) + grid), dtype=f64,
+                            device=dev)
+        rl = one.rows_loc(grid[0])
+        r0 = mesh.first * rl
+        r1 = min(r0 + mesh.n_local * rl, grid[0])
+        for name, dt, lo, hi, _, _, k, _ in spec["shapes"]:
+            if dt != f32:
+                continue
+            X = x[:k].to(f32).contiguous()
+            JP1 = stencil.pad_jac_sharded(jac, lo, hi, lo, hi, one)
+            y1 = stencil.stencil_matvec_sharded(JP1, X, k, one)
+            JP = stencil.pad_jac_sharded(jac[:, :, r0:r1].contiguous(), lo,
+                                         hi, lo, hi, mesh, rows_loc=rl)
+            Xr = X[:, r0:r1].contiguous()
+            before = stencil.stencil_matvec_sharded.launches
+            y = stencil.stencil_matvec_sharded(JP, Xr, k, mesh)
+            launches = stencil.stencil_matvec_sharded.launches - before
+            torch.cuda.synchronize()
+            diff = float((y - y1[:, r0:r1]).abs().max())
+            equal = torch.equal(y, y1[:, r0:r1])
+            halo = stencil.halo_rows(Xr, mesh)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                stencil.halo_rows(Xr, mesh)
+            exchange_ms = (time.perf_counter() - t0) / 20 * 1e3
+            ms = one_ms = None
+            for r in range(ranks.world):
+                tdist.barrier()
+                if r == ranks.rank:
+                    ms = clock.median_ms(
+                        lambda: stencil.stencil_matvec_sharded(
+                            JP, Xr, k, mesh, halo=halo))
+                    one_ms = clock.median_ms(
+                        lambda: stencil.stencil_matvec_sharded(JP1, X, k, one))
+            # what the rank's launch must move, as phase 3 counts the
+            # one-process product's: J's cell rows of the rank's rows
+            # (the carrier's pad rows past the lattice's end are never
+            # read) and one J halo row per shard that holds rows; X's
+            # rows and Y's, and the X halo rows it receives
+            kl = hi - lo
+            cells_r = min(r1, grid[0] - 1) - r0
+            shards_r = sum(1 for s in range(mesh.n_local)
+                           if (mesh.first + s) * rl < grid[0])
+            halos = int(r0 > 0) + int(r1 < grid[0])
+            rest, vrow = int(np.prod(cells[1:])), int(np.prod(grid[1:]))
+            nbytes = 4 * (kl * kl * (cells_r + shards_r) * rest
+                          + 2 * k * (r1 - r0) * vrow + k * halos * vrow)
+            out.append(dict(library=spec["sharded"], name=name, rows=(r0, r1),
+                            carrier=tuple(JP.shape), launches=launches,
+                            max_abs_diff=diff, equal=equal, ms=ms,
+                            one_ms=one_ms, exchange_ms=exchange_ms,
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            del JP1, y1, JP, y, X, Xr
+            torch.cuda.empty_cache()
+        del jac, x
+        torch.cuda.empty_cache()
+    del clock
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ranked_lattice_full(ranks):
+    """A rank of phase 21's full-width run: phase 7's 2d case on the
+    ranks, with every CG pass timed between synchronizations and its
+    exchanges, collectives and bytes counted."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.parallel import dist
+    from cracks_tpu_torch.solvers import lattice
+    if ranks.rank:
+        sys.stdout = open(os.devnull, "w")
+    real = lattice._cg_pass32
+    passes = []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        e0, c0 = dict(dist.EXCHANGES), dict(dist.COUNTS)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0, out[1],
+                       dist.EXCHANGES["exchanges"] - e0["exchanges"],
+                       dist.COUNTS["collectives"] - c0["collectives"],
+                       dist.EXCHANGES["bytes"] - e0["bytes"]
+                       + dist.COUNTS["bytes"] - c0["bytes"]))
+        return out
+
+    sim = Simulation(_params(2, FULL[2][0], **SHARDED), device="cuda",
+                     verbose=ranks.rank == 0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_stencil_counts()
+    lattice._cg_pass32 = timed
+    t0 = time.perf_counter()
+    try:
+        sim.run()
+    finally:
+        lattice._cg_pass32 = real
+    torch.cuda.synchronize()
+    hier = sim.sys.lattice_hierarchy
+    return dict(energies=_energies(sim), newton=[e[1] for e in
+                                                sim.solver_effort],
+                linear=[e[2] for e in sim.solver_effort],
+                steps=len(sim.solver_effort), cuts=sim.step_cuts,
+                step_s=[t for _, _, t in sim.step_times],
+                secs=time.perf_counter() - t0,
+                sharded=stencil.stencil_matvec_sharded.launches,
+                unsharded=stencil.stencil_matvec2d.launches,
+                phi=stencil.stencil_matvec2d.phi_launches,
+                n_split=hier.n_split, n_levels=hier.n_levels,
+                rows=(hier.slabs[-1].a, hier.slabs[-1].b), passes=passes,
+                **_rank_info(ranks))
+
+
+def _ranked_lattice(ranks, dims, kernels, full):
+    """A rank of a phase-21 launch: with `kernels` the kernel check,
+    then each small case's _run_small tuple (dims), then with `full` the
+    full-width run."""
+    from cracks_tpu_torch.ops import stencil
+    prods = _ranked_products(ranks) if kernels else None
+    small = []
+    for dim in dims:
+        _zero_stencil_counts()
+        run = _run_small(dim, SMALL[[d for d, _, _ in SMALL].index(dim)][1],
+                         {**SMALL_STEPS[dim], **SHARDED}, "cuda")
+        kernel = (stencil.stencil_matvec2d if dim == 2
+                  else stencil.stencil_matvec3d)
+        small.append(run + ((stencil.stencil_matvec_sharded.launches,
+                              kernel.launches),))
+    info = _rank_info(ranks)
+    return prods, small, info, _ranked_lattice_full(ranks) if full else None
+
+
+def _lattice_kernel_report(outs):
+    """Phase 21's kernel check: every rank's rows bit-equal to the
+    one-process product, one launch per product; returns per library
+    and block the ranks' median device ms and the exchange's ms."""
+    report = {}
+    for rank, (prods, _, _, _) in enumerate(outs):
+        for p in prods:
+            print(f"{p['library']} {p['name']} rank {rank} rows "
+                  f"{p['rows']} carrier {p['carrier']}: {p['launches']} "
+                  f"launch, max|rank - one process| {p['max_abs_diff']:.1e}"
+                  f", bit-equal {p['equal']}; kernel {p['ms'] * 1e3:.1f} us"
+                  f" (bound {p['bound_ms'] * 1e3:.1f} us) beside the "
+                  f"one-process product's {p['one_ms'] * 1e3:.1f} us; "
+                  f"halo exchange {p['exchange_ms']:.3f} ms on the host")
+            if (p["max_abs_diff"] != 0.0 or not p["equal"]
+                    or p["launches"] != 1):
+                raise AssertionError(f"{p['library']} {p['name']} rank "
+                                     f"{rank}: off the one-process product")
+            report.setdefault((p["library"], p["name"]), []).append(p)
+    return report
+
+
+def lattice_ranked_phase(small_card, sharded_full):
+    """Phase 21: the lattice layout on W ranks of the one card, held to
+    phases 3, 4 and 7.  Returns the kernel check's records, the
+    full-width run's per-rank dicts and per small case each rank's
+    (sharded, unsharded) launches."""
+    worlds = {}
+    launches = {}
+    for label, dim, W in LATTICE_SMALL:
+        worlds.setdefault(W, []).append((label, dim))
+    kernels = full = None
+    for W, cases in sorted(worlds.items()):
+        last = W == LATTICE_FULL_W
+        samples = [] if last else None
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _launch_on_card(_ranked_lattice, W,
+                                   ([dim for _, dim in cases], last, last),
+                                   tmp, samples)
+        infos = [o[2] for o in outs]
+        print(f"phase 21 on cuda, {W} ranks ("
+              + "; ".join(f"rank {i['rank']} on {i['device']}"
+                          for i in infos)
+              + f"), {infos[0]['transport']}: {time.perf_counter() - t0:.1f}"
+              f" s with the ranks' start; peak device memory per rank "
+              f"after the small cases {[i['peak_bytes'] for i in infos]} B")
+        if last:
+            kernels = _lattice_kernel_report(outs)
+        for n, (label, dim) in enumerate(cases):
+            ref = small_card[dim]
+            run = outs[0][1][n]
+            same = all(np.array_equal(o[1][n][1], run[1])
+                       and o[1][n][2] == run[2] for o in outs)
+            rel = float((np.abs(run[1] - ref[1]) / np.abs(ref[1])).max())
+            bits = np.array_equal(run[1], ref[1]) and run[2] == ref[2]
+            print(f"{label} on cuda: {run[3]:.1f} s, energies "
+                  f"{run[1].tolist()}, Newton/linear its {run[2]} (phase 4:"
+                  f" {ref[2]}), max rel difference to phase 4 {rel:.3e} "
+                  f"(bound 1e-12), bit-equal to phase 4: {bits}, ranks "
+                  f"bit-equal: {same}; (sharded, unsharded) launches per "
+                  f"rank {[o[1][n][4] for o in outs]}")
+            if (rel > 1e-12 or not same or run[0] != ref[0]
+                    or [a for a, _ in run[2]] != [a for a, _ in ref[2]]):
+                raise AssertionError(f"{label}: off phase 4's card run")
+            launches[label] = [o[1][n][4] for o in outs]
+        if last:
+            full = [o[3] for o in outs]
+            _lattice_full_report(full, samples, sharded_full)
+    return kernels, full, launches
+
+
+def _lattice_full_report(outs, samples, ref):
+    """Phase 21, full width: every rank's run against phase 7's sharded
+    run, and what it cost."""
+    W = len(outs)
+    out = outs[0]
+    label = f"2d main path lattice D={D_SHARDS} W={W}"
+    for o in outs[1:]:
+        if not (np.array_equal(o["energies"], out["energies"])
+                and o["newton"] == out["newton"]):
+            raise AssertionError(f"{label}: rank {o['rank']} differs from "
+                                 "rank 0")
+    rel = float(np.max(np.abs(out["energies"] - ref["energies"])
+                       / np.abs(ref["energies"])))
+    its = sum(p[1] for p in out["passes"])
+    wall = sum(p[0] for p in out["passes"])
+    ex, coll, nbytes = (sum(p[k] for p in out["passes"]) for k in (2, 3, 4))
+    print(f"{label}: {out['secs']:.2f} s in rank 0's run, s per step "
+          f"{[round(x, 3) for x in out['step_s']]}, Newton its "
+          f"{out['newton']} (phase 7 {ref['newton']}), linear its "
+          f"{out['linear']}, {out['n_split']} of {out['n_levels']} levels "
+          f"split by slab, rows per rank {[o['rows'] for o in outs]}")
+    print(f"{label}: {len(out['passes'])} CG passes, {its} CG iterations, "
+          f"{1e3 * wall / max(its, 1):.2f} ms, {ex / max(its, 1):.1f} "
+          f"exchanges, {coll / max(its, 1):.1f} collectives and "
+          f"{nbytes / max(its, 1):.0f} B per CG iteration per rank (rank 0;"
+          f" the passes' setup included)")
+    print(f"{label}: peak device memory per rank "
+          f"{[o['peak_bytes'] for o in outs]} B, sharded launches per rank "
+          f"{[o['sharded'] for o in outs]} (phase 7: {ref['sharded']}), "
+          f"unsharded per rank {[o['unsharded'] for o in outs]} (phase 7: "
+          f"{ref['launches']}), of them phase-field per rank "
+          f"{[o['phi'] for o in outs]} (phase 7: {ref['route_launches']}); "
+          "energies "
+          f"{[repr(float(e)) for e in out['energies'].ravel()]}, max rel "
+          f"difference to phase 7 {rel:.3e} (bound 1e-10)")
+    busy = [u for _, u in samples]
+    print(f"{label}: idle share "
+          + (f"{100 - sum(busy) / len(busy):.1f} % (nvidia-smi "
+             f"utilization.gpu, {len(busy)} samples over the launch)"
+             if busy else "not measured (no sample)"))
+    if (rel > 1e-10 or out["newton"] != ref["newton"] or out["cuts"]
+            or out["steps"] != 2
+            or any(o["sharded"] != ref["sharded"] for o in outs)):
+        raise AssertionError(f"{label}: off phase 7's run")
+
+
 def _main_paths():
     """The main path of each dimension at full width, replicated and
     then sharded: ({dim: main_phase's dict}, the same sharded)."""
@@ -2646,7 +2985,7 @@ def main():
     device_phase()
     _timed(build_phase)
     records = {k["name"]: _timed(kernel_phase, k) for k in KERNELS}
-    full, full_sharded = _timed(small_phases, _main_paths)
+    (full, full_sharded), small_card = _timed(small_phases, _main_paths)
     print(f"main_phase, sharded: {time.perf_counter() - t_start:.1f} s "
           "since the start")
     for phase in (golden2d_phase, golden3d_phase, shipped_phase):
@@ -2672,6 +3011,8 @@ def main():
         _timed(matrix_free_phase, mf_cpu)
     multi = _timed(sharded_modes_phase, jacobi)
     _timed(ranked_phase, multi)
+    lattice_kernels, lattice_full, lattice_small = _timed(
+        lattice_ranked_phase, small_card, full_sharded[2])
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]
@@ -2724,6 +3065,17 @@ def main():
         if k["dim"] == 2:
             entries[-1]["launches_seam"] = seam["sharded"]
             entries[-1]["launches_multi_shard"] = multi["sharded"]
+            entries[-1]["launches_ranked"] = [o["sharded"]
+                                              for o in lattice_full]
+        else:
+            entries[-1]["launches_ranked"] = [
+                sharded for sharded, _ in lattice_small[LATTICE_SMALL[-1][0]]]
+        entries[-1]["ranked"] = [
+            dict(name=p["name"], rank=r, rows=p["rows"], ms=p["ms"],
+                 one_process_ms=p["one_ms"], exchange_ms=p["exchange_ms"],
+                 bound_ms=p["bound_ms"], max_abs_diff=p["max_abs_diff"])
+            for (lib, _), ps in lattice_kernels.items() if lib == k["sharded"]
+            for r, p in enumerate(ps)]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,16 @@
 // Replaces cracks_tpu/ops/pallas_stencil.py::stencil_matvec3d_sharded
 // (:368), the shard_map wrapper that runs the Pallas TPU kernel
 // _kernel3d (:232) once per z-slab after a one-plane ppermute of X each
-// way.  Here the D slabs of the leading grid axis sit on one card, each
-// of rl planes (G0 = 81 padded to 84 on D = 4: rl = 21), and a CTA reads
-// its shard's J from the stacked carrier (D, 8k, 8k, rl+1, GCY, GCXp)
-// that ops/stencil.py::pad_jac_sharded builds once per Newton solve, and
-// its X planes, the neighbour shards' boundary planes included, straight
-// from the global X.  Y is written in place: no per-shard X, no halo
-// buffer, no concatenation.  The kernel itself is in
+// way.  Here the D slabs of the leading grid axis that a process holds
+// sit on its card, each of rl planes (G0 = 81 padded to 84 on D = 4:
+// rl = 21), and a CTA reads its shard's J from the stacked carrier (D,
+// 8k, 8k, rl+1, GCY, GCXp) that ops/stencil.py::pad_jac_sharded builds
+// once per Newton solve, and its X planes, the neighbour shards'
+// boundary planes included, straight from the process's X; only the
+// planes of another process (W ranks) come from the two halo-plane
+// buffers that ops/stencil.py::stencil_matvec_sharded receives from the
+// neighbour ranks before the launch.  Y is written in place: no
+// per-shard X, no concatenation.  The kernel itself is in
 // lattice_stencil_sharded.cuh.
 //
 // What bounds it: memory traffic.  The product streams the carrier once
@@ -43,9 +46,6 @@
 // itself).  The tensor map is encoded on the host at each launch
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda).
 //
-// Several cards (ROADMAP A11c) are not served: there the in-kernel
-// halo read becomes an explicit exchange (NCCL) into halo planes.
-//
 // The kernel allocates nothing and runs on the caller's stream; each
 // entry point returns cudaGetLastError() after the launch (or a negative
 // code when the tensor map cannot be made, see the header).
@@ -61,35 +61,36 @@ namespace {
 // boxes.  Small CTAs, 4 or more on each SM, hide the latency better than
 // a deeper ring: 4 stages of the u block took 656 us, 2 took 460 us.
 template <typename T>
-int dispatch(const T* JP, const T* X, T* Y, int D, int rl, int G0, int GY,
-             int GX, int GCXp, int k, void* stream_ptr) {
+int dispatch(const T* JP, const T* X, const T* Xlo, const T* Xhi, T* Y,
+             int D, int rl, int row0, int nx, int G0, int GY, int GX,
+             int GCXp, int k, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   constexpr bool f32 = sizeof(T) == 4;
   if (k == 3) {
-    return sharded::launch<T, 3, 3, f32 ? 2 : 1>(JP, X, Y, D, rl, G0, GY,
-                                                 GX, GCXp, 1, stream);
+    return sharded::launch<T, 3, 3, f32 ? 2 : 1>(
+        JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GY, GX, GCXp, 1, stream);
   }
   if (k == 1) {
-    return sharded::launch<T, 3, 1, 4>(JP, X, Y, D, rl, G0, GY, GX, GCXp,
-                                       2, stream);
+    return sharded::launch<T, 3, 1, 4>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx,
+                                       G0, GY, GX, GCXp, 2, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int lattice_stencil3d_sharded_f32(const float* JP,
-                                             const float* X, float* Y,
-                                             int D, int rl, int G0, int GY,
-                                             int GX, int GCXp, int k,
-                                             void* stream) {
-  return dispatch<float>(JP, X, Y, D, rl, G0, GY, GX, GCXp, k, stream);
+extern "C" int lattice_stencil3d_sharded_f32(
+    const float* JP, const float* X, const float* Xlo, const float* Xhi,
+    float* Y, int D, int rl, int row0, int nx, int G0, int GY, int GX,
+    int GCXp, int k, void* stream) {
+  return dispatch<float>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GY, GX,
+                         GCXp, k, stream);
 }
 
-extern "C" int lattice_stencil3d_sharded_f64(const double* JP,
-                                             const double* X, double* Y,
-                                             int D, int rl, int G0, int GY,
-                                             int GX, int GCXp, int k,
-                                             void* stream) {
-  return dispatch<double>(JP, X, Y, D, rl, G0, GY, GX, GCXp, k, stream);
+extern "C" int lattice_stencil3d_sharded_f64(
+    const double* JP, const double* X, const double* Xlo, const double* Xhi,
+    double* Y, int D, int rl, int row0, int nx, int G0, int GY, int GX,
+    int GCXp, int k, void* stream) {
+  return dispatch<double>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GY, GX,
+                          GCXp, k, stream);
 }

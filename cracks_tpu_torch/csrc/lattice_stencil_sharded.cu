@@ -4,13 +4,16 @@
 // Replaces cracks_tpu/ops/pallas_stencil.py::stencil_matvec_sharded
 // (:171), the shard_map wrapper that runs the Pallas TPU kernel _kernel
 // (:39) once per y-slab after a one-row ppermute of X each way.  Here
-// the D slabs of the leading grid axis sit on one card, each of rl rows
-// (G0 = 641 padded to 644 on D = 4: rl = 161), and a CTA reads its
-// shard's J from the stacked carrier (D, 4k, 4k, rl+1, GCXp) that
-// ops/stencil.py::pad_jac_sharded builds once per Newton solve, and its
-// X rows, the neighbour shards' boundary rows included, straight from
-// the global X.  Y is written in place: no per-shard X, no halo buffer,
-// no concatenation.  The kernel itself is in lattice_stencil_sharded.cuh.
+// the D slabs of the leading grid axis that a process holds sit on its
+// card, each of rl rows (G0 = 641 padded to 644 on D = 4: rl = 161), and
+// a CTA reads its shard's J from the stacked carrier (D, 4k, 4k, rl+1,
+// GCXp) that ops/stencil.py::pad_jac_sharded builds once per Newton
+// solve, and its X rows, the neighbour shards' boundary rows included,
+// straight from the process's X; only the rows of another process (W
+// ranks, torch.distributed) come from the two halo-row buffers that
+// ops/stencil.py::stencil_matvec_sharded receives from the neighbour
+// ranks before the launch.  Y is written in place: no per-shard X, no
+// concatenation.  The kernel itself is in lattice_stencil_sharded.cuh.
 //
 // What bounds it: memory traffic.  The product streams the carrier once
 // (the f32 u block of the 640x640-cell lattice on D = 4: 8*8*4*162*640
@@ -40,9 +43,6 @@
 // the host at each launch (cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint: no -lcuda).
 //
-// Several cards (ROADMAP A11c) are not served: there the in-kernel
-// halo read becomes an explicit exchange (NCCL) into halo rows.
-//
 // The kernel allocates nothing and runs on the caller's stream; each
 // entry point returns cudaGetLastError() after the launch (or a negative
 // code when the tensor map cannot be made, see the header).
@@ -58,16 +58,17 @@ namespace {
 // in flight.  Small CTAs, many on each SM, hide the latency better than
 // a deeper ring in fewer CTAs.
 template <typename T>
-int dispatch(const T* JP, const T* X, T* Y, int D, int rl, int G0, int GX,
-             int GCXp, int k, void* stream_ptr) {
+int dispatch(const T* JP, const T* X, const T* Xlo, const T* Xhi, T* Y,
+             int D, int rl, int row0, int nx, int G0, int GX, int GCXp,
+             int k, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k == 2) {
-    return sharded::launch<T, 2, 2, 2>(JP, X, Y, D, rl, G0, 1, GX, GCXp, 2,
-                                       stream);
+    return sharded::launch<T, 2, 2, 2>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx,
+                                       G0, 1, GX, GCXp, 2, stream);
   }
   if (k == 1) {
-    return sharded::launch<T, 2, 1, 2>(JP, X, Y, D, rl, G0, 1, GX, GCXp, 4,
-                                       stream);
+    return sharded::launch<T, 2, 1, 2>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx,
+                                       G0, 1, GX, GCXp, 4, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -75,15 +76,22 @@ int dispatch(const T* JP, const T* X, T* Y, int D, int rl, int G0, int GX,
 }  // namespace
 
 extern "C" int lattice_stencil_sharded_f32(const float* JP, const float* X,
-                                           float* Y, int D, int rl, int G0,
-                                           int GX, int GCXp, int k,
+                                           const float* Xlo,
+                                           const float* Xhi, float* Y,
+                                           int D, int rl, int row0, int nx,
+                                           int G0, int GX, int GCXp, int k,
                                            void* stream) {
-  return dispatch<float>(JP, X, Y, D, rl, G0, GX, GCXp, k, stream);
+  return dispatch<float>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GX, GCXp,
+                         k, stream);
 }
 
 extern "C" int lattice_stencil_sharded_f64(const double* JP,
-                                           const double* X, double* Y,
-                                           int D, int rl, int G0, int GX,
-                                           int GCXp, int k, void* stream) {
-  return dispatch<double>(JP, X, Y, D, rl, G0, GX, GCXp, k, stream);
+                                           const double* X,
+                                           const double* Xlo,
+                                           const double* Xhi, double* Y,
+                                           int D, int rl, int row0, int nx,
+                                           int G0, int GX, int GCXp, int k,
+                                           void* stream) {
+  return dispatch<double>(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GX, GCXp,
+                          k, stream);
 }

@@ -11,8 +11,15 @@
 //       cell rows (2d) / planes (3d) s*rl - 1 .. (s+1)*rl - 1 of the
 //       square J block at local rows 0..rl; rows outside the lattice
 //       and the pad columns are zero.
-//   X   the global view (K, G0, [GY,] GX), contiguous;
-//   Y   the same shape, written for every vertex, pad rows excluded.
+//   X   this process's rows of the lattice, (K, nx, [GY,] GX),
+//       contiguous: the lattice rows row0 .. row0 + nx - 1 (one process:
+//       row0 = 0, nx = G0, the whole lattice);
+//   Xlo, Xhi  the halo rows (K, 1, [GY,] GX) of the rows row0 - 1 and
+//       row0 + nx, received from the neighbour processes, or null at
+//       the lattice's ends, where the kernel reads zeros;
+//   Y   the shape of X, written for every row of X.
+// G0 is the lattice's end as far as this process sees: row0 + nx where
+// Xhi is null, row0 + nx + 1 otherwise.
 //
 // A CTA owns a tile of output vertices inside one shard s: TY rows of
 // TXV vertices (2d), or one plane of TY rows of TXV vertices (3d); TXV
@@ -29,15 +36,18 @@
 // cells x0 - 1 .. x0 + TXV - 1 of both x corners (a whole-row box
 // starts at 0 and spans the carrier's row); the A cells a part-row box
 // shares with the tile to its left are read by both.  X's tile with
-// its one-vertex ring is read once per CTA into shared memory, from the
-// global X: the neighbour shards' boundary rows come in with it, and
-// rows outside [0, G0) are zero.  That load is the non-circular
-// ppermute of the JAX wrapper, so no exchange launches.
+// its one-vertex ring is read once per CTA into shared memory: a
+// neighbour shard's boundary row from X where the shard is this
+// process's, from Xlo / Xhi where it is another process's, and rows
+// outside [0, G0) are zero.  That load is the non-circular ppermute of
+// the JAX wrapper, so no exchange launches inside a process; across
+// processes the rows arrive in the two halo buffers.
 //
 // Order of terms: per output vertex the sum runs over a, b, e, d with
 // the same skip of cells outside the lattice and the same acc += J * x
 // form as lattice_stencil{,3d}.cu, on the same J and X values, so the
-// sharded product equals the unsharded kernel bit for bit.
+// sharded product equals the unsharded kernel bit for bit, and a
+// process's rows equal the same rows of the one-process product.
 
 #pragma once
 
@@ -138,13 +148,15 @@ struct Geometry {
 template <typename T, int DIM, int K, int STAGES>
 __global__ void __launch_bounds__(256)
 sharded_kernel(const __grid_constant__ CUtensorMap jmap,
-               const T* __restrict__ X, T* __restrict__ Y, int G0, int GY,
-               int GX, int rl, int tiles0, Geometry g) {
+               const T* __restrict__ X, const T* __restrict__ Xlo,
+               const T* __restrict__ Xhi, T* __restrict__ Y, int G0,
+               int GY, int GX, int rl, int tiles0, int row0, int nx,
+               Geometry g) {
   using B = Block<T, DIM, K>;
-  const int s = blockIdx.y / tiles0;                         // shard
+  const int s = blockIdx.y / tiles0;                 // this process's shard
   const int l0 = (blockIdx.y % tiles0) * (DIM == 2 ? g.ty : 1);
-  const int v0 = s * rl + l0;             // the tile's first global row
-  if (v0 >= G0) return;                   // only pad rows: nothing to do
+  if (s * rl + l0 >= nx) return;          // only pad rows: nothing to do
+  const int v0 = row0 + s * rl + l0;      // the tile's first lattice row
   const int vy0 = DIM == 3 ? blockIdx.z * g.ty : 0;
   const int vx0 = blockIdx.x * g.txv;
   const int tx = threadIdx.x % g.txv;
@@ -189,7 +201,8 @@ sharded_kernel(const __grid_constant__ CUtensorMap jmap,
 
   // X's tile and its one-vertex ring, zero outside the lattice
   const int xw = g.txv + 2;
-  const int64_t vplane = static_cast<int64_t>(G0) * GY * GX;
+  const int64_t rowsize = static_cast<int64_t>(GY) * GX;
+  const int64_t vplane = nx * rowsize;
   for (int i = threadIdx.x; i < K * g.xt; i += blockDim.x) {
     const int e = i / g.xt;
     const int r = i % g.xt;
@@ -197,9 +210,18 @@ sharded_kernel(const __grid_constant__ CUtensorMap jmap,
     const int rest = r / xw;
     const int yy = DIM == 3 ? vy0 - 1 + rest % (g.ty + 2) : 0;
     const int zz = v0 - 1 + (DIM == 3 ? rest / (g.ty + 2) : rest);
+    const int zl = zz - row0;             // the row in this process's X
     T v = T(0);
-    if (zz >= 0 && zz < G0 && yy >= 0 && yy < GY && xx >= 0 && xx < GX)
-      v = X[e * vplane + (static_cast<int64_t>(zz) * GY + yy) * GX + xx];
+    if (zz >= 0 && zz < G0 && yy >= 0 && yy < GY && xx >= 0 && xx < GX) {
+      const int64_t at = yy * GX + xx;
+      if (zl < 0) {
+        if (Xlo != nullptr) v = Xlo[e * rowsize + at];
+      } else if (zl >= nx) {
+        if (Xhi != nullptr) v = Xhi[e * rowsize + at];
+      } else {
+        v = X[e * vplane + zl * rowsize + at];
+      }
+    }
     xs[i] = v;
   }
   __syncthreads();
@@ -208,8 +230,8 @@ sharded_kernel(const __grid_constant__ CUtensorMap jmap,
   const int vz = v0 + (DIM == 2 ? ty : 0);
   const int vy = DIM == 3 ? vy0 + ty : 0;
   const int vx = vx0 + tx;
-  const bool valid = ty < g.ty && vx < GX && vy < GY && vz < G0 &&
-                     (DIM == 3 || l0 + ty < rl);
+  const bool valid = ty < g.ty && vx < GX && vy < GY &&
+                     vz - row0 < nx && (DIM == 3 || l0 + ty < rl);
   const int pstride = g.w * g.ty;         // a box's plane
 
   T acc[K];
@@ -251,7 +273,7 @@ sharded_kernel(const __grid_constant__ CUtensorMap jmap,
     }
   }
   if (valid) {
-    const int64_t out = (static_cast<int64_t>(vz) * GY + vy) * GX + vx;
+    const int64_t out = (vz - row0) * rowsize + vy * GX + vx;
 #pragma unroll
     for (int d = 0; d < K; ++d) Y[d * vplane + out] = acc[d];
   }
@@ -312,9 +334,12 @@ Geometry geometry(int GX, int GCXp, int ty) {
 
 // Error codes: a CUDA runtime error, or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -(1000 + CUresult) when encoding fails.
+// D is the number of this process's shards, whose rows of the lattice
+// start at row0 (see the inputs above).
 template <typename T, int DIM, int K, int STAGES>
-int launch(const T* JP, const T* X, T* Y, int D, int rl, int G0, int GY,
-           int GX, int GCXp, int ty, cudaStream_t stream) {
+int launch(const T* JP, const T* X, const T* Xlo, const T* Xhi, T* Y,
+           int D, int rl, int row0, int nx, int G0, int GY, int GX,
+           int GCXp, int ty, cudaStream_t stream) {
   using B = Block<T, DIM, K>;
   static_assert(STAGES >= 1 && STAGES <= B::NC && STAGES <= 16, "stages");
   const Geometry g = geometry<T, DIM, K, STAGES>(GX, GCXp, ty);
@@ -367,8 +392,8 @@ int launch(const T* JP, const T* X, T* Y, int D, int rl, int G0, int GY,
   const int tiles0 = DIM == 2 ? (rl + g.ty - 1) / g.ty : rl;
   const dim3 grid((GX + g.txv - 1) / g.txv, D * tiles0,
                   DIM == 3 ? (GY + g.ty - 1) / g.ty : 1);
-  kernel<<<grid, g.threads, g.smem, stream>>>(map, X, Y, G0, GY, GX, rl,
-                                               tiles0, g);
+  kernel<<<grid, g.threads, g.smem, stream>>>(map, X, Xlo, Xhi, Y, G0, GY,
+                                               GX, rl, tiles0, row0, nx, g);
   return static_cast<int>(cudaGetLastError());
 }
 

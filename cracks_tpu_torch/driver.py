@@ -200,10 +200,17 @@ class System:
     @property
     def lattice_ca64(self):
         """Lazily built f64 raster-ordered cell arrays: the source of
-        the exact stored element matrices of the lattice solve."""
+        the exact stored element matrices of the lattice solve.  Split
+        by slab, the cells this process holds (`Slab.cells`)."""
         if self._lattice_ca64 is None and self._lattice_lay is not None:
+            perm = self._lattice_lay.cell_perm
+            hier = self.lattice_hierarchy
+            if hier is not None and hier.n_split:
+                c0, c1 = hier.slabs[-1].cells
+                gc = tuple(g - 1 for g in hier.grid)
+                perm = perm.reshape(gc)[c0:c1].reshape(-1)
             self._lattice_ca64 = physics.cell_arrays_from_core(
-                self._core, torch.float64, perm=self._lattice_lay.cell_perm)
+                self._core, torch.float64, perm=perm)
         return self._lattice_ca64
 
     @property
@@ -281,10 +288,10 @@ class Simulation:
         """With `ranks` (by default the process group this process set
         up through `dist.init_process_group`, if any) of W > 1 ranks the
         run takes the rank's device, and only rank 0 prints and writes
-        files.  W must divide n_devices, and the only mode on W > 1
-        ranks is the halo pool: the replicated cell-axis mode raises
-        NotImplementedError (ROADMAP A11e), as a solve on the lattice
-        layout does (A11d, `_solve_step`)."""
+        files.  W must divide n_devices, and the modes on W > 1 ranks
+        are the lattice layout and the halo pool: the replicated
+        cell-axis mode raises NotImplementedError (ROADMAP A11e), as the
+        seam lattice does (A11d, part 2, `setup_system`)."""
         ranks = dist.current() if ranks is None else ranks
         self.ranks = ranks if ranks is not None and ranks.world > 1 else None
         if self.ranks is not None:
@@ -405,26 +412,33 @@ class Simulation:
         lay = hier = None
         if gmg and self.sys.mixed_precision:
             lay = lattice.detect_tensor_grid(self.mesh)
+        lattice_mode = (p.dof_sharding == "lattice"
+                        and p.outer_solver == "active set")
         if lay is not None:
             hier = lattice.build_lattice_hierarchy(
-                self.mesh, lay, dirichlet_fn, device=self.device)
+                self.mesh, lay, dirichlet_fn, device=self.device,
+                lattice_layout=lattice_mode, shard_mesh=self.sys.shard_mesh)
         if hier is not None:
             self.sys.lattice_hierarchy = hier
             self.sys._lattice_lay = lay
         # the lattice-layout Newton (cracks_tpu/driver.py:361-397), for
         # the active-set solver only; the JAX package runs it with no
         # device mesh at n_devices = 1 too
-        self.sys.use_lattice_state = (p.dof_sharding == "lattice"
-                                      and hier is not None
-                                      and p.outer_solver == "active set")
+        self.sys.use_lattice_state = lattice_mode and hier is not None
         if self.sys.use_lattice_state:
             mesh = self.sys.shard_mesh
+            split = ("" if not hier.n_split else
+                     f"; the finest {hier.n_split} of {hier.n_levels} GMG "
+                     "levels split by slab")
+            where = ("" if self.ranks is None else
+                     f", {mesh.n_local} per rank, "
+                     f"{dist.describe(self.ranks)}")
             self.log(f"DoF sharding = lattice: D = "
                      f"{1 if mesh is None else mesh.n_shards} row slabs "
                      f"of the {lay.grid[0]}-row leading grid axis, padded "
-                     f"to {self.sys.lat_gyp} rows, on {self.device}")
-        elif (p.dof_sharding == "lattice" and p.outer_solver == "active set"
-                and self.sys.shard_mesh is not None):
+                     f"to {self.sys.lat_gyp} rows, on {self.device}{split}"
+                     f"{where}")
+        elif lattice_mode and self.sys.shard_mesh is not None:
             # the general-mesh sharded-DoF mode: the owned+ghost halo
             # pool (hanging nodes included), rebuilt with every epoch's
             # System (cracks_tpu/driver.py:365-390)
@@ -855,11 +869,6 @@ class Simulation:
         (`_solve_step_monolithic`)."""
         if self.sys.monolithic:
             return self._solve_step_monolithic(state)
-        if self.sys.use_lattice_state and self.ranks is not None:
-            raise NotImplementedError(
-                f"the lattice layout on {self.ranks.world} ranks is ROADMAP "
-                "A11d (the global-view lattice GMG split by slab); one "
-                "process (W = 1) runs it")
         solve = (lattice_newton.newton_active_set_lattice
                  if self.sys.use_lattice_state
                  else halo_newton.newton_active_set_halo

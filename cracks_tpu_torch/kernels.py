@@ -60,7 +60,7 @@ def build(name: str) -> tuple[str, str]:
 
 class StencilLib(NamedTuple):
     """A loaded stencil library and its two entry points, f32 and f64:
-    three pointers, `n_ints` ints and the stream, returning a
+    `n_ptrs` pointers, `n_ints` ints and the stream, returning a
     cudaError_t (see each loader)."""
 
     name: str
@@ -69,14 +69,14 @@ class StencilLib(NamedTuple):
     f64: object
 
 
-def _load_stencil(name: str, n_ints: int) -> StencilLib:
+def _load_stencil(name: str, n_ints: int, n_ptrs: int = 3) -> StencilLib:
     path, _ = build(name)
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     fns = []
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"{name}_{dt}")
-        fn.argtypes = [p, p, p] + [i] * n_ints + [p]
+        fn.argtypes = [p] * n_ptrs + [i] * n_ints + [p]
         fn.restype = i
         fns.append(fn)
     return StencilLib(name, lib, *fns)
@@ -99,13 +99,15 @@ def lattice_stencil3d() -> StencilLib:
 @functools.cache
 def lattice_stencil_sharded() -> StencilLib:
     """The 2d row-slab sharded library (csrc/lattice_stencil_sharded.cu):
-    ``(JP, X, Y, D, rl, G0, GX, GCXp, k, stream)``."""
-    return _load_stencil("lattice_stencil_sharded", 6)
+    ``(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GX, GCXp, k, stream)``
+    (Xlo, Xhi: halo rows or null)."""
+    return _load_stencil("lattice_stencil_sharded", 8, n_ptrs=5)
 
 
 @functools.cache
 def lattice_stencil3d_sharded() -> StencilLib:
     """The 3d row-slab sharded library
     (csrc/lattice_stencil3d_sharded.cu):
-    ``(JP, X, Y, D, rl, G0, GY, GX, GCXp, k, stream)``."""
-    return _load_stencil("lattice_stencil3d_sharded", 7)
+    ``(JP, X, Xlo, Xhi, Y, D, rl, row0, nx, G0, GY, GX, GCXp, k,
+    stream)``."""
+    return _load_stencil("lattice_stencil3d_sharded", 9, n_ptrs=5)

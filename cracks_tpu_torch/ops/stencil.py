@@ -182,13 +182,19 @@ def stencil_matvec(jac, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
 # X neighbour and are complete.  Rows outside the lattice (shard 0's
 # lower halo, the pad rows past G0) are zero in J and X.
 #
-# The plain version writes that out per shard: a halo'd X per shard, the
-# exchange (`ppermute_rows`), the unsharded plain product per shard.
-# The CUDA kernel does it in one launch: each CTA reads its shard's slab
-# of the carrier and its X rows, halo rows included, from the global X,
-# skips the cells outside the lattice as the unsharded kernel does and
-# sums each output vertex in the same order, so on the card it equals
-# the unsharded kernel bit for bit.  The TPU's (8, 128) tile padding
+# A process holds its shards' rows of X: the whole lattice in one
+# process, rows [first*rows_loc, ...) up to the lattice's end on W ranks
+# (the mesh's `first` and `n_local`).  The rows of another process reach
+# it in two halo rows, one exchange per product (`halo_rows`).
+#
+# The plain version writes that out per shard: a halo'd X per shard and
+# the unsharded plain product per shard.  The CUDA kernel does it in one
+# launch: each CTA reads its shard's slab of the carrier and its X rows
+# from the process's X, the rows of the neighbour processes from the
+# halo rows, skips the cells outside the lattice as the unsharded kernel
+# does and sums each output vertex in the same order, so on the card it
+# equals the unsharded kernel bit for bit, and a process's rows equal the
+# same rows of the one-process product.  The TPU's (8, 128) tile padding
 # (``:162``, ``:196``) is not carried over; the carrier's innermost cell
 # extent is padded to a multiple of 4 values instead, the 16-byte rows
 # that the kernel's TMA copies need.
@@ -203,38 +209,45 @@ def _carrier_width(gcx):
     return -(-gcx // CARRIER_ALIGN) * CARRIER_ALIGN
 
 
-def pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh):
+def pad_jac_sharded(jac, lo_r, hi_r, lo_c, hi_c, mesh, rows_loc=None):
     """The stacked per-shard J carrier of the block rows [lo_r, hi_r),
     columns [lo_c, hi_c), built once per Newton solve.  jac (R, C, GC0,
-    *rest); returns one contiguous (D, hi_r-lo_r, hi_c-lo_c, rows_loc+1,
-    *rest) tensor with the innermost extent padded by `_carrier_width`:
-    shard i's slab JP[i] holds at local cell row 0 the previous shard's
-    last cell row (zero on shard 0), at rows 1..rows_loc the shard's
-    own; rows past GC0 and the pad columns are zero.  The halo row
-    travels i -> i+1 by `ppermute_rows`, as the JAX wrapper's one
-    ``ppermute`` at prepare time."""
+    *rest) holds this process's cell rows: the whole lattice's in one
+    process, on W ranks the cell rows from first*rows_loc (whose
+    rows_loc, the lattice's, the caller passes).  Returns one contiguous
+    (D_local, hi_r-lo_r, hi_c-lo_c, rows_loc+1, *rest) tensor with the
+    innermost extent padded by `_carrier_width`: shard i's slab JP[i]
+    holds at local cell row 0 the previous shard's last cell row (zero
+    on shard 0), at rows 1..rows_loc the shard's own; rows past the
+    lattice and the pad columns are zero.  The halo row travels i -> i+1
+    by `ppermute_rows` (across a rank boundary, from the rank below), as
+    the JAX wrapper's one ``ppermute`` at prepare time."""
     from ..parallel.sharding import ppermute_rows
     if jac.device != mesh.device:
         raise ValueError(f"jac on {jac.device}, shards on {mesh.device}")
     blk = jac[lo_r:hi_r, lo_c:hi_c]
     gc0, gcx = blk.shape[2], blk.shape[-1]
-    rl = mesh.rows_loc(gc0 + 1)
-    D = mesh.n_shards
+    rl = mesh.rows_loc(gc0 + 1) if rows_loc is None else rows_loc
+    D = mesh.n_local
     JP = blk.new_zeros((D,) + blk.shape[:2] + (rl + 1,) + blk.shape[3:-1]
                        + (_carrier_width(gcx),))
     for i in range(D):
         n = max(0, min(rl, gc0 - i * rl))
         JP[i, :, :, 1:1 + n, ..., :gcx] = blk[:, :, i * rl:i * rl + n]
     ppermute_rows([JP[i, :, :, rl:] for i in range(D)], 1,
-                  [JP[i, :, :, :1] for i in range(D)])
+                  [JP[i, :, :, :1] for i in range(D)], mesh)
     return JP
 
 
 def check_sharded(JP, X, k, mesh):
-    """Validate a sharded product: X (k, G0, *rest) and the carrier JP of
-    `pad_jac_sharded` on the mesh's device, f32 or f64 of one dtype,
-    both contiguous, JP shaped (D, 2**dim*k, 2**dim*k, rows_loc+1,
-    *cellrest) with the padded innermost extent."""
+    """Validate a sharded product: X (k, G0, *rest), this process's rows
+    of the lattice, and the carrier JP of `pad_jac_sharded` on the
+    mesh's device, f32 or f64 of one dtype, both contiguous, JP shaped
+    (D_local, 2**dim*k, 2**dim*k, rows_loc+1, *cellrest) with the padded
+    innermost extent.  In one process X holds the whole lattice; on W
+    ranks rows_loc is the carrier's, and X holds at most the rank's
+    D_local * rows_loc rows, all of them unless the lattice ends on the
+    rank (the last)."""
     dim = X.dim() - 1
     if not (JP.device == X.device == mesh.device):
         raise ValueError(f"carrier on {JP.device}, X on {X.device}, shards "
@@ -249,7 +262,16 @@ def check_sharded(JP, X, k, mesh):
                          "and X")
     kl = 2 ** dim * k
     shape = X.shape
-    want = ((mesh.n_shards, kl, kl, mesh.rows_loc(shape[1]) + 1)
+    if mesh.world > 1:
+        rl = JP.shape[3] - 1
+        full = mesh.n_local * rl
+        last = mesh.rank == mesh.world - 1
+        if not (0 < shape[1] <= full and (last or shape[1] == full)):
+            raise ValueError(f"rank {mesh.rank} holds {shape[1]} rows of X, "
+                             f"its {mesh.n_local} shards {full}")
+    else:
+        rl = mesh.rows_loc(shape[1])
+    want = ((mesh.n_local, kl, kl, rl + 1)
             + tuple(g - 1 for g in shape[2:-1])
             + (_carrier_width(shape[-1] - 1),))
     if JP.shape != want:
@@ -258,44 +280,61 @@ def check_sharded(JP, X, k, mesh):
                          f"shards: want {want}")
 
 
+def halo_rows(X, mesh):
+    """The rows next to this process's rows of X, from the neighbour
+    ranks in one exchange: (row below, row above), each (k, 1, *rest),
+    None at the lattice's ends (and in one process)."""
+    if mesh.world == 1:
+        return None, None
+    from ..parallel import dist
+    spec = ((X.shape[0], 1) + tuple(X.shape[2:]), X.dtype)
+    below = mesh.rank > 0
+    above = mesh.rank < mesh.world - 1
+    return dist.exchange_rows(
+        mesh.ranks, down=X[:, :1] if below else None,
+        up=X[:, -1:] if above else None,
+        from_below=spec if below else None,
+        from_above=spec if above else None)
+
+
 def stencil_matvec_sharded_reference(JP, X, k, mesh):
     """Plain version of `stencil_matvec_sharded`, per shard: the halo'd
-    X_loc (k, rows_loc+2, *rest) of every shard, one vertex row
-    exchanged each way (`ppermute_rows`), the unsharded plain product of
-    JP[i] (pad columns dropped) and X_loc per shard, its rows
-    1..rows_loc kept, the shards concatenated and cut back to G0."""
-    from ..parallel.sharding import ppermute_rows
+    X_loc (k, rows_loc+2, *rest) of every shard of this process, cut
+    from its rows of X with the halo rows of the neighbour processes
+    (zero at the lattice's ends), the unsharded plain product of JP[i]
+    (pad columns dropped) and X_loc per shard, its rows 1..rows_loc
+    kept, the shards concatenated and cut back to X's rows."""
     check_sharded(JP, X, k, mesh)
-    D = mesh.n_shards
-    g0, gcx = X.shape[1], X.shape[-1] - 1
-    rl = mesh.rows_loc(g0)
+    D = mesh.n_local
+    nx = X.shape[1]
+    rl = JP.shape[3] - 1
+    gcx = X.shape[-1] - 1
     kl = JP.shape[1]
-    xs = []
-    for i in range(D):
-        xl = X.new_zeros((k, rl + 2) + X.shape[2:])
-        n = max(0, min(rl, g0 - i * rl))
-        xl[:, 1:1 + n] = X[:, i * rl:i * rl + n]
-        xs.append(xl)
-    # up: last owned row to the next shard's lower halo; down: first
-    # owned row to the previous shard's upper halo
-    ppermute_rows([xl[:, rl:rl + 1] for xl in xs], 1,
-                  [xl[:, :1] for xl in xs])
-    ppermute_rows([xl[:, 1:2] for xl in xs], -1,
-                  [xl[:, rl + 1:] for xl in xs])
+    lo, hi = halo_rows(X, mesh)
+    zero = X.new_zeros((k, 1) + X.shape[2:])
+    Xe = torch.cat([zero if lo is None else lo, X,
+                    X.new_zeros((k, D * rl - nx) + X.shape[2:]),
+                    zero if hi is None else hi], dim=1)
     # a contiguous slab (a copy only where there are pad columns), so
     # the einsum blocks its sums as for an unpadded per-shard block
-    ys = [stencil_matvec_reference(JP[i, ..., :gcx].contiguous(), xl, 0, kl,
-                                   0, kl, k, k)[:, 1:rl + 1]
-          for i, xl in enumerate(xs)]
-    return torch.cat(ys, dim=1)[:, :g0]
+    ys = [stencil_matvec_reference(JP[i, ..., :gcx].contiguous(),
+                                   Xe[:, i * rl:i * rl + rl + 2], 0, kl, 0,
+                                   kl, k, k)[:, 1:rl + 1]
+          for i in range(D)]
+    return torch.cat(ys, dim=1)[:, :nx]
 
 
-def stencil_matvec_sharded(JP, X, k, mesh):
-    """Y = J_block X on a row-slab sharded lattice: X (k, G0, *rest), the
-    global view; JP from `pad_jac_sharded`.  CPU tensors use the plain
-    version; CUDA tensors launch the 2d or 3d sharded kernel once for
-    all shards, and each launch adds one to
-    `stencil_matvec_sharded.launches`."""
+def stencil_matvec_sharded(JP, X, k, mesh, halo=None):
+    """Y = J_block X on a row-slab sharded lattice: X (k, G0, *rest),
+    this process's rows (`check_sharded`); JP from `pad_jac_sharded`.
+    CPU tensors use the plain version; CUDA tensors launch the 2d or 3d
+    sharded kernel once for all shards of this process, after one
+    exchange of the halo rows with the neighbour ranks (W > 1), and each
+    launch adds one to `stencil_matvec_sharded.launches`.  `halo`, the
+    pair `halo_rows` returns, skips the kernel's exchange (the plain
+    version makes its own): the solvers never pass it; chip_smoke.py's
+    timing of a rank's product does, so that its clock sees the kernel
+    alone."""
     check_sharded(JP, X, k, mesh)
     if X.device.type == "cpu":
         return stencil_matvec_sharded_reference(JP, X, k, mesh)
@@ -306,11 +345,19 @@ def stencil_matvec_sharded(JP, X, k, mesh):
     lib = (kernels.lattice_stencil_sharded() if dim == 2
            else kernels.lattice_stencil3d_sharded())
     fn = lib.f32 if X.dtype == torch.float32 else lib.f64
+    rl = JP.shape[3] - 1
+    nx = X.shape[1]
+    lo, hi = halo_rows(X, mesh) if halo is None else halo
+    row0 = mesh.first * rl
+    g0 = row0 + nx + (hi is not None)     # the lattice's end as seen here
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = fn(JP.data_ptr(), X.data_ptr(), Y.data_ptr(), mesh.n_shards,
-                 JP.shape[3] - 1, *X.shape[1:], JP.shape[-1], k, stream)
+        err = fn(JP.data_ptr(), X.data_ptr(),
+                 0 if lo is None else lo.data_ptr(),
+                 0 if hi is None else hi.data_ptr(), Y.data_ptr(),
+                 mesh.n_local, rl, row0, nx, g0, *X.shape[2:], JP.shape[-1],
+                 k, stream)
     if err != 0:
         raise RuntimeError(f"{lib.name} launch failed: error {err}")
     stencil_matvec_sharded.launches += 1

@@ -4,7 +4,10 @@ rank.
 A run on W ranks holds its D = ``n_devices`` shards D/W consecutive
 shards to a rank (`sharding.make_shard_mesh`); the shards meet only in
 `sharding.psum_shards` and `sharding.pmax_shards`, which call
-`all_gather_shards` and `all_max` here.
+`all_gather_shards` and `all_max` here, and, on the lattice layout, in
+the row exchanges of `sharding.ppermute_rows` and `sharding.Slab`,
+which call `exchange_rows`: one round of point-to-point sends between
+neighbour ranks.
 
 Each rank sets its process group up from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` and the
@@ -43,6 +46,9 @@ TIMEOUT_S = 300.0
 # collectives and the bytes each rank put into them, since the last
 # reset (`reset_counts`)
 COUNTS = dict(collectives=0, bytes=0)
+# neighbour row exchanges (`exchange_rows`) and the bytes each rank sent
+# in them, since the last reset
+EXCHANGES = dict(exchanges=0, bytes=0)
 
 
 class Ranks(NamedTuple):
@@ -142,11 +148,13 @@ def describe(ranks: Ranks) -> str:
 
 def reset_counts() -> None:
     COUNTS.update(collectives=0, bytes=0)
+    EXCHANGES.update(exchanges=0, bytes=0)
 
 
-def _host(shape, dtype) -> torch.Tensor:
-    """A pinned host buffer of this shape and dtype, kept for reuse."""
-    key = (tuple(shape), dtype)
+def _host(shape, dtype, slot: str = "") -> torch.Tensor:
+    """A pinned host buffer of this shape and dtype, kept for reuse (one
+    per `slot`, so that buffers in use together never alias)."""
+    key = (tuple(shape), dtype, slot)
     buf = _pinned.get(key)
     if buf is None:
         buf = _pinned[key] = torch.empty(shape, dtype=dtype,
@@ -211,6 +219,58 @@ def all_max(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     buf.copy_(x)
     tdist.all_reduce(buf, op=tdist.ReduceOp.MAX)
     return buf.to(x.device, non_blocking=True)
+
+
+def exchange_rows(ranks: Ranks, *, down=None, up=None, from_below=None,
+                  from_above=None):
+    """One round of sends between neighbour ranks: `down` (a tensor or
+    None) goes to rank - 1 and `up` to rank + 1; `from_below` /
+    `from_above` (a (shape, dtype) pair or None) say what arrives from
+    rank - 1 / rank + 1.  Both sides of a boundary must agree on what
+    crosses it.  Returns (tensor from below, tensor from above), None
+    where nothing arrives, on the device of the sent tensors (or of the
+    ranks).  Staged ranks copy what they send into pinned host buffers
+    (the one wait: it also ends every earlier copy back, so no buffer is
+    rewritten under a pending copy) and copy what arrives back without a
+    wait; NCCL sends CUDA tensors as they are."""
+    dev = ranks.device
+    sends = [(t, ranks.rank + d, s) for t, d, s in
+             ((down, -1, "down"), (up, 1, "up")) if t is not None]
+    recvs = [(spec, ranks.rank + d, s) for spec, d, s in
+             ((from_below, -1, "below"), (from_above, 1, "above"))
+             if spec is not None]
+    for _, peer, _ in sends + recvs:
+        if not 0 <= peer < ranks.world:
+            raise ValueError(f"rank {ranks.rank} of {ranks.world} has no "
+                             f"neighbour {peer}")
+    EXCHANGES["exchanges"] += 1
+    EXCHANGES["bytes"] += sum(t.numel() * t.element_size()
+                              for t, _, _ in sends)
+    if ranks.staged:
+        torch.cuda.current_stream(dev).synchronize()
+        out = []
+        for t, peer, slot in sends:
+            buf = _host(t.shape, t.dtype, "send-" + slot)
+            buf.copy_(t)
+            out.append(buf)
+        inbox = [_host(shape, dtype, "recv-" + slot)
+                 for (shape, dtype), _, slot in recvs]
+    else:
+        out = [t.contiguous() for t, _, _ in sends]
+        inbox = [torch.empty(shape, dtype=dtype, device=dev)
+                 for (shape, dtype), _, _ in recvs]
+    ops = ([tdist.P2POp(tdist.irecv, buf, peer)
+            for buf, (_, peer, _) in zip(inbox, recvs)]
+           + [tdist.P2POp(tdist.isend, buf, peer)
+              for buf, (_, peer, _) in zip(out, sends)])
+    if ops:
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+    got = {}
+    for buf, (_, _, slot) in zip(inbox, recvs):
+        got[slot] = (buf.to(dev, non_blocking=True) if ranks.staged
+                     else buf)
+    return got.get("below"), got.get("above")
 
 
 # ---------------------------------------------------------------------------

@@ -5,16 +5,6 @@ device mesh, ``make_device_mesh``:51), of the padded row extent
 ``cracks_tpu/driver.py::System.lat_gyp`` (:160-192) and of
 ``cracks_tpu/solvers/lattice.py::_pad_rows/_unpad_rows`` (:1716-1732).
 
-Execution model, the JAX package's own: one controller.  Code outside
-the two sharded stencil wrappers (`ops.stencil.pad_jac_sharded`,
-`ops.stencil.stencil_matvec_sharded`, JAX's two ``shard_map`` regions)
-is global-view torch code on whole tensors; under JAX, GSPMD partitions
-it.  Inside the wrappers the work is per shard: the J carrier holds one
-slab per shard, built once per solve with an explicit halo exchange
-(`ppermute_rows`); the product's plain version writes out the per-shard
-X and its exchange, while its CUDA kernel is one launch for all shards
-that reads the halo rows from the neighbour slabs of the global X.
-
 Layout: a vertex lattice with G0 rows along its leading grid axis is
 padded with zero rows to gyp = ceil(G0/D)*D, and shard i owns rows
 [i*rows_loc, (i+1)*rows_loc) with rows_loc = gyp/D.
@@ -22,16 +12,27 @@ padded with zero rows to gyp = ceil(G0/D)*D, and shard i owns rows
 Where shards live: in one process all D shards sit on the run's one
 device, as the JAX tests run 8 virtual CPU devices on one host.  On W
 ranks (torch.distributed, one process per rank, `dist.py`) rank r
-holds the D/W consecutive shards from r * D/W on its own device; the
-halo pool runs there (the lattice layout and the replicated cell-axis
-mode on W > 1 are ROADMAP A11d and A11e).  The JAX placements under
-GSPMD -- ``shard_cell_core``, ``shard_cell_arrays``,
-``shard_cell_arrays_nopad``, ``pad_cell_arrays``
+holds the D/W consecutive shards from r * D/W on its own device.  The
+JAX placements under GSPMD -- ``shard_cell_core``,
+``shard_cell_arrays``, ``shard_cell_arrays_nopad``, ``pad_cell_arrays``
 (``parallel/sharding.py:102-173``) and ``lattice._maybe_shard_jacs``
 (``lattice.py:1735``) -- move no value between shards and change no
 result, so on one device they are no-ops and have no code here.  That
 is all the replicated cell-axis mode (``n_devices > 1`` with replicated
-DoF vectors) is: the port runs it as the one-shard run.
+DoF vectors) is: the port runs it as the one-shard run (on W > 1 ranks
+it is ROADMAP A11e).
+
+The lattice layout splits the finest levels of the lattice GMG by
+slab (`Slab`, `level_slabs`): at level l (2:1 coarser per level) shard
+i owns the rows [ceil(min(i*rows_loc, G0) / 2**l), ...) up to the next
+shard's first row, so a coarse vertex belongs to the shard of its fine
+parent vertex; a process holds its shards' rows of every vector, mask
+and element-matrix level split so and reaches its neighbours' boundary
+rows through one exchange per product (`Slab.ext`).  Where JAX's GSPMD
+partitions global-view code, the port runs the same code on a
+process's halo'd rows.  Its dot products are sums of per-row sums
+(`Slab.dots`, `row_sums`): rows are the one partition that every D and
+W share, so every such run holds the same bits.
 
 The product mesh (``mesh_dcn > 1``, JAX's ("dcn", "cells") mesh) keeps
 the flat partition: the same D shards in the same order, since
@@ -40,13 +41,13 @@ collectives changes, so here it is the mesh's shape and nothing else.
 
 Collectives: the code of the sharded modes reaches other shards only
 through `psum_shards`, `pmax_shards` (JAX's ``psum`` / ``pmax`` over the
-shard axis) and `ppermute_rows`.  On one device they are tensor ops
-across the leading shard axis, the sum in shard order so that every run
-gives the same bits.  On W ranks `psum_shards` gathers every rank's
-entries and sums them in the same shard order, so each rank holds the
-one-process bits; `pmax_shards` is an all-reduce of the maximum, exact
-in any order; `ppermute_rows` (the lattice layout) stays in one
-process.
+shard axis), `ppermute_rows` and `Slab`'s exchanges and gathers.  On one device
+they are tensor ops across the leading shard axis, the sum in shard
+order so that every run gives the same bits.  On W ranks `psum_shards`
+gathers every rank's entries and sums them in the same shard order, so
+each rank holds the one-process bits; `pmax_shards` is an all-reduce of
+the maximum, exact in any order; a row exchange is one round of sends
+to the neighbour ranks (`dist.exchange_rows`).
 """
 
 from __future__ import annotations
@@ -203,12 +204,15 @@ def unpad_rows(X, g0: int):
     return X if X.shape[1] == g0 else X[:, :g0]
 
 
-def ppermute_rows(slabs, shift: int, halos) -> None:
+def ppermute_rows(slabs, shift: int, halos, mesh: ShardMesh | None = None
+                  ) -> None:
     """The non-circular ``jax.lax.ppermute`` of one row slab per shard
     along the shard axis, with the pairs (i, i+1) for shift +1 and
     (i+1, i) for shift -1: shard i's slab is copied into the halo slot
     of shard i+shift, and the halo slot that no shard sends to is
-    zeroed (the boundary shard's)."""
+    zeroed (the boundary shard's).  `slabs` and `halos` are this
+    process's shards'; on W > 1 ranks (`mesh`) the slab that crosses a
+    rank boundary goes to the neighbour rank in one exchange."""
     D = len(slabs)
     if len(halos) != D or shift not in (1, -1):
         raise ValueError(f"{D} slabs, {len(halos)} halo slots, shift "
@@ -217,4 +221,221 @@ def ppermute_rows(slabs, shift: int, halos) -> None:
         j = i + shift
         if 0 <= j < D:
             halos[j].copy_(slabs[i])
-    halos[0 if shift == 1 else D - 1].zero_()
+    edge = 0 if shift == 1 else D - 1
+    if mesh is None or mesh.world == 1:
+        halos[edge].zero_()
+        return
+    sender = slabs[D - 1 if shift == 1 else 0]
+    to_next = mesh.rank + shift
+    from_prev = mesh.rank - shift
+    spec = (tuple(halos[edge].shape), halos[edge].dtype)
+    got = dist.exchange_rows(
+        mesh.ranks,
+        down=sender if shift == -1 and to_next >= 0 else None,
+        up=sender if shift == 1 and to_next < mesh.world else None,
+        from_below=spec if shift == 1 and from_prev >= 0 else None,
+        from_above=spec if shift == -1 and from_prev < mesh.world else None)
+    got = got[0] if shift == 1 else got[1]
+    if got is None:
+        halos[edge].zero_()
+    else:
+        halos[edge].copy_(got)
+
+
+# ---------------------------------------------------------------------------
+# the lattice levels split by slab
+# ---------------------------------------------------------------------------
+
+# a coarse level is split by slab while every shard that holds lattice
+# rows holds at least this many of its rows; below it every process
+# holds the whole level (and runs it identically)
+SPLIT_MIN_ROWS = 4
+
+
+class Slab(NamedTuple):
+    """This process's rows [a, b) of one level of a row-slab sharded
+    lattice of g rows (the leading grid axis), on `mesh` (None: one
+    process), with every rank's rows `spans` (W > 1 ranks).  The stencil
+    reaches one row each way, so a row-local operation needs the halo'd
+    rows [e0, e1) = [max(a-1, 0), min(b+1, g)): the owned rows and each
+    neighbour's boundary row (`ext`); their cells [e0, e1-1) are the
+    cells this process holds of the level.  In one process (a = 0,
+    b = g) `ext` is the identity and no row moves."""
+
+    g: int
+    a: int
+    b: int
+    mesh: ShardMesh | None = None
+    spans: tuple = ()
+
+    @property
+    def n(self) -> int:
+        return self.b - self.a
+
+    @property
+    def e0(self) -> int:
+        return max(self.a - 1, 0)
+
+    @property
+    def e1(self) -> int:
+        return min(self.b + 1, self.g)
+
+    @property
+    def off(self) -> int:
+        """The owned rows' offset in the halo'd rows (0 or 1)."""
+        return self.a - self.e0
+
+    @property
+    def cells(self) -> tuple:
+        """The cell rows [c0, c1) this process holds."""
+        return self.e0, self.e1 - 1
+
+    @property
+    def ranked(self) -> bool:
+        return self.mesh is not None and self.mesh.world > 1
+
+    def rows(self, X):
+        """The owned rows of a whole level (k, g, ...)."""
+        return X[:, self.a:self.b]
+
+    def owned(self, Y):
+        """The owned rows of a halo'd (k, e1-e0, ...) array."""
+        return Y[:, self.off:self.off + self.n]
+
+    def ext(self, *Xs):
+        """Owned (k, n, ...) arrays -> halo'd (k, e1-e0, ...) arrays:
+        each neighbour's boundary rows of all of them in one exchange
+        (the arrays share their dtype and row shape).  Returns a
+        tuple."""
+        if self.e0 == self.a and self.e1 == self.b:
+            return Xs
+        ks = [X.shape[0] for X in Xs]
+        edge = lambda sl: torch.cat([X[:, sl] for X in Xs])
+        spec = ((sum(ks), 1) + tuple(Xs[0].shape[2:]), Xs[0].dtype)
+        lo, hi = dist.exchange_rows(
+            self.mesh.ranks,
+            down=edge(slice(0, 1)) if self.e0 < self.a else None,
+            up=edge(slice(-1, None)) if self.e1 > self.b else None,
+            from_below=spec if self.e0 < self.a else None,
+            from_above=spec if self.e1 > self.b else None)
+        out, at = [], 0
+        for X, k in zip(Xs, ks):
+            pieces = [X]
+            if lo is not None:
+                pieces.insert(0, lo[at:at + k])
+            if hi is not None:
+                pieces.append(hi[at:at + k])
+            out.append(torch.cat(pieces, dim=1))
+            at += k
+        return tuple(out)
+
+    def dots(self, *pairs, host: bool = False):
+        """The totals x . y of each (x, y) pair of owned arrays: each
+        row's partial sum (`row_sums`), every process's rows gathered,
+        one sum over the level's rows.  Every process, and a run of the
+        same lattice on any number of shards or ranks, holds the same
+        bits (a sum of per-shard sums in shard order would not: the
+        refinement pass's residual cancels ~4 digits, so its last bits
+        move every f32 CG iterate).  Returns an (m,) tensor of x's
+        dtype; with `host`, (it, the f64 totals on the host)."""
+        part = row_sums(*pairs, a=self.a, g=self.g)
+        if self.ranked:
+            part = gather_rows(part[:, self.a:self.b], self.mesh,
+                               self.spans)
+        total = part.sum(dim=1)
+        view = total.to(pairs[0][0].dtype)
+        return (view, total.cpu()) if host else view
+
+    def amax(self, x):
+        """The elementwise largest of x over all processes (exact)."""
+        return pmax_shards(x.unsqueeze(0), self.mesh)[0]
+
+    def sum_ranks(self, x):
+        """The sum of an integer tensor over all processes (exact)."""
+        if not self.ranked:
+            return x
+        return dist.all_gather_shards(x.unsqueeze(0), self.mesh.ranks).sum(0)
+
+    def gather(self, X):
+        """The whole level (k, g, ...) from every process's owned rows
+        (one gather; `X` itself in one process)."""
+        if not self.ranked:
+            return X
+        if X.dtype == torch.bool:
+            return gather_rows(X.to(torch.uint8), self.mesh,
+                               self.spans).bool()
+        return gather_rows(X, self.mesh, self.spans)
+
+
+def whole(g: int) -> Slab:
+    """The slab of all g rows of a level in one process."""
+    return Slab(g, 0, g)
+
+
+def row_sums(*pairs, a: int = 0, g: int | None = None) -> torch.Tensor:
+    """(m, g) f64: for each (x, y) pair of (k, n, *rest) arrays, the
+    rows [a, a+n) of a level of g rows (n if None), the sum of x * y
+    over each row (axis 1) and its components: one `sum` of a
+    (k, g, *rest) array that holds the products at their rows of the
+    level (zeros elsewhere).  That reduction has the same shape, and a
+    row the same place, in every process, so a row's sum has the same
+    bits however many rows a process holds, on any device.  Rows outside
+    [a, a+n) are 0."""
+    sums = []
+    for x, y in pairs:
+        t = (x * y).to(torch.float64)
+        n = t.shape[1]
+        if g is not None and g != n:
+            full = t.new_zeros((t.shape[0], g) + t.shape[2:])
+            full[:, a:a + n] = t
+            t = full
+        sums.append(t.sum(dim=[0] + list(range(2, t.dim()))))
+    return torch.stack(sums)
+
+
+def level_slabs(mesh: ShardMesh | None, g0: int, n_levels: int):
+    """This process's `Slab` of every level of a 2:1 lattice hierarchy
+    whose finest level has g0 rows, finest first, and the number of
+    levels split by slab: the finest level and each next one while every
+    shard holding lattice rows holds at least SPLIT_MIN_ROWS of its rows
+    (never the coarsest, whose dense factor every process computes).
+    Without a mesh: one slab of all rows per level and no split level
+    (the global-view solve).  On W > 1 ranks every rank must hold a row
+    of the finest level (ValueError)."""
+    grids = [(g0 - 1) // 2 ** l + 1 for l in range(n_levels)]
+    if mesh is None:
+        return [whole(g) for g in grids], 0
+    D, W, nl = mesh.n_shards, mesh.world, mesh.n_local
+    rl = mesh.rows_loc(g0)
+    first, last = mesh.first, mesh.first + nl
+    slabs, sizes = [], []
+    for l, g in enumerate(grids):
+        bounds = [-(-min(i * rl, g0) // 2 ** l) for i in range(D + 1)]
+        sizes.append([bounds[i + 1] - bounds[i] for i in range(D)])
+        spans = tuple((bounds[r * nl], bounds[(r + 1) * nl])
+                      for r in range(W))
+        if l == 0 and W > 1 and any(a == b for a, b in spans):
+            raise ValueError(f"{W} ranks of {D} shards leave a rank without "
+                             f"rows of the {g0}-row lattice")
+        slabs.append(Slab(g, bounds[first], bounds[last], mesh,
+                          spans if W > 1 else ()))
+    real = [i for i in range(D) if sizes[0][i]]
+    n_split = 1
+    while (n_split < n_levels - 1
+           and min(sizes[n_split][i] for i in real) >= SPLIT_MIN_ROWS):
+        n_split += 1
+    return slabs, n_split
+
+
+def gather_rows(X, mesh: ShardMesh, spans) -> torch.Tensor:
+    """Concatenate every rank's rows along axis 1: this rank's X holds
+    the rows spans[rank] = (a, b); one all-gather of the rows padded to
+    the longest span."""
+    longest = max(b - a for a, b in spans)
+    pad = longest - X.shape[1]
+    if pad:
+        X = torch.cat([X, X.new_zeros((X.shape[0], pad) + X.shape[2:])], 1)
+    full = dist.all_gather_shards(X.unsqueeze(0), mesh.ranks)
+    return torch.cat([full[r, :, :b - a] for r, (a, b) in enumerate(spans)],
+                     dim=1)
+

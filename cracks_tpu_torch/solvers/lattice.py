@@ -34,7 +34,27 @@ sharded extent gyp, ``parallel/sharding.py``); `solve_lattice` is its
 flat-vector entry for the replicated Newton.  With a shard mesh the
 f32 fine-level operator of the CG loop and the V-cycle is the sharded
 product (`ops.stencil.stencil_matvec_sharded`, one launch for all
-shards), seam lattices included; everything else is global-view.
+shards of a process), seam lattices included.
+
+On a shard mesh without a seam the hierarchy is split by slab
+(`parallel.sharding.level_slabs`, the hierarchy's `slabs`): a process
+holds its rows of every vector and mask of the finest `n_split` levels
+and the element matrices of the cells next to them, and each level's
+product, transfer, diagonal and spectral bound works on the process's
+rows and one exchanged halo row each way (`Slab.ext`); the f64
+refinement products too.  Coarsening a level takes at most one coarse
+cell row from a neighbour (`coarsen_slab`).  The levels below are whole
+on every process: one gather of the first one's operator per setup and
+of its restricted residual per V-cycle, after which every process runs
+them, and the coarse factor, identically.  Every dot product of the
+lattice-layout Newton, one process or D shards or W ranks alike, is a
+sum of per-row partial sums (`Slab.dots`), so all of them hold the same
+bits; the replicated Newton's solve and the seam lattice keep the
+global view and its sums (one slab of all rows per level).  The element
+residual, the element matrices and the Galerkin coarsening contract in
+pieces of a number of cell rows set by the whole level (`CELL_CHUNK`,
+`RESIDUAL_CHUNK`), so a cell has the same bits whatever rows a process
+holds.
 """
 
 from __future__ import annotations
@@ -49,7 +69,9 @@ import torch
 from ..ops import physics
 from ..ops.stencil import (pad_jac_sharded, stencil_matvec,
                            stencil_matvec_sharded)
-from ..parallel.sharding import pad_rows, unpad_rows
+from ..parallel import dist
+from ..parallel.sharding import (Slab, gather_rows, level_slabs, pad_rows,
+                                 unpad_rows, whole)
 from .galerkin import embedding_matrices
 from . import opcache
 from .multigrid import _chebyshev, sharp_spectrum, smoothing_range
@@ -81,6 +103,8 @@ def _every_other(ndim: int):
 
 def _dot(a, b):
     return torch.sum(a * b)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -378,13 +402,23 @@ class LatticeHierarchy(NamedTuple):
     dir_p: tuple            # per-level (1, *g)
     P_embed: torch.Tensor   # (nvc+1, ndl, ndl) f32
     seam: Seam | None = None   # the finest level's seam (slit lattices)
+    slabs: tuple = ()       # per-level `Slab` of this process,
+    #                         coarsest..finest, on a lattice-layout run
+    #                         without a seam (else empty)
+    n_split: int = 0        # the finest levels split by slab; the masks
+    #                         of those hold this process's rows
 
 
 def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
-                            device, min_coarse: int = 50):
+                            device, min_coarse: int = 50,
+                            lattice_layout: bool = False, shard_mesh=None):
     """Host construction.  Levels halve the cell extents while the grid
     (and a slit lattice's seam) stays 2:1 coarsenable and the coarse
-    vertex count stays at least `min_coarse`."""
+    vertex count stays at least `min_coarse`.  For the lattice-layout
+    Newton (`lattice_layout`) without a seam each level gets its `Slab`
+    and, on a `shard_mesh`, the finest levels are split by slab
+    (`level_slabs`); on W > 1 ranks a seam raises NotImplementedError
+    (ROADMAP A11d, part 2)."""
     dim = mesh.dim
     grid = lay.grid
     seam = lay.seam
@@ -423,6 +457,20 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
         dp = _seam_inject_down(dp, sm)
         dir_u.insert(0, torch.as_tensor(np.ascontiguousarray(du), **b))
         dir_p.insert(0, torch.as_tensor(np.ascontiguousarray(dp), **b))
+    if (lattice_layout and seam is not None and shard_mesh is not None
+            and shard_mesh.world > 1):
+        raise NotImplementedError(
+            f"the seam lattice on {shard_mesh.world} ranks is ROADMAP A11d, "
+            "part 2 (the seam's row copies across a rank boundary); one "
+            "process (W = 1) runs it")
+    slabs, n_split = (), 0
+    if lattice_layout and seam is None:
+        slabs, n_split = level_slabs(shard_mesh, grid[0], len(grids))
+        slabs = slabs[::-1]
+    L = len(grids)
+    for l in range(L - n_split, L):
+        dir_u[l] = slabs[l].rows(dir_u[l]).clone()
+        dir_p[l] = slabs[l].rows(dir_p[l]).clone()
     i64 = dict(dtype=torch.int64, device=device)
     return LatticeHierarchy(
         grid=grid, n_levels=len(grids),
@@ -430,7 +478,7 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
         dir_u=tuple(dir_u), dir_p=tuple(dir_p),
         P_embed=torch.as_tensor(embedding_matrices(dim),
                                 dtype=torch.float32, device=device),
-        seam=seam)
+        seam=seam, slabs=tuple(slabs), n_split=n_split)
 
 
 # ---------------------------------------------------------------------------
@@ -464,34 +512,102 @@ def _cell_windows(U, P, P_old, P_oold, dim):
               for X in (P, P_old, P_oold)))
 
 
+# Cell rows per batched contraction of the element residual, the element
+# matrices and the Galerkin coarsening: every call sees the same number
+# of cell rows, the last piece filled up with copies of its last row, so
+# that a cell's bits do not depend on how many cells the caller holds (on
+# the card a batched product picks its kernel, and with it the order of
+# its terms, from its shape: a slab's cells and the whole lattice's
+# differed in their last bits, scripts/slab_bits.py).  A piece holds at
+# most CELL_CHUNK cells (at least one row), RESIDUAL_CHUNK for the
+# residual, and a whole level splits into pieces of equal rows.  The
+# element matrices' vmapped jvp takes 2**19 // piece tangents per pass
+# and recomputes the residual once per pass, so their pieces are small;
+# the residual has no tangents, and a larger piece takes fewer launches.
+CELL_CHUNK = 1 << 16
+RESIDUAL_CHUNK = 1 << 18
+
+
+def _by_cell_rows(fn, arrays, cell_rows: int, ax: int, chunk: int):
+    """fn over pieces of the cells of `arrays`, whose cell-row axis is
+    `ax` (negative, the same for all) with the other cell axes after
+    it.  A piece is a number of cell rows set by `cell_rows`, the whole
+    level's, and `chunk`, and the cells of a row, flattened: fn takes
+    and returns tensors with one cell axis, last.  Returns fn's outputs
+    with their cell axis whole (flat)."""
+    n = arrays[0].shape[ax]
+    rc = math.prod(arrays[0].shape[ax:][1:])
+    pieces = -(-cell_rows // max(1, chunk // rc))
+    rows = -(-cell_rows // pieces)
+    out = None
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        idx = torch.arange(r0, r0 + rows, device=arrays[0].device)
+        idx = idx.clamp_max(n - 1)
+        res = fn(*(x.index_select(ax, idx).flatten(ax) for x in arrays))
+        if out is None:
+            out = [y.new_empty(y.shape[:-1] + (n * rc,)) for y in res]
+        for o, y in zip(out, res):
+            o[..., r0 * rc:r1 * rc] = y[..., :(r1 - r0) * rc]
+    return out
+
+
+# the CellArrays fields with a cell axis that the element residual reads
+_CA_CELL = ("JxW", "grads", "lam", "mu", "inv_diam2")
+
+
+def _by_cells(fn, U, P, P_old, P_oold, caL, dim, rows, chunk):
+    """fn(u_e, phi_e, pf_old_e, pf_oold_e, ca) of lattice-layout state
+    and the raster-ordered CellArrays of its cells, in the pieces of
+    `_by_cell_rows`; `rows` is the whole level's vertex rows (U's own
+    if None)."""
+    cgrid = tuple(g - 1 for g in U.shape[1:])
+    split = lambda x: x.unflatten(-1, (cgrid[0], -1))
+    vals = [split(x) for x in _cell_windows(U, P, P_old, P_oold, dim)]
+    vals += [split(getattr(caL, f)) for f in _CA_CELL]
+
+    def piece(*xs):
+        ca = caL._replace(**dict(zip(_CA_CELL, xs[4:])))
+        out = fn(*xs[:4], ca)
+        return out if isinstance(out, tuple) else (out,)
+
+    return _by_cell_rows(piece, vals, (rows or U.shape[1]) - 1, -2, chunk)
+
+
 def lattice_residual(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
-                     monolithic):
+                     monolithic, rows: int | None = None):
     """Gather-free residual assembly in lattice layout (port of the JAX
     ``lattice_residual``): U (dim, *grid), the phase fields (1, *grid),
     caL the raster-ordered CellArrays.  Returns the rhs (negative
     residual) (RU (dim, *grid), RP (1, *grid)), the physics of
     physics.assemble_residual with the cell gather and the vertex
-    scatter-add as 2**dim shifted window slices."""
+    scatter-add as 2**dim shifted window slices.  Where U is some of a
+    level's rows, `rows` is the level's (the contractions' pieces,
+    `_by_cell_rows`)."""
     nvc = 2 ** dim
     grid = tuple(U.shape[1:])
     cgrid = tuple(g - 1 for g in grid)
-    ru_e, rp_e = physics._element_residual_cl(
-        *_cell_windows(U, P, P_old, P_oold, dim), caL, sc, dim=dim,
-        with_split=with_split, monolithic=monolithic)
+    ru_e, rp_e = _by_cells(
+        lambda *v: physics._element_residual_cl(
+            *v, sc, dim=dim, with_split=with_split, monolithic=monolithic),
+        U, P, P_old, P_oold, caL, dim, rows, RESIDUAL_CHUNK)
     return (scatter_windows(ru_e.reshape((nvc, dim) + cgrid), grid),
             scatter_windows(rp_e.reshape((nvc, 1) + cgrid), grid))
 
 
 def element_matrices_lattice(U, P, P_old, P_oold, caL, sc, *, dim,
-                             with_split, monolithic):
+                             with_split, monolithic,
+                             rows: int | None = None):
     """(ndl, ndl, *cellgrid) element Jacobians from lattice-layout state
-    (window gathers instead of the flat gather maps)."""
+    (window gathers instead of the flat gather maps); `rows`: see
+    `lattice_residual`."""
     ndl = 2 ** dim * (dim + 1)
     cgrid = tuple(g - 1 for g in U.shape[1:])
-    return physics.element_matrices_from_cellvals(
-        *_cell_windows(U, P, P_old, P_oold, dim), caL, sc, dim=dim,
-        with_split=with_split, monolithic=monolithic).reshape(
-            (ndl, ndl) + cgrid)
+    (jac,) = _by_cells(
+        lambda *v: physics.element_matrices_from_cellvals(
+            *v, sc, dim=dim, with_split=with_split, monolithic=monolithic),
+        U, P, P_old, P_oold, caL, dim, rows, CELL_CHUNK)
+    return jac.reshape((ndl, ndl) + cgrid)
 
 
 def matvec_block(jacL, X, lo_r, hi_r, lo_c, hi_c, k_in, k_out):
@@ -515,19 +631,35 @@ def block_diag(jacL, lo, hi, k, grid):
     return scatter_windows(d.reshape((nvc, k) + d.shape[1:]), grid)
 
 
-def gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam: Seam | None = None):
+def _ext_grid(jacL):
+    """The vertex grid of a (ndl, ndl, *cellgrid) element array."""
+    return tuple(c + 1 for c in jacL.shape[2:])
+
+
+def gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam: Seam | None = None,
+               sl: Slab | None = None):
     """Upper bound on lambda_max(D^-1 A) via element-wise over-counted
     Gershgorin row sums.  Across a seam the glued rows' sums add: the
-    row sums of S^T |A| S, still a bound on the conjugated operator's."""
-    rs = jacL[lo:hi, lo:hi].abs().sum(dim=1)       # (b, *cg)
+    row sums of S^T |A| S, still a bound on the conjugated operator's.
+    Each row sum adds its terms in order, the same bits on any number of
+    cells.  With a slab `sl`, jacL holds the process's cells and free /
+    Dinv its rows; the maximum is over all processes."""
+    blk = jacL[lo:hi, lo:hi].abs()
+    rs = blk[:, 0]
+    for j in range(1, blk.shape[1]):
+        rs = rs + blk[:, j]                        # (b, *cg)
     nvc = (hi - lo) // k
+    if sl is not None:
+        grid = _ext_grid(jacL)
     s = seam_collect(scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]),
                                      grid), seam)
-    return torch.where(free, s * Dinv.abs(), 0.0).max()
+    if sl is None:
+        return torch.where(free, s * Dinv.abs(), 0.0).max()
+    return sl.amax(torch.where(free, sl.owned(s) * Dinv.abs(), 0.0).amax())
 
 
 def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
-                   seam: Seam | None = None):
+                   seam: Seam | None = None, sl: Slab | None = None):
     """Sharp lambda_max(D^-1 A) estimate on the free subspace: m-step
     Lanczos on the symmetrized S = D^(-1/2) (J + J^T)/2 D^(-1/2), top
     Ritz value, starting from a checkerboard +-1 on the free set.  The
@@ -535,23 +667,31 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
     and power iteration sits far below the clustered top of the phase-
     field block; see the JAX function for the measurements.  Falls back
     to the Gershgorin bound when the Ritz value is not finite and
-    positive."""
+    positive.  With a slab `sl` the vectors are the process's rows, each
+    product takes one halo exchange and each dot is a `Slab.dots`."""
     dtype = Dinv.dtype
     sq = Dinv.abs().sqrt()
     # the transposed block, contiguous, once per level build
     jacT = jacL[lo:hi, lo:hi].transpose(0, 1).contiguous()
     nb = hi - lo
+    dot = _dot if sl is None else (lambda a, b: sl.dots((a, b))[0])
 
     def S(x):
         xs = seam_spread(torch.where(free, sq * x, 0.0), seam)
+        if sl is not None:
+            (xs,) = sl.ext(xs)
         y = 0.5 * (matvec(jacL, xs, lo, hi, k) + matvec(jacT, xs, 0, nb, k))
+        if sl is not None:
+            y = sl.owned(y)
         return torch.where(free, sq * seam_collect(y, seam), 0.0)
 
-    idx = sum(torch.meshgrid(*[torch.arange(g, device=free.device)
-                               for g in grid], indexing="ij"))
+    ranges = [torch.arange(g, device=free.device) for g in grid]
+    if sl is not None:
+        ranges[0] = torch.arange(sl.a, sl.b, device=free.device)
+    idx = sum(torch.meshgrid(*ranges, indexing="ij"))
     sign = torch.where(idx % 2 == 0, 1.0, -1.0).to(dtype)
     v = torch.where(free, sign[None], 0.0)
-    n0 = torch.sqrt(_dot(v, v))
+    n0 = torch.sqrt(dot(v, v))
     v = torch.where(n0 > 0, v / n0.clamp_min(1e-30), v)
 
     v_prev = torch.zeros_like(v)
@@ -559,9 +699,9 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
     alphas, betas = [], []
     for _ in range(m):
         w = S(v) - beta * v_prev
-        alpha = _dot(v, w)
+        alpha = dot(v, w)
         w = w - alpha * v
-        beta_new = torch.sqrt(_dot(w, w))
+        beta_new = torch.sqrt(dot(w, w))
         v_new = torch.where(beta_new > 0, w / beta_new.clamp_min(1e-30), w)
         alphas.append(alpha)
         betas.append(beta_new)
@@ -572,25 +712,35 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
     lam = float(torch.linalg.eigvalsh(T).max())
     if math.isfinite(lam) and lam > 0:
         return torch.tensor(lam, dtype=dtype, device=Dinv.device)
-    return gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam)
+    return gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam, sl)
 
 
-def coarsen(jacL, P_embed):
+def coarsen(jacL, P_embed, cell_rows: int | None = None):
     """Galerkin element-RAP one level down on the lattice:
     (ndl, ndl, *cg) -> (ndl, ndl, *(cg//2)).  Runs at full f32 (the
     package turns TF32 off): reduced-precision RAPs made the coarse
     operator indefinite in the JAX package (see cracks_tpu_torch's
-    __init__)."""
+    __init__).  Where jacL is some of a level's cells, `cell_rows` is
+    the coarse level's cell rows (the contraction's pieces,
+    `_by_cell_rows`)."""
     dim = jacL.dim() - 2
-    out = 0.0
-    for pos, o in enumerate(_offsets(dim)):
-        # embedding_matrices orders child positions by geometric bits
-        # (pos>>d)&1; _offsets(dim)[a] IS position a in that order
-        A = jacL[(slice(None), slice(None))
-                 + tuple(slice(oj, None, 2) for oj in o)]
-        P = P_embed[pos].to(jacL.dtype)
-        out = out + torch.einsum("ai,ab...,bj->ij...", P, A, P)
-    return out.contiguous()
+    # embedding_matrices orders child positions by geometric bits
+    # (pos>>d)&1; _offsets(dim)[a] IS position a in that order
+    As = [jacL[(slice(None), slice(None))
+               + tuple(slice(oj, None, 2) for oj in o)]
+          for o in _offsets(dim)]
+    cells = As[0].shape[2:]
+    P = P_embed.to(jacL.dtype)
+
+    def rap(*As):
+        out = 0.0
+        for pos, A in enumerate(As):
+            out = out + torch.einsum("ai,abc,bj->ijc", P[pos], A, P[pos])
+        return (out,)
+
+    (out,) = _by_cell_rows(rap, As, cell_rows or cells[0], 2 - jacL.dim(),
+                           CELL_CHUNK)
+    return out.unflatten(2, cells)
 
 
 def coarsen_seam(jacL, P_embed, seam: Seam | None):
@@ -614,6 +764,78 @@ def coarsen_chain(jacL, P_embed, n_levels: int, seam: Seam | None = None):
     for sm in seam_levels(seam, n_levels)[:0:-1]:
         jacs.insert(0, coarsen_seam(jacs[0], P_embed, sm))
     return jacs
+
+
+def _coarsenable(fine_span, g):
+    """The coarse cell rows [p0, p1) that the fine cells held with the
+    rows `fine_span` = (a, b) of a g-row level coarsen: both children
+    held."""
+    c0, c1 = max(fine_span[0] - 1, 0), min(fine_span[1], g - 1)
+    e = c0 + c0 % 2
+    return e // 2, (c1 - (c1 - e) % 2) // 2
+
+
+def _held(span, g):
+    """The cell rows [q0, q1) held with the rows `span` of a g-row level."""
+    return max(span[0] - 1, 0), min(span[1], g - 1)
+
+
+def coarsen_slab(jac, P_embed, fine: Slab, coarse: Slab):
+    """`coarsen` of a process's cells of one level (those held with its
+    rows, `Slab.cells`) into its cells of the next: the coarse cells
+    whose two child rows it holds, and, where its coarse rows start or
+    end one cell row past those, that row from the neighbour process
+    that coarsens it (at most one row each way: a rank boundary at an
+    odd fine row makes the lower process's last coarse cell the upper
+    one's, at an even row the upper one's first coarse cell the lower
+    one's).  Every cell has one maker, so every holder has its bits."""
+    c0 = fine.cells[0]
+    p0, p1 = _coarsenable((fine.a, fine.b), fine.g)
+    out = coarsen(jac[:, :, 2 * p0 - c0:2 * p1 - c0], P_embed, coarse.g - 1)
+    q0, q1 = coarse.cells
+    m = fine.mesh
+    if m is None or m.world == 1:
+        return out
+    r, gc = m.rank, coarse.g
+    # what each neighbour lacks of its held cells and this process makes
+    down = up = None
+    if r > 0:
+        pb = _coarsenable(fine.spans[r - 1], fine.g)
+        qb = _held(coarse.spans[r - 1], gc)
+        if qb[1] > pb[1]:
+            down = out[:, :, qb[1] - 1 - p0:qb[1] - p0]
+    if r < m.world - 1:
+        pa = _coarsenable(fine.spans[r + 1], fine.g)
+        qa = _held(coarse.spans[r + 1], gc)
+        if qa[0] < pa[0]:
+            up = out[:, :, qa[0] - p0:qa[0] + 1 - p0]
+    assert q0 >= p0 - 1 and q1 <= p1 + 1, (q0, q1, p0, p1)
+    if (q0, q1) == (p0, p1) and down is None and up is None:
+        return out
+    row = (out.shape[:2] + (1,) + out.shape[3:], out.dtype)
+    below, above = dist.exchange_rows(
+        m.ranks, down=down, up=up, from_below=row if q0 < p0 else None,
+        from_above=row if q1 > p1 else None)
+    return torch.cat([t for t in (below, out, above) if t is not None],
+                     dim=2).contiguous()
+
+
+def _owned_cells(jac, sl: Slab):
+    """The cells of a process's held cells whose lower vertex row it
+    owns: rows [a, min(b, g-1))."""
+    a = sl.a - sl.cells[0]
+    return jac[:, :, a:a + min(sl.b, sl.g - 1) - sl.a]
+
+
+def gather_cells(jac, sl: Slab):
+    """A whole level's cells from every process's held cells (one
+    gather of the owned cell rows; the held cells themselves in one
+    process)."""
+    if sl.mesh is None or sl.mesh.world == 1:
+        return jac
+    cells = [(a, min(b, sl.g - 1)) for a, b in sl.spans]
+    return gather_rows(_owned_cells(jac, sl).flatten(0, 1), sl.mesh,
+                       cells).unflatten(0, jac.shape[:2]).contiguous()
 
 
 def _axis_slice(ndim, axis, s):
@@ -690,6 +912,49 @@ def restrict_seam(Xf, k, seam: Seam | None):
     return seam_collect(X, seam_coarse(seam))
 
 
+def restrict_slab(Xf, fine: Slab, coarse: Slab):
+    """`restrict` of a process's rows of a fine level to its rows of the
+    coarse one, with the fine halo rows of one exchange: the axes past
+    the leading one first, then the leading axis with `_restrict_axis`'s
+    adds in its order (the even row, + half the next odd row, + half the
+    previous odd row), so each coarse value has the global one's bits."""
+    (E,) = fine.ext(Xf)
+    for j in reversed(range(2, E.dim())):
+        E = _restrict_axis(E, j)
+    ca, cb, e0 = coarse.a, coarse.b, fine.e0
+    m = cb - ca
+    Xc = E[:, 2 * ca - e0:2 * cb - 1 - e0:2].clone()
+    n_next = min(cb, coarse.g - 1) - ca
+    Xc[:, :n_next] += 0.5 * E[:, 2 * ca + 1 - e0::2][:, :n_next]
+    s = 1 if ca == 0 else 0
+    Xc[:, s:] += 0.5 * E[:, 2 * (ca + s) - 1 - e0::2][:, :m - s]
+    return Xc
+
+
+def prolong_slab(Xc, fine: Slab, coarse: Slab, whole: bool = False):
+    """`prolong` of a process's rows of a coarse level (or, `whole`, of
+    the whole coarse level) to its rows of the fine one, from the coarse
+    halo rows of one exchange: the leading axis first, as `prolong`."""
+    if whole:
+        C = Xc[:, coarse.e0:coarse.e1]
+    else:
+        (C,) = coarse.ext(Xc)
+    X = _prolong_axis(C, 1)
+    a = fine.a - 2 * coarse.e0
+    X = X[:, a:a + fine.n]
+    for j in range(2, X.dim()):
+        X = _prolong_axis(X, j)
+    return X
+
+
+def inject_slab(A, fine: Slab, coarse: Slab):
+    """The [::2] injection of a process's rows of a fine level into its
+    rows of the coarse one (the coarse row i is the fine row 2i)."""
+    s = 2 * coarse.a - fine.a
+    return A[(slice(None), slice(s, s + 2 * coarse.n - 1, 2))
+             + (slice(None, None, 2),) * (A.dim() - 2)]
+
+
 # ---------------------------------------------------------------------------
 # multigrid
 # ---------------------------------------------------------------------------
@@ -703,46 +968,67 @@ class _LOps(NamedTuple):
 
 
 def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
-                        which, sharp: bool = False, seam: Seam | None = None):
+                        which, sharp: bool = False, seam: Seam | None = None,
+                        slabs=(), n_split: int = 0):
     """Per-level _LOps (coarsest..finest) for one block.  `sharp`
     selects the spectral window: Lanczos lambda_max + range 4 at
-    production sizes, Gershgorin + range 20 at golden sizes."""
+    production sizes, Gershgorin + range 20 at golden sizes.  The last
+    `n_split` levels are split by slab (`slabs`, coarsest..finest): their
+    jacs are the process's held cells, the masks and active_L its rows;
+    the active set reaches the first whole level in one gather.  With
+    slabs the whole levels' dots are `Slab.dots` too."""
     rng = torch.tensor(smoothing_range(sharp), dtype=jacs[0].dtype,
                        device=jacs[0].device)
     L = len(jacs)
+    n_whole = L - n_split
     seams = seam_levels(seam, L)
     acts = [None] * L
     if which == "p":
         a = active_L
         for l in range(L - 1, -1, -1):
             acts[l] = a
-            if l:
+            if l >= n_whole:
+                a = inject_slab(a, slabs[l], slabs[l - 1])
+                if l - 1 < n_whole:
+                    a = slabs[l - 1].gather(a)
+            elif l:
                 a = _seam_inject_down(a, seams[l])
     out = []
     for l in range(L):
         jac = jacs[l]
-        g = tuple(c + 1 for c in jac.shape[2:])
+        sl = (slabs[l] if l >= n_whole else whole(jac.shape[2] + 1)
+              if slabs else None)
+        g = _ext_grid(jac)
+        rows = g if sl is None else (sl.n,) + g[1:]
         if which == "p":
             free = ~(dir_p[l] | acts[l])
         else:
-            free = torch.broadcast_to(~dir_u[l], (k,) + g)
+            free = torch.broadcast_to(~dir_u[l], (k,) + rows)
         free = free.contiguous()
-        d = seam_collect(block_diag(jac, lo, hi, k, g), seams[l])
+        d = block_diag(jac, lo, hi, k, g)
+        d = seam_collect(d if sl is None else sl.owned(d), seams[l])
         Dinv = torch.where(free & (d.abs() > 0), 1.0 / d, 1.0)
         if sharp:
-            lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, g,
-                                 seam=seams[l])
+            lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, rows,
+                                 seam=seams[l], sl=sl)
         else:
-            lam = gershgorin(jac, free, Dinv, lo, hi, k, g, seams[l])
+            lam = gershgorin(jac, free, Dinv, lo, hi, k, g, seams[l], sl)
         out.append(_LOps(jac=jac, free=free, Dinv=Dinv, lam=lam, rng=rng))
     return out
 
 
-def _masked_mv(lv: _LOps, lo, hi, k, seam: Seam | None = None):
+def _masked_mv(lv: _LOps, lo, hi, k, seam: Seam | None = None,
+               sl: Slab | None = None):
+    """The level's masked product; with a slab `sl` on the process's
+    rows, its halo rows from one exchange."""
     def op(X):
         X = seam_spread(torch.where(lv.free, X, 0.0), seam)
-        Y = seam_collect(matvec(lv.jac, X, lo, hi, k), seam)
-        return torch.where(lv.free, Y, 0.0)
+        if sl is not None:
+            (X,) = sl.ext(X)
+        Y = matvec(lv.jac, X, lo, hi, k)
+        if sl is not None:
+            Y = sl.owned(Y)
+        return torch.where(lv.free, seam_collect(Y, seam), 0.0)
     return op
 
 
@@ -790,13 +1076,17 @@ def _coarse_dense_factor(lv0: _LOps, lo, hi, k, seam0: Seam | None = None):
 
 
 def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
-                fine_op=None, seam: Seam | None = None):
+                fine_op=None, seam: Seam | None = None, slabs=(),
+                n_split: int = 0):
     """V-cycle with Chebyshev pre/post smoothing on every level above
     the coarsest and the dense Cholesky solve (in the factor's dtype)
     on the coarsest.  `fine_op`, when given, is the finest level's
     masked operator (the sharded product); `seam` is the finest
-    level's."""
+    level's.  The last `n_split` levels work on the process's rows
+    (`slabs`, coarsest..finest): their transfers exchange one halo row,
+    and the residual restricted to the first whole level is gathered."""
     L = len(levels)
+    n_whole = L - n_split
     seams = seam_levels(seam, L)
     cho, cho_scale = coarse_factor
     shape0 = levels[0].free.shape
@@ -808,13 +1098,21 @@ def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
             bs = (cho_scale * b.reshape(-1).to(cho.dtype))[:, None]
             x = cho_scale * torch.cholesky_solve(bs, cho, upper=False)[:, 0]
             return torch.where(lv.free, x.to(b.dtype).reshape(shape0), 0.0)
+        sl = slabs[l] if l >= n_whole else None
         op = (fine_op if fine_op is not None and l == L - 1
-              else _masked_mv(lv, lo, hi, k, seams[l]))
+              else _masked_mv(lv, lo, hi, k, seams[l], sl))
         x = _chebyshev(op, lv.Dinv, b, lv.lam, degree, lv.rng)
         r = b - op(x)
-        e_c = cycle(l - 1, restrict_seam(r, k, seams[l]))
-        g = tuple(lv.free.shape[1:])
-        x = x + torch.where(lv.free, prolong_seam(e_c, g, k, seams[l]), 0.0)
+        if sl is None:
+            e_c = cycle(l - 1, restrict_seam(r, k, seams[l]))
+            g = tuple(lv.free.shape[1:])
+            p = prolong_seam(e_c, g, k, seams[l])
+        else:
+            whole = l - 1 < n_whole
+            r_c = restrict_slab(r, sl, slabs[l - 1])
+            e_c = cycle(l - 1, slabs[l - 1].gather(r_c) if whole else r_c)
+            p = prolong_slab(e_c, sl, slabs[l - 1], whole)
+        x = x + torch.where(lv.free, p, 0.0)
         r = b - op(x)
         return x + _chebyshev(op, lv.Dinv, r, lv.lam, degree, lv.rng)
 
@@ -854,55 +1152,87 @@ def _to_glob(X, vert_pos, k):
 
 
 def _prepare64(U, P, P_old, P_oold, caL64, sc, *, grid, dim, with_split,
-               monolithic, seam=None):
+               monolithic, seam=None, sl: Slab | None = None):
     """Exact f64 element Jacobians (ndl, ndl, *cellgrid) from (padded)
     lattice-layout state, built once per Newton solve (JAX
     ``_prepare64_lat``; its ``_maybe_shard_jacs`` is a placement and has
     no counterpart on one device).  Canonical seam state is spread first,
-    so the window gathers see the shared values on both lips."""
-    up = lambda X: seam_spread(unpad_rows(X, grid[0]), seam)
-    return element_matrices_lattice(up(U), up(P), up(P_old), up(P_oold),
-                                    caL64, sc, dim=dim,
+    so the window gathers see the shared values on both lips.  With a
+    slab `sl` the state is the process's rows and caL64 its held cells,
+    whose matrices it returns (the halo rows of one exchange)."""
+    n = grid[0] if sl is None else sl.n
+    up = lambda X: seam_spread(unpad_rows(X, n), seam)
+    state = (up(U), up(P), up(P_old), up(P_oold))
+    if sl is not None:
+        state = sl.ext(*state)
+    return element_matrices_lattice(*state, caL64, sc, dim=dim,
                                     with_split=with_split,
-                                    monolithic=monolithic)
+                                    monolithic=monolithic,
+                                    rows=grid[0] if sl is None else sl.g)
 
 
-def _prepare32_from64(jacL64, P_embed, *, n_levels, seam=None):
+def _prepare32_from64(jacL64, P_embed, *, n_levels, seam=None, slabs=(),
+                      n_split: int = 0):
     """The f32 operator chain is the CAST of the exact f64 element
     matrices, Galerkin-coarsened (branch-consistent with the f64
     operator; see the JAX function).  Also the port of
-    ``_prepare32_from64_lat``: the chain keeps no sharding here."""
-    return tuple(coarsen_chain(jacL64.to(torch.float32), P_embed,
-                               n_levels, seam))
+    ``_prepare32_from64_lat``.  Split by slab (`slabs`, coarsest..
+    finest, the last `n_split` split), the split levels are the
+    process's held cells (`coarsen_slab`) and the first whole level is
+    gathered, then coarsened whole."""
+    jac = jacL64.to(torch.float32)
+    if not n_split:
+        return tuple(coarsen_chain(jac, P_embed, n_levels, seam))
+    L = n_levels
+    split = [jac]
+    for l in range(L - 1, L - n_split - 1, -1):
+        split.insert(0, coarsen_slab(split[0], P_embed, slabs[l],
+                                     slabs[l - 1]))
+    top = gather_cells(split.pop(0), slabs[L - n_split - 1])
+    return tuple(coarsen_chain(top, P_embed, L - n_split) + split)
 
 
 def _prepare_levels(jacs, dir_u, dir_p, active, *, grid, which, dim,
-                    sharp, mesh=None, seam=None):
+                    sharp, mesh=None, seam=None, slabs=(), n_split: int = 0):
     """Per-block level operators and the coarse factor from a (padded)
     lattice-layout active mask (1, gyp, ...), built once per Newton
     solve (JAX ``_prepare_levels_lat``).  The coarse Cholesky is
     factored in f64 and handed to the f32 CG pass as an f32 factor.
     With a shard mesh the finest f32 block is also laid out as the
     stacked per-shard carrier (`pad_jac_sharded`) for the sharded fine
-    operator of `_cg_pass32`; fine_pad is None without one.  Returns
-    (levels, coarse32, fine_pad)."""
+    operator of `_cg_pass32`; fine_pad is None without one.  Split by
+    slab, the active mask and the finest levels are the process's
+    rows.  Returns (levels, coarse32, fine_pad)."""
     k, lo, hi = _blk(which, dim)
+    n = slabs[-1].n if n_split else grid[0]
     levels = _build_block_levels(list(jacs), dir_u, dir_p, grid,
-                                 unpad_rows(active, grid[0]), lo, hi, k,
-                                 which, sharp=sharp, seam=seam)
+                                 unpad_rows(active, n), lo, hi, k,
+                                 which, sharp=sharp, seam=seam, slabs=slabs,
+                                 n_split=n_split)
     cho, scale = _coarse_dense_factor(levels[0], lo, hi, k,
                                       seam_levels(seam, len(levels))[0])
-    fine_pad = (None if mesh is None
-                else pad_jac_sharded(jacs[-1], lo, hi, lo, hi, mesh))
+    if mesh is None:
+        fine_pad = None
+    elif n_split:
+        fine_pad = pad_jac_sharded(_owned_cells(jacs[-1], slabs[-1]), lo, hi,
+                                   lo, hi, mesh,
+                                   rows_loc=mesh.rows_loc(grid[0]))
+    else:
+        fine_pad = pad_jac_sharded(jacs[-1], lo, hi, lo, hi, mesh)
     return levels, (cho.to(torch.float32), scale.to(torch.float32)), fine_pad
 
 
-def _pass_setup(fin_free, R, rtol, target2, *, grid):
+def _pass_setup(fin_free, R, rtol, target2, *, grid, sl: Slab | None = None):
     """f64 -> f32 boundary of one CG pass on a (padded) lattice-layout
     residual (JAX ``_pass_setup_lat``): residual norm, the normalized
-    true-shaped f32 residual and the f32 pass tolerance."""
-    R = unpad_rows(R, grid[0])
-    rr0 = _dot(R, R)
+    true-shaped f32 residual and the f32 pass tolerance.  With a slab
+    `sl`, the process's rows and the norm of `Slab.dots`."""
+    if sl is None:
+        R = unpad_rows(R, grid[0])
+        rr0 = _dot(R, R)
+    else:
+        R = unpad_rows(R, sl.n)
+        rr0 = sl.dots((R, R))[0]
     scale = torch.sqrt(rr0)
     inv_scale = torch.where(scale > 0, 1.0 / scale, 0.0)
     R0 = torch.where(fin_free, (R * inv_scale).to(torch.float32), 0.0)
@@ -917,7 +1247,7 @@ def _pass_setup(fin_free, R, rtol, target2, *, grid):
 
 def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
                mesh=None, seam=None, degree=2, inner_max=192,
-               stall_window=16):
+               stall_window=16, slabs=(), n_split: int = 0):
     """One float32 lattice-GMG CG pass on the normalized lattice
     residual; returns (best iterate, inner iterations, best rr).
 
@@ -936,9 +1266,20 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     sharded product works on the global view of one card, so the
     conjugation wraps it unchanged.  The exit test reads one scalar per
     iteration back to the host; the next iteration's work is queued
-    before that read, so the card stays busy while the host waits."""
+    before that read, so the card stays busy while the host waits.
+    Split by slab (`slabs`, `n_split`), R0 and the iterates are the
+    process's rows, the sharded product takes its halo rows from the
+    neighbour ranks, and each iteration's dots are two `Slab.dots`
+    calls (p . Ap; r . r with r . z)."""
     k, lo, hi = _blk(which, dim)
     fin = levels[-1]
+    sl = slabs[-1] if slabs else None
+    if sl is None:
+        def dots(*pairs, host=False):
+            t = torch.stack([_dot(x, y) for x, y in pairs])
+            return (t, t.cpu()) if host else t
+    else:
+        dots = sl.dots
     if fine_pad is None:
         op = _masked_mv(fin, lo, hi, k, seam)
     else:
@@ -948,33 +1289,33 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
                              seam)
             return torch.where(fin.free, Y, 0.0)
     M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree, fine_op=op,
-                    seam=seam)
+                    seam=seam, slabs=slabs, n_split=n_split)
     tol2_h = float(tol2)
     Z = M(R0)
     X = torch.zeros_like(R0)
-    R, Pv, rz = R0, Z, _dot(R0, Z)
+    R, Pv, rz = R0, Z, dots((R0, Z))[0]
     Xb, rrb, kb, kk = torch.zeros_like(R0), 1.0, 0, 0
     while rrb > tol2_h and kk < inner_max and kk - kb < stall_window:
         Ap = op(Pv)
-        denom = _dot(Pv, Ap)
+        denom = dots((Pv, Ap))[0]
         alpha = torch.where(denom != 0, rz / denom, 0.0)
         X = X + alpha * Pv
         R = R - alpha * Ap
-        rr = _dot(R, R)
         Z = M(R)
-        rz_new = _dot(R, Z)
+        tot, tot_h = dots((R, R), (R, Z), host=True)
+        rz_new = tot[1]
         beta = torch.where(rz != 0, rz_new / rz, 0.0)
         Pv = Z + beta * Pv
         rz = rz_new
         kk += 1
-        rr_h = float(rr)
+        rr_h = float(tot_h[0])
         if rr_h < rrb:
             Xb, rrb, kb = X, rr_h, kk
     return Xb, kk, rrb
 
 
 def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
-                    which, dim, gyp, seam=None):
+                    which, dim, gyp, seam=None, sl: Slab | None = None):
     """f32 -> f64 boundary of one CG pass in lattice layout (JAX
     ``_pass_apply_mat_lat``): un-normalize the true-shaped pass iterate,
     form the trial accumulate, apply the exact f64 Newton operator (the
@@ -982,20 +1323,27 @@ def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
     form the trial residual.  X_acc and B arrive padded.  Returns padded
     (X_try, R_try), rr_try and, for which == 'u', the padded
     JP = J_pu X_try (the phase-field block's right-hand side
-    correction; None for 'p')."""
+    correction; None for 'p').  With a slab `sl` the products run on
+    the process's halo'd rows (one exchange) and its held f64 cells, and
+    rr_try is a `Slab.dots`."""
     k, lo, hi = _blk(which, dim)
     nvc = 2 ** dim
-    g0 = grid[0]
+    g0 = grid[0] if sl is None else sl.n
     X_try = unpad_rows(X_acc, g0) + Xb.to(torch.float64) * scale
     free = free_u if which == "u" else free_p
     Xs = seam_spread(torch.where(free, X_try, 0.0), seam)
+    own = lambda Y: Y
+    if sl is not None:
+        (Xs,) = sl.ext(Xs)
+        own = sl.owned
     R_try = unpad_rows(B, g0) - torch.where(
-        free, seam_collect(matvec(jacL64, Xs, lo, hi, k), seam), 0.0)
-    rr_try = _dot(R_try, R_try)
+        free, seam_collect(own(matvec(jacL64, Xs, lo, hi, k)), seam), 0.0)
+    rr_try = _dot(R_try, R_try) if sl is None else sl.dots((R_try,
+                                                             R_try))[0]
     JP = None
     if which == "u":
-        JP = pad_rows(torch.where(free_p, seam_collect(matvec_block(
-            jacL64, Xs, nvc * dim, nvc * (dim + 1), lo, hi, k, 1), seam),
+        JP = pad_rows(torch.where(free_p, seam_collect(own(matvec_block(
+            jacL64, Xs, nvc * dim, nvc * (dim + 1), lo, hi, k, 1)), seam),
             0.0), gyp)
     return pad_rows(X_try, gyp), pad_rows(R_try, gyp), rr_try, JP
 
@@ -1012,8 +1360,10 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     active mask and the right-hand sides (k, gyp, ...), with zero pad
     rows past the lattice's G0 rows (gyp = G0 without a shard mesh).
     With `sys.shard_mesh` the f32 fine-level operator is the sharded one.
-    On a seam lattice every vector is canonical (`Seam`).  Returns padded
-    (DU, DP, total CG iterations) on the free dofs."""
+    On a seam lattice every vector is canonical (`Seam`).  Split by slab
+    (`hier.n_split`) the vectors are the process's rows, padded to its
+    shards' rows.  Returns padded (DU, DP, total CG iterations) on the
+    free dofs."""
     hier: LatticeHierarchy = sys.lattice_hierarchy
     p = sys.params
     rtol = p.cg_rtol
@@ -1023,15 +1373,19 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     gyp = U.shape[1]
     mesh = sys.shard_mesh
     seam = hier.seam
+    split = dict(slabs=hier.slabs, n_split=hier.n_split)
+    sl = hier.slabs[-1] if hier.slabs else None
+    n = grid[0] if sl is None else sl.n
     free_u = ~hier.dir_u[-1]
-    free_p = ~(hier.dir_p[-1] | unpad_rows(active, grid[0]))
+    free_p = ~(hier.dir_p[-1] | unpad_rows(active, n))
 
     # Operator reuse across the PDAS tail (solvers/opcache.py): the f32
     # chain and the stored f64 operator are reused while the context
     # moved by at most `jac_rtol` from the point where they were built.
     ctx = (U, P, P_old, P_oold, opcache.scalars_vec(sys.scalars))
     flags = (with_split, sys.monolithic)
-    hit = opcache.lookup(sys._split_jac_cache, ctx, flags, jac_rtol)
+    hit = opcache.lookup(sys._split_jac_cache, ctx, flags, jac_rtol,
+                         None if sl is None else sl.amax)
     if hit is not None:
         jacs, jacL64 = hit
     else:
@@ -1041,9 +1395,9 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
         jacL64 = _prepare64(U, P, P_old, P_oold, sys.lattice_ca64,
                             sys.scalars, grid=grid, dim=dim,
                             with_split=with_split,
-                            monolithic=sys.monolithic, seam=seam)
+                            monolithic=sys.monolithic, seam=seam, sl=sl)
         jacs = _prepare32_from64(jacL64, hier.P_embed,
-                                 n_levels=hier.n_levels, seam=seam)
+                                 n_levels=hier.n_levels, seam=seam, **split)
         sys._split_jac_cache = (ctx, flags, (jacs, jacL64))
     del hit
     total_its = 0
@@ -1051,7 +1405,9 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
 
     def block(which, B):
         nonlocal total_its, last_ju_pu
-        bnorm = float(torch.sqrt(_dot(B, B)))      # pad rows are zero
+        # pad rows are zero
+        bnorm = float(torch.sqrt(_dot(B, B) if sl is None else sl.dots(
+            (unpad_rows(B, n), unpad_rows(B, n)))[0]))
         # absolute floor: the linear residual only has to be invisible
         # at the Newton iteration's own (absolute) convergence bound;
         # PDAS-tail right-hand sides are pure f64 assembly noise
@@ -1069,7 +1425,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
             levels, coarse32, fine_pad = _prepare_levels(
                 jacs, hier.dir_u, hier.dir_p, active, grid=grid,
                 which=which, dim=dim, sharp=sharp_spectrum(sys.mesh.n_dofs),
-                mesh=mesh, seam=seam)
+                mesh=mesh, seam=seam, **split)
             if which == "u":
                 sys._split_levels_cache = (jacs, (levels, coarse32,
                                                   fine_pad))
@@ -1083,14 +1439,14 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
             if rr_cur <= target2:
                 break
             R0, scale, tol2, _rr0 = _pass_setup(fin_free, R_cur, rtol,
-                                                target2_d, grid=grid)
+                                                target2_d, grid=grid, sl=sl)
             Xb, its, _rrb = _cg_pass32(levels, coarse32, R0, tol2,
                                        which=which, dim=dim,
                                        fine_pad=fine_pad, mesh=mesh,
-                                       seam=seam, degree=degree)
+                                       seam=seam, degree=degree, **split)
             X_try, R_try, rr_try_d, JP = _pass_apply_mat(
                 Xb, scale, X_acc, B, jacL64, free_u, free_p, grid=grid,
-                which=which, dim=dim, gyp=gyp, seam=seam)
+                which=which, dim=dim, gyp=gyp, seam=seam, sl=sl)
             total_its += its
             rr_try = float(rr_try_d)
             if not np.isfinite(rr_try) or rr_try >= rr_cur:

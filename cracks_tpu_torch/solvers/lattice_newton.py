@@ -10,13 +10,19 @@ with the active-set solver, as in JAX.  On a seam lattice (the slit
 meshes) every state vector is canonical and every residual is
 conjugated as collect . residual . spread (`lattice.Seam`).
 
-Everything here is global-view, as in JAX, where GSPMD partitions it:
-the window residual, the PDAS head, the line search.  Each head slices
-its padded inputs back to the true grid on entry (so no pad row is ever
-divided by its zero lumped mass) and pads its outputs on exit.  The
-only per-shard work is the f32 fine-level product inside the solve
-(`lattice.solve_lattice_lat`).  Flat vectors appear only at the
-boundary: the initial boundary values in, the driver state out.
+Every function here works on a process's rows of the lattice (the
+finest level's `Slab`, ``parallel/sharding.py``): the whole lattice in
+one process, as JAX's global view, where GSPMD partitions it; on W
+ranks the rank's shards' rows.  The window residual of a process's rows
+reads the neighbour processes' boundary rows of the state (one exchange)
+and computes the cells next to them itself; every norm, count and
+maximum is a total over all processes (`Slab.dots`, `Slab.amax`), so
+every process holds the same bits and leaves every loop with the
+others.
+Each head slices its padded inputs back to the real rows on entry (so
+no pad row is ever divided by its zero lumped mass) and pads its
+outputs on exit.  Flat vectors appear only at the boundary: the initial
+boundary values in, the driver state out (gathered from every process).
 """
 
 from __future__ import annotations
@@ -24,49 +30,56 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.sharding import pad_rows, unpad_rows
+from ..parallel.sharding import Slab, pad_rows, unpad_rows, whole
 from . import lattice
 from .newton import NewtonLog, NoConvergence, _flips_within_band
 
 
 def _lat_residual_seam(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
-                       monolithic, seam):
-    """The canonical lattice residual: spread the seam so the window
-    stencil sees both slit lips, collect the mirror contributions back
-    (S^T r for the duplication map S; the plain residual without a
-    seam)."""
+                       monolithic, seam, sl: Slab | None = None):
+    """The canonical lattice residual of a process's rows: spread the
+    seam so the window stencil sees both slit lips, collect the mirror
+    contributions back (S^T r for the duplication map S; the plain
+    residual without a seam).  The neighbours' boundary rows of the
+    state arrive in one exchange; the cells next to them (caL: the
+    process's held cells) are computed here, so each owned row sums its
+    cells as the global residual does.  Without `sl`, the whole
+    lattice."""
     sp = lambda X: lattice.seam_spread(X, seam)
-    RU, RP = lattice.lattice_residual(sp(U), sp(P), sp(P_old), sp(P_oold),
-                                      caL, sc, dim=dim, with_split=with_split,
-                                      monolithic=monolithic)
-    return lattice.seam_collect(RU, seam), lattice.seam_collect(RP, seam)
+    if sl is None:
+        sl = whole(U.shape[1])
+    RU, RP = lattice.lattice_residual(
+        *sl.ext(sp(U), sp(P), sp(P_old), sp(P_oold)), caL, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic, rows=sl.g)
+    return (lattice.seam_collect(sl.owned(RU), seam),
+            lattice.seam_collect(sl.owned(RP), seam))
 
 
 def _condensed_residual(U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc,
-                        *, dim, with_split, monolithic, seam):
+                        *, dim, with_split, monolithic, seam, sl: Slab):
     """The raw phase-field rhs and the condensed Newton rhs (zero on
     Dirichlet and active dofs, and on a seam's mirror slots, which the
     Dirichlet masks pin) at true-shaped lattice state, and its norm (a
-    0-d tensor)."""
+    0-d tensor, `Slab.dots`)."""
     RU, RP = _lat_residual_seam(U, P, P_old, P_oold, caL, sc, dim=dim,
                                 with_split=with_split, monolithic=monolithic,
-                                seam=seam)
+                                seam=seam, sl=sl)
     pu = torch.where(dir_u, 0.0, RU)
     pp = torch.where(dir_p | active, 0.0, RP)
-    return RP, pu, pp, torch.sqrt(lattice._dot(pu, pu)
-                                  + lattice._dot(pp, pp))
+    sq = sl.dots((pu, pu), (pp, pp))
+    return RP, pu, pp, torch.sqrt(sq[0] + sq[1])
 
 
 def _initial_assemble_lat(U, P, P_old, P_oold, active, dir_u, dir_p, caL,
                           sc, *, grid, dim, with_split, monolithic, gyp,
-                          seam):
+                          seam, sl: Slab):
     """Initial residual assembly and condensation (cracks.cc:2790-2791),
     padded in and out.  Returns (tot_p, pde_u, pde_p, residual norm)."""
-    up = lambda X: unpad_rows(X, grid[0])
+    up = lambda X: unpad_rows(X, sl.n)
     RP, pu, pp, res = _condensed_residual(
         up(U), up(P), up(P_old), up(P_oold), up(active), up(dir_u),
         up(dir_p), caL, sc, dim=dim, with_split=with_split,
-        monolithic=monolithic, seam=seam)
+        monolithic=monolithic, seam=seam, sl=sl)
     return pad_rows(RP, gyp), pad_rows(pu, gyp), pad_rows(pp, gyp), res
 
 
@@ -74,7 +87,7 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
                                  pde_p_in, resid_ok, active_old, cycling,
                                  dir_u, dir_p, diag_mass, c_weight, caL, sc,
                                  *, grid, dim, with_split, monolithic,
-                                 can_skip, gyp, seam):
+                                 can_skip, gyp, seam, sl: Slab):
     """The PDAS iteration head on padded lattice-layout state: indicator,
     set update, pinning, re-assembly, condensation and the bookkeeping
     (cracks.cc:2822-2918); `newton._active_set_update` without the
@@ -82,8 +95,9 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
     unchanged set after an accepted line search keeps the residuals in
     hand (a host `if`, where JAX has a ``lax.cond``).  Returns the padded
     (U, P, active, tot_p, pde_u, pde_p) and a dict of host scalars with
-    the padded `left` mask on the host."""
-    up = lambda X: unpad_rows(X, grid[0])
+    the padded `left` mask on the host; the counts and maxima are totals
+    over all processes."""
+    up = lambda X: unpad_rows(X, sl.n)
     U, P, P_old, P_oold = up(U), up(P), up(P_old), up(P_oold)
     active_old, cycling = up(active_old), up(cycling)
     dir_u, dir_p, diag_mass = up(dir_u), up(dir_p), up(diag_mass)
@@ -98,35 +112,40 @@ def _fused_active_set_update_lat(U, P, P_old, P_oold, tot_p, pde_u_in,
     active = (indicator > atol) | cycling
     P = torch.where(active, P_old, P)
     flipped = active != active_old
-    changed = int(flipped.sum())
+    counts = sl.sum_ranks(torch.stack([
+        flipped.sum(), active.sum(), (active & cycling).sum()])).tolist()
+    changed = counts[0]
     if can_skip and changed == 0 and resid_ok:
         tot_p, pde_u, pde_p = tot_p, pde_u_in, pde_p_in
     else:
         RP, pu, pp, _ = _condensed_residual(
             U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc, dim=dim,
-            with_split=with_split, monolithic=monolithic, seam=seam)
+            with_split=with_split, monolithic=monolithic, seam=seam, sl=sl)
         tot_p, pde_u, pde_p = (pad_rows(X, gyp) for X in (RP, pu, pp))
+    tops = sl.amax(torch.stack([
+        torch.where(flipped, indicator.abs(), 0.0).amax(),
+        torch.where(active, indicator, 0.0).amax()])).tolist()
     stats = dict(
-        n_active=int(active.sum()),
-        n_cycling=int((active & cycling).sum()),
+        n_active=counts[1],
+        n_cycling=counts[2],
         changed=changed,
         left=pad_rows(active_old & ~active, gyp).cpu().numpy(),
-        ind_flip_max=float(torch.where(flipped, indicator.abs(), 0.0).max()),
-        ind_act_max=float(torch.where(active, indicator, 0.0).max()))
+        ind_flip_max=tops[0],
+        ind_act_max=tops[1])
     return (pad_rows(U, gyp), pad_rows(P, gyp), pad_rows(active, gyp), tot_p,
             pde_u, pde_p), stats
 
 
 def _fused_line_search_lat(U, P, DU, DP, P_old, P_oold, active, dir_u, dir_p,
                            caL, sc, res0, damping, *, grid, dim, with_split,
-                           monolithic, max_steps, gyp, seam):
+                           monolithic, max_steps, gyp, seam, sl: Slab):
     """Backtracking line search on padded lattice-layout state
     (cracks.cc:2940-2957), a host loop where JAX has a
     ``lax.while_loop``: trial k steps by DU * damping**k and accepts the
     first trial whose residual decreases.  A fully failed search
     restores the iterate but keeps the last trial's residuals.  Returns
     padded (U, P, tot_p, pde_u, pde_p), the residual and k."""
-    up = lambda X: unpad_rows(X, grid[0])
+    up = lambda X: unpad_rows(X, sl.n)
     U, P, DU, DP = up(U), up(P), up(DU), up(DP)
     P_old, P_oold, active = up(P_old), up(P_oold), up(active)
     dir_u, dir_p = up(dir_u), up(dir_p)
@@ -137,7 +156,7 @@ def _fused_line_search_lat(U, P, DU, DP, P_old, P_oold, active, dir_u, dir_p,
         Pt = P + DP * scale
         RP, pu, pp, res_d = _condensed_residual(
             Ut, Pt, P_old, P_oold, active, dir_u, dir_p, caL, sc, dim=dim,
-            with_split=with_split, monolithic=monolithic, seam=seam)
+            with_split=with_split, monolithic=monolithic, seam=seam, sl=sl)
         res = float(res_d)
         accepted = res < res0
         if accepted or k >= max_steps - 1:
@@ -154,22 +173,32 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
     boundary), state.active_mask and state.last_log, and returns the
     last residual reduction.  Like the JAX lattice Newton it never reads
     `linear_solver`: the driver selects it only where the lattice
-    hierarchy exists, and its solve is the lattice one."""
+    hierarchy exists, and its solve is the lattice one.  On W ranks each
+    rank cuts its shards' rows from the flat state at entry and the
+    flat state at exit is gathered from every rank's rows."""
     p = sys.params
     hier: lattice.LatticeHierarchy = sys.lattice_hierarchy
     grid = hier.grid
     dim = sys.dim
     vert_pos = hier.vert_pos
-    gyp = sys.lat_gyp
+    # the process's rows (on a seam the whole lattice, its contractions
+    # the batched ones)
+    sl = hier.slabs[-1] if hier.slabs else whole(grid[0])
+    mesh = sys.shard_mesh
+    # this process's rows of the padded lattice: its shards'
+    r0 = 0 if mesh is None else mesh.first * mesh.rows_loc(grid[0])
+    gyp = sys.lat_gyp if mesh is None else mesh.n_local * mesh.rows_loc(
+        grid[0])
     log = NewtonLog()
     log.print_line("It.", "#A.Set", "#CycDoF", "Residual", "Reduction",
                    "LSrch", "#LinIts", verbose=verbose)
     with_split = sys.with_split
     kw = dict(grid=grid, dim=dim, with_split=with_split,
-              monolithic=sys.monolithic, gyp=gyp, seam=hier.seam)
+              monolithic=sys.monolithic, gyp=gyp, seam=hier.seam, sl=sl)
 
     def place(x, k):
-        return pad_rows(lattice._to_lat(x, vert_pos, grid, k), gyp)
+        X = pad_rows(lattice._to_lat(x, vert_pos, grid, k), sys.lat_gyp)
+        return X[:, r0:r0 + gyp].contiguous()
 
     # boundary: flat state in, the inhomogeneous boundary values applied
     # flat (set_initial_bc, cracks.cc:2787), then lifted to the padded
@@ -265,11 +294,12 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
                       "steps.")
             raise NoConvergence()
 
-    # boundary: lattice state out -> flat driver state
-    g0 = grid[0]
-    state.u = lattice._to_glob(unpad_rows(U, g0), vert_pos, dim)
-    state.phi = lattice._to_glob(unpad_rows(P, g0), vert_pos, 1)
-    state.active_mask = lattice._to_glob(unpad_rows(active, g0), vert_pos,
+    # boundary: lattice state out (every process's rows) -> flat driver
+    # state
+    every = lambda X: sl.gather(unpad_rows(X, sl.n))
+    state.u = lattice._to_glob(every(U), vert_pos, dim)
+    state.phi = lattice._to_glob(every(P), vert_pos, 1)
+    state.active_mask = lattice._to_glob(every(active), vert_pos,
                                          1).cpu().numpy()
     log.newton_steps = newton_step
     log.linear_iterations = sum_lin_it

@@ -43,6 +43,15 @@ The runs (all of them without arguments, else the named ones):
   settings (cg + gmg, cg_rtol 1e-10, mixed precision) at
   ``n_devices=4, dof_sharding=lattice`` (`HETERO_HALO4`: the pool takes
   its Jacobi CG all the same);
+- ``sneddon_2d_lattice_np8``: the Sneddon 2d lattice of
+  ``tests/test_torch_driver_sharded.py`` (its `SNEDDON` settings, refine
+  2, 5,043 DoFs, four load steps) at ``n_devices=8,
+  dof_sharding=lattice``: the lattice-layout Newton on 8 virtual CPU
+  devices (`LATTICE_RUNS`; writes ``<name>.json``: the statistics
+  columns and each step's Newton and linear iterations, for
+  ``tests/test_torch_dist_lattice.py``, whose ranks do not import JAX);
+- ``sneddon_3d_lattice_np4``: the same settings in 3d at refine 1
+  (37,044 DoFs), load step 0, at ``n_devices=4``;
 - ``halo_cg_2d``: one call of the halo pool's block CG
   (``cracks_tpu.solvers.halo_newton.build_halo_cg``, the split on) at
   D = 8 on the hanging-node mesh of
@@ -117,6 +126,48 @@ def write_reference(name, prm, overrides):
           f"{len(sim.step_times)} steps, final DoFs {sim.mesh.n_dofs}")
 
 
+# tests/test_torch_driver_sharded.py's SNEDDON (a Parameters() without
+# a .prm), two runs of the lattice-layout Newton
+SNEDDON = dict(
+    test_case="sneddon", pressure_expr="1.0e-3", G_c=1.0,
+    poisson_ratio_nu=0.2, E_modulus=1.0, k_reg_expr="1e-8*h",
+    eps_reg_expr="2.0*h", lower_bound_newton_residual=1e-7,
+    max_no_newton_steps=50, max_no_line_search_steps=10,
+    n_global_pre_refine=2, max_no_timesteps=3, output_dir="",
+    linear_solver="cg", preconditioner="gmg", cg_rtol=1e-10,
+    mixed_precision_cg=True)
+# name -> (the .prm under params/ or None: Parameters() defaults,
+# overrides)
+LATTICE_RUNS = {
+    "sneddon_2d_lattice_np8": (None, dict(SNEDDON, n_devices=8,
+                                          dof_sharding="lattice")),
+    "sneddon_3d_lattice_np4": ("parameters_sneddon_3d", dict(
+        SNEDDON, dimension=3, n_global_pre_refine=1, max_no_timesteps=0,
+        n_devices=4, dof_sharding="lattice")),
+}
+
+
+def write_lattice_reference(name):
+    from cracks_tpu.config import Parameters, load_parameters
+    from cracks_tpu.driver import Simulation
+
+    t0 = time.perf_counter()
+    prm, overrides = LATTICE_RUNS[name]
+    p = (Parameters(**overrides) if prm is None else load_parameters(
+        os.path.join(ROOT, "params", f"{prm}.prm"), **overrides))
+    sim = Simulation(p, verbose=False)
+    sim.run()
+    assert sim.sys.use_lattice_state
+    with open(os.path.join(OUT, f"{name}.json"), "w") as f:
+        json.dump(dict(statistics=sim.statistics.data,
+                       effort=[dict(step=step, newton=newton, linear=lin)
+                               for step, newton, lin in sim.solver_effort]),
+                  f, indent=1)
+        f.write("\n")
+    print(f"{name}: {time.perf_counter() - t0:.1f} s, "
+          f"{len(sim.solver_effort)} steps, DoFs {sim.mesh.n_dofs}")
+
+
 def hanging_mesh_2d(Forest, rect_mesh):
     """The 2d hanging-node mesh of the JAX package's pooled-condensation
     test: 4 x 4 cells, once refined, a corner patch refined again under
@@ -187,7 +238,9 @@ def write_halo_cg():
 
 
 # name -> a writer of its own (the runs above are driver runs)
-WRITERS = {"halo_cg_2d": write_halo_cg}
+WRITERS = {"halo_cg_2d": write_halo_cg,
+           **{name: (lambda n=name: write_lattice_reference(n))
+              for name in LATTICE_RUNS}}
 
 
 def main(names):

@@ -67,7 +67,8 @@ def build_variants():
                 "const float* X, float* Y, int D, int rl, int G0, int GY, "
                 "int GX, int GCXp, void* stream) {\n"
                 f"  return sharded::launch<float, {dim}, {k}, {stages}>("
-                f"JP, X, Y, D, rl, G0, GY, GX, GCXp, {ty}, "
+                f"JP, X, nullptr, nullptr, Y, D, rl, 0, G0, G0, GY, GX, "
+                f"GCXp, {ty}, "
                 "static_cast<cudaStream_t>(stream));"
                 "\n}")
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)

@@ -19,8 +19,10 @@ spawned ranks on the CPU, gloo, one torch thread each.
   Newton iteration;
 - the CLI under torchrun (2 ranks, D = 4): rank 0 alone writes the
   output, and its statistics file is the one-process run's;
-- W > 1 with the lattice layout or with replicated vectors raises the
-  NotImplementedError naming ROADMAP A11d / A11e;
+- W > 1 on a seam lattice (the slit mesh of the Miehe cases) or with
+  replicated vectors raises the NotImplementedError naming ROADMAP A11d,
+  part 2 / A11e (the lattice layout on W ranks:
+  tests/test_torch_dist_lattice.py);
 - a rank that raises ends the launch with `RankFailed` and its error
   within 30 s, long before the launch's deadline of 60 s (each spawned
   rank imports this module, JAX with it, which takes seconds); a rank
@@ -221,13 +223,12 @@ def test_torchrun_cli_rank_zero_writes(tmp_path):
 
 
 @pytest.mark.parametrize("prm,over,item", [
-    # the uniform Sneddon lattice under gmg + mixed precision: the
-    # lattice layout
-    (os.path.join(REPO, "params", "parameters_sneddon_2d.prm"),
-     dict(n_global_pre_refine=2, n_local_pre_refine=0,
-          n_refinement_cycles=0, max_no_timesteps=0, linear_solver="cg",
-          preconditioner="gmg", mixed_precision_cg=True, n_devices=2,
-          dof_sharding="lattice", output_dir=""), "A11d"),
+    # the slit mesh of the Miehe cases under gmg + mixed precision: the
+    # seam lattice
+    (os.path.join(PRM_DIR, "miehe_shear_2.prm"),
+     dict(max_no_timesteps=0, linear_solver="cg", preconditioner="gmg",
+          mixed_precision_cg=True, n_devices=2, dof_sharding="lattice",
+          output_dir=""), "A11d, part 2"),
     (SNEDDON_1, dict(DRYRUN, n_devices=2), "A11e"),
     (SNEDDON_1, dict(DRYRUN, n_devices=2, dof_sharding="lattice",
                      outer_solver="simple monolithic"), "A11e"),
