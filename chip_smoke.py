@@ -268,6 +268,25 @@ without printing the final line:
    rank's device and the transport, s per step, ms, exchanges,
    collectives and bytes per CG iteration, each rank's peak device
    memory and sharded launches, the card's idle share (nvidia-smi).
+22. the seam lattice on W ranks of the one card (gloo, staged; each rank
+   holds its D / W row slabs of every level split by slab, the slabs
+   seam-aware, the seam's row copies across a rank boundary where it
+   runs between the lips), in phase 21's rank processes after phase
+   21's work (their one-process references run before).  Small: params/tests/miehe_shear_2.prm at
+   refinement 4 (3,315 DoFs) at D = 2 on W = 2 (the seam on the rank
+   boundary) and D = 4 on W = 4, and at refinement 5 (12,771 DoFs) at
+   D = 2 on W = 2, 3 steps under bench.py's solver settings, every rank
+   bit-equal to the one-process card run at the same D, with equal
+   Newton iterations.  Full width: phase 17's bench case (refinement 8,
+   790,275 DoFs) at D = 4 on W = 4 ranks, load step 0 of phase 17's D
+   = 4 run (SEAM_RANKED_STEPS of its 3): bulk energy, crack energy and
+   Load x within rel 1e-10 of that run, equal Newton iterations per
+   step, no cut, and every rank's sharded-kernel launches per step
+   equal its.
+   Printed: each rank's device and the transport, s per step, ms,
+   exchanges (the seam's own apart), collectives and bytes per CG
+   iteration, each rank's peak device memory and launches, the card's
+   idle share (nvidia-smi).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -1870,7 +1889,11 @@ def miehe_full_phase():
     _zero_stencil_counts()
     sim = Simulation(_miehe_params(MIEHE_FULL["refine"], 3, **SHARDED),
                      device="cuda", verbose=False)
-    sim.run()
+    per_step, undo = _launches_per_step()
+    try:
+        sim.run()
+    finally:
+        undo()
     counts = _stencil_counts()
     sstats = np.array([sim.statistics.data[c] for c in MIEHE_COLUMNS],
                       dtype=float)
@@ -1887,11 +1910,34 @@ def miehe_full_phase():
         raise AssertionError("miehe_shear sharded: disagrees with the "
                              "replicated run or launched no sharded kernel")
     out = dict(launches=launches, phi_launches=phi_launches,
-               sharded=counts[2])
+               sharded=counts[2], sharded_stats=sstats,
+               sharded_newton=snewton, sharded_per_step=per_step)
     del sim
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _launches_per_step():
+    """Wrap the lattice-layout Newton so that each load step's solve
+    appends the (sharded, unsharded 2d) kernel launches so far to the
+    returned list; returns (the list, the undo)."""
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.solvers import lattice_newton
+    real = lattice_newton.newton_active_set_lattice
+    record = []
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        record.append((stencil.stencil_matvec_sharded.launches,
+                       stencil.stencil_matvec2d.launches))
+        return out
+
+    lattice_newton.newton_active_set_lattice = counted
+
+    def undo():
+        lattice_newton.newton_active_set_lattice = real
+    return record, undo
 
 
 def seam_phase(cpu):
@@ -2827,10 +2873,12 @@ def _ranked_lattice_full(ranks):
                 **_rank_info(ranks))
 
 
-def _ranked_lattice(ranks, dims, kernels, full):
+def _ranked_lattice(ranks, dims, kernels, full, seam=None):
     """A rank of a phase-21 launch: with `kernels` the kernel check,
     then each small case's _run_small tuple (dims), then with `full` the
-    full-width run."""
+    full-width run; then with `seam` (`_ranked_seam`'s arguments) phase
+    22's work in the same process, which spares phase 22 the ranks'
+    start and their first CUDA calls."""
     from cracks_tpu_torch.ops import stencil
     prods = _ranked_products(ranks) if kernels else None
     small = []
@@ -2843,7 +2891,9 @@ def _ranked_lattice(ranks, dims, kernels, full):
         small.append(run + ((stencil.stencil_matvec_sharded.launches,
                               kernel.launches),))
     info = _rank_info(ranks)
-    return prods, small, info, _ranked_lattice_full(ranks) if full else None
+    full = _ranked_lattice_full(ranks) if full else None
+    return (prods, small, info, full,
+            None if seam is None else _ranked_seam(ranks, *seam))
 
 
 def _lattice_kernel_report(outs):
@@ -2851,7 +2901,7 @@ def _lattice_kernel_report(outs):
     one-process product, one launch per product; returns per library
     and block the ranks' median device ms and the exchange's ms."""
     report = {}
-    for rank, (prods, _, _, _) in enumerate(outs):
+    for rank, (prods, *_) in enumerate(outs):
         for p in prods:
             print(f"{p['library']} {p['name']} rank {rank} rows "
                   f"{p['rows']} carrier {p['carrier']}: {p['launches']} "
@@ -2868,13 +2918,16 @@ def _lattice_kernel_report(outs):
     return report
 
 
-def lattice_ranked_phase(small_card, sharded_full):
+def lattice_ranked_phase(small_card, sharded_full, seam_work):
     """Phase 21: the lattice layout on W ranks of the one card, held to
-    phases 3, 4 and 7.  Returns the kernel check's records, the
-    full-width run's per-rank dicts and per small case each rank's
-    (sharded, unsharded) launches."""
+    phases 3, 4 and 7; each launch then runs phase 22's work for its W
+    (`seam_work`: W -> `_ranked_seam`'s arguments).  Returns the kernel
+    check's records, the full-width run's per-rank dicts, per small case
+    each rank's (sharded, unsharded) launches, and per W the ranks'
+    phase-22 outputs with the W = 4 launch's nvidia-smi samples."""
     worlds = {}
     launches = {}
+    seam_outs = {}
     for label, dim, W in LATTICE_SMALL:
         worlds.setdefault(W, []).append((label, dim))
     kernels = full = None
@@ -2884,8 +2937,10 @@ def lattice_ranked_phase(small_card, sharded_full):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             outs = _launch_on_card(_ranked_lattice, W,
-                                   ([dim for _, dim in cases], last, last),
+                                   ([dim for _, dim in cases], last, last,
+                                    seam_work.get(W)),
                                    tmp, samples)
+        seam_outs[W] = [o[4] for o in outs]
         infos = [o[2] for o in outs]
         print(f"phase 21 on cuda, {W} ranks ("
               + "; ".join(f"rank {i['rank']} on {i['device']}"
@@ -2914,8 +2969,11 @@ def lattice_ranked_phase(small_card, sharded_full):
             launches[label] = [o[1][n][4] for o in outs]
         if last:
             full = [o[3] for o in outs]
-            _lattice_full_report(full, samples, sharded_full)
-    return kernels, full, launches
+            # the samples until phase 22's work began
+            t22 = seam_outs[W][0]["t0"] if seam_outs[W][0] else math.inf
+            _lattice_full_report(full, [x for x in samples if x[0] < t22],
+                                 sharded_full)
+    return kernels, full, launches, (seam_outs, samples)
 
 
 def _lattice_full_report(outs, samples, ref):
@@ -2956,12 +3014,246 @@ def _lattice_full_report(outs, samples, ref):
     busy = [u for _, u in samples]
     print(f"{label}: idle share "
           + (f"{100 - sum(busy) / len(busy):.1f} % (nvidia-smi "
-             f"utilization.gpu, {len(busy)} samples over the launch)"
-             if busy else "not measured (no sample)"))
+             f"utilization.gpu, {len(busy)} samples over phase 21's part "
+             "of the launch)" if busy else "not measured (no sample)"))
     if (rel > 1e-10 or out["newton"] != ref["newton"] or out["cuts"]
             or out["steps"] != 2
             or any(o["sharded"] != ref["sharded"] for o in outs)):
         raise AssertionError(f"{label}: off phase 7's run")
+
+
+# phase 22: the seam lattice on W ranks of the one card, run by phase
+# 21's rank processes after their own work.  Small: (label, refinement,
+# D = W); the one-process card runs at the same D are the references.
+# Full width: phase 17's bench case at D = 4 on W = 4, the first
+# SEAM_RANKED_STEPS of the 3 load steps of phase 17's D = 4 run (the
+# smoke's time limit: a proof run of all 3 took 1,327 s in all, its W
+# rank phases far slower than the runs before, PERF.md)
+SEAM_RANKED_SMALL = [("miehe_shear_2 refine 4 D=2 W=2", 4, 2),
+                     ("miehe_shear_2 refine 4 D=4 W=4", 4, 4),
+                     ("miehe_shear_2 refine 5 D=2 W=2", 5, 2)]
+SEAM_RANKED_W = 4
+SEAM_RANKED_STEPS = 1
+
+
+def _seam_case(refine, D, device):
+    """A small phase-22 case, `_run_case`'s tuple with the
+    (sharded, unsharded 2d, phase-field) launches and the seam's
+    exchanges of the run."""
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.parallel import dist
+    _zero_stencil_counts()
+    dist.reset_counts()
+    run = _run_case("miehe", refine, dict(n_devices=D,
+                                          dof_sharding="lattice"), device)
+    return run + ((stencil.stencil_matvec_sharded.launches,
+                   stencil.stencil_matvec2d.launches,
+                   stencil.stencil_matvec2d.phi_launches),
+                  dist.EXCHANGES["seam"])
+
+
+def _ranked_seam_full(ranks, refine, steps):
+    """A rank of phase 22's full-width run: the bench case on the ranks,
+    every CG pass timed between synchronizations with its exchanges
+    (the seam's apart), collectives and bytes counted, and the launches
+    per load step."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.parallel import dist
+    from cracks_tpu_torch.solvers import lattice
+    if ranks.rank:
+        sys.stdout = open(os.devnull, "w")
+    cuda = ranks.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    real = lattice._cg_pass32
+    passes = []
+
+    def timed(*args, **kw):
+        sync()
+        e0, c0 = dict(dist.EXCHANGES), dict(dist.COUNTS)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync()
+        passes.append((time.perf_counter() - t0, out[1],
+                       dist.EXCHANGES["exchanges"] - e0["exchanges"],
+                       dist.EXCHANGES["seam"] - e0["seam"],
+                       dist.COUNTS["collectives"] - c0["collectives"],
+                       dist.EXCHANGES["bytes"] - e0["bytes"]
+                       + dist.COUNTS["bytes"] - c0["bytes"]))
+        return out
+
+    t0 = time.perf_counter()
+    sim = Simulation(_miehe_params(refine, steps, n_devices=ranks.world,
+                                   dof_sharding="lattice"),
+                     device=ranks.device.type, verbose=False)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    host_s = time.perf_counter() - t0
+    _zero_stencil_counts()
+    dist.reset_counts()
+    per_step, undo = _launches_per_step()
+    lattice._cg_pass32 = timed
+    t0, w0 = time.perf_counter(), time.time()
+    try:
+        sim.run()
+    finally:
+        lattice._cg_pass32 = real
+        undo()
+    sync()
+    window = (w0, time.time())
+    hier = sim.sys.lattice_hierarchy
+    return dict(stats=np.array([sim.statistics.data[c]
+                                for c in MIEHE_COLUMNS], dtype=float),
+                newton=[e[1] for e in sim.solver_effort],
+                linear=[e[2] for e in sim.solver_effort],
+                steps=len(sim.solver_effort), cuts=sim.step_cuts,
+                step_s=[t for _, _, t in sim.step_times],
+                secs=time.perf_counter() - t0, host_s=host_s,
+                per_step=per_step,
+                phi=stencil.stencil_matvec2d.phi_launches,
+                seam=tuple(hier.seam), n_split=hier.n_split,
+                n_levels=hier.n_levels, dofs=sim.mesh.n_dofs,
+                rows=(hier.slabs[-1].a, hier.slabs[-1].b), passes=passes,
+                window=window, **_rank_info(ranks))
+
+
+def _ranked_seam(ranks, cases, full):
+    """A rank's phase-22 work: each small case's `_seam_case` tuple
+    (cases: refinements, at D = W), the rank's device, transport and
+    peak memory after them, then with `full` (refinement, steps) the
+    full-width run; with its start and end on the host's clock.  The
+    peak memory counter starts anew (phase 21 ran in the process)."""
+    t0 = time.time()
+    if ranks.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    small = [_seam_case(refine, ranks.world, ranks.device.type)
+             for refine in cases]
+    info = _rank_info(ranks)
+    full = None if full is None else _ranked_seam_full(ranks, *full)
+    return dict(small=small, info=info, full=full, t0=t0, t1=time.time())
+
+
+def _seam_small_report(label, outs, n, ref):
+    """Phase 22, small: every rank's case n bit-equal to the
+    one-process card run `ref` at the same D, with equal Newton
+    iterations; the straddle at D = 2 made seam exchanges."""
+    outs = [o["small"] for o in outs]
+    run = outs[0][n]
+    same = all(np.array_equal(o[n][1], run[1]) and o[n][2] == run[2]
+               for o in outs)
+    bits = np.array_equal(run[1], ref[1])
+    rel = float((np.abs(run[1] - ref[1]) / np.abs(ref[1])).max())
+    print(f"{label} on cuda: {run[0]} DoFs, {run[4]:.1f} s in rank 0, "
+          f"statistics {run[1].tolist()}, Newton/linear its {run[2]} "
+          f"(one process: {ref[2]}, {ref[4]:.1f} s), bit-equal to the "
+          f"one-process run: {bits} (max rel {rel:.3e}), ranks bit-equal: "
+          f"{same}; (sharded, 2d, phase-field) launches per rank "
+          f"{[o[n][5] for o in outs]} (one process {ref[5]}), seam "
+          f"exchanges per rank {[o[n][6] for o in outs]}")
+    if (not bits or not same or run[2] != ref[2] or run[3]
+            or run[0] != ref[0]
+            or any(min(o[n][5]) <= 0 for o in outs)):
+        raise AssertionError(f"{label}: off the one-process card run")
+
+
+def seam_refs_phase():
+    """Phase 22's references: each small case's one-process card run at
+    its D, before the ranks start."""
+    return {(refine, W): _seam_case(refine, W, "cuda")
+            for _, refine, W in SEAM_RANKED_SMALL}
+
+
+def seam_work():
+    """Phase 22's work for each W: `_ranked_seam`'s arguments, run by
+    phase 21's launch of that W."""
+    work = {}
+    for _, refine, W in SEAM_RANKED_SMALL:
+        work.setdefault(W, [[], None])[0].append(refine)
+    work[SEAM_RANKED_W][1] = (MIEHE_FULL["refine"], SEAM_RANKED_STEPS)
+    return {W: tuple(w) for W, w in work.items()}
+
+
+def seam_ranked_phase(seam, refs, ranked):
+    """Phase 22: the seam lattice on W ranks of the one card, held to
+    one-process card runs (`refs`, `seam_refs_phase`) and to phase 17's
+    D = 4 bench run (`seam`: phase 17's dict); `ranked`: per W the
+    ranks' outputs of phase 21's launches and the W = 4 launch's
+    nvidia-smi samples.  Returns the full-width run's per-rank dicts."""
+    outs_by_w, samples = ranked
+    cases = {}
+    for label, refine, W in SEAM_RANKED_SMALL:
+        cases.setdefault(W, []).append((label, refine))
+    full = None
+    for W, outs in sorted(outs_by_w.items()):
+        infos = [o["info"] for o in outs]
+        print(f"phase 22 on cuda, {W} ranks ("
+              + "; ".join(f"rank {i['rank']} on {i['device']}"
+                          for i in infos)
+              + f"), {infos[0]['transport']}: "
+              f"{outs[0]['t1'] - outs[0]['t0']:.1f} s in rank 0 (after "
+              f"phase 21 in the same processes); peak device memory per "
+              f"rank after the small cases {[i['peak_bytes'] for i in infos]}"
+              " B")
+        for n, (label, refine) in enumerate(cases[W]):
+            _seam_small_report(label, outs, n, refs[(refine, W)])
+        if W == SEAM_RANKED_W:
+            full = [o["full"] for o in outs]
+            w0, w1 = full[0]["window"]
+            _seam_full_report(full, [x for x in samples
+                                     if w0 <= x[0] <= w1], seam)
+    return full
+
+
+def _seam_full_report(outs, samples, ref):
+    """Phase 22, full width: every rank's run against phase 17's D = 4
+    run (`ref`: phase 17's dict), and what it cost."""
+    W = len(outs)
+    out = outs[0]
+    n = out["steps"]
+    label = f"miehe_shear bench case D={W} W={W}"
+    for o in outs[1:]:
+        if not (np.array_equal(o["stats"], out["stats"])
+                and o["newton"] == out["newton"]):
+            raise AssertionError(f"{label}: rank {o['rank']} differs from "
+                                 "rank 0")
+    want = ref["sharded_stats"][:, :n]
+    rel = float(np.max(np.abs(out["stats"] - want) / np.abs(want)))
+    its = sum(p[1] for p in out["passes"])
+    wall = sum(p[0] for p in out["passes"])
+    ex, seam_ex, coll, nbytes = (sum(p[k] for p in out["passes"])
+                                 for k in (2, 3, 4, 5))
+    per = lambda x: x / max(its, 1)
+    print(f"{label}: {out['dofs']} DoFs, seam {out['seam']}, "
+          f"{out['n_split']} of {out['n_levels']} levels split by slab, "
+          f"rows per rank {[o['rows'] for o in outs]}; {out['secs']:.2f} s "
+          f"in rank 0's run (host setup {out['host_s']:.2f} s), s per step "
+          f"{[round(x, 3) for x in out['step_s']]}, Newton its "
+          f"{out['newton']} (phase 17 D=4: {ref['sharded_newton'][:n]}), "
+          f"linear its {out['linear']}")
+    print(f"{label}: {len(out['passes'])} CG passes, {its} CG iterations, "
+          f"{1e3 * per(wall):.2f} ms, {per(ex):.1f} exchanges (of them "
+          f"{per(seam_ex):.2f} the seam's), {per(coll):.1f} collectives "
+          f"and {per(nbytes):.0f} B per CG iteration per rank (rank 0; the "
+          f"passes' setup included)")
+    print(f"{label}: peak device memory per rank "
+          f"{[o['peak_bytes'] for o in outs]} B; (sharded, 2d) launches "
+          f"per step per rank {[o['per_step'] for o in outs]} (phase 17 "
+          f"D=4: {ref['sharded_per_step'][:n]}), phase-field launches per "
+          f"rank {[o['phi'] for o in outs]}; statistics "
+          f"{[repr(float(e)) for e in out['stats'].ravel()]}, max rel "
+          f"difference to phase 17's D=4 run {rel:.3e} (bound 1e-10)")
+    busy = [u for _, u in samples]
+    print(f"{label}: idle share "
+          + (f"{100 - sum(busy) / len(busy):.1f} % (nvidia-smi "
+             f"utilization.gpu, {len(busy)} samples over the run)"
+             if busy else "not measured (no sample)"))
+    if (rel > 1e-10 or out["newton"] != ref["sharded_newton"][:n]
+            or out["cuts"] or n != SEAM_RANKED_STEPS
+            or any(o["per_step"] != ref["sharded_per_step"][:n]
+                   for o in outs)
+            or any(o["phi"] <= 0 or o["per_step"][-1][1] <= 0
+                   for o in outs)):
+        raise AssertionError(f"{label}: off phase 17's D=4 run")
 
 
 def _main_paths():
@@ -3011,8 +3303,12 @@ def main():
         _timed(matrix_free_phase, mf_cpu)
     multi = _timed(sharded_modes_phase, jacobi)
     _timed(ranked_phase, multi)
-    lattice_kernels, lattice_full, lattice_small = _timed(
-        lattice_ranked_phase, small_card, full_sharded[2])
+    # phase 22's references, then phase 21, whose launches run phase 22's
+    # work after their own
+    seam_refs = _timed(seam_refs_phase)
+    lattice_kernels, lattice_full, lattice_small, seam_ranked = _timed(
+        lattice_ranked_phase, small_card, full_sharded[2], seam_work())
+    seam_full = _timed(seam_ranked_phase, seam, seam_refs, seam_ranked)
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]
@@ -3034,6 +3330,8 @@ def main():
             "library_ms": head["library_ms"], "shapes": taken})
         if k["dim"] == 2:
             entries[-1]["launches_seam"] = seam["phi_launches"]
+            entries[-1]["launches_seam_ranked"] = [o["phi"]
+                                                   for o in seam_full]
             entries[-1]["launches_multi_shard"] = multi["phi"]
         head = shapes[0]   # the f32 u block: the main product
         entries.append({
@@ -3048,6 +3346,8 @@ def main():
         if k["dim"] == 2:
             entries[-1]["launches_seam"] = (seam["launches"]
                                             - seam["phi_launches"])
+            entries[-1]["launches_seam_ranked"] = [
+                o["per_step"][-1][1] - o["phi"] for o in seam_full]
             entries[-1]["seam_products"] = seam["products"]
             entries[-1]["launches_multi_shard"] = multi["rest"]
         head = records[k["name"]][1][0]   # the sharded f32 u block
@@ -3067,6 +3367,8 @@ def main():
             entries[-1]["launches_multi_shard"] = multi["sharded"]
             entries[-1]["launches_ranked"] = [o["sharded"]
                                               for o in lattice_full]
+            entries[-1]["launches_seam_ranked"] = [o["per_step"][-1][0]
+                                                   for o in seam_full]
         else:
             entries[-1]["launches_ranked"] = [
                 sharded for sharded, _ in lattice_small[LATTICE_SMALL[-1][0]]]

@@ -24,10 +24,13 @@ cell-axis mode) run as the one-shard run; `dof_sharding = lattice` runs
 the lattice-layout Newton on D row slabs where the lattice hierarchy
 exists, else the owned+ghost halo pool (`solvers.halo_newton`); the
 product mesh (`mesh_dcn`) keeps the flat partition.  On W ranks
-(`parallel.dist`, one process per rank) the halo pool runs its D shards
-D / W to a rank; every rank runs the host work (forest, refinement,
-Kelly, QoI, statistics) on the gathered state, so every rank builds the
-same next mesh, and rank 0 alone prints and writes files.
+(`parallel.dist`, one process per rank) the lattice layout splits its
+levels by slab (seam lattices included: the seam's row copies cross a
+rank boundary where it runs between the lips) and the halo pool its D
+shards, D / W to a rank; every rank runs the host work (forest,
+refinement, Kelly, QoI, statistics) on the gathered state, so every
+rank builds the same next mesh, and rank 0 alone prints and writes
+files.
 """
 
 from __future__ import annotations
@@ -289,9 +292,9 @@ class Simulation:
         up through `dist.init_process_group`, if any) of W > 1 ranks the
         run takes the rank's device, and only rank 0 prints and writes
         files.  W must divide n_devices, and the modes on W > 1 ranks
-        are the lattice layout and the halo pool: the replicated
-        cell-axis mode raises NotImplementedError (ROADMAP A11e), as the
-        seam lattice does (A11d, part 2, `setup_system`)."""
+        are the lattice layout (seam lattices included) and the halo
+        pool: the replicated cell-axis mode raises NotImplementedError
+        (ROADMAP A11e)."""
         ranks = dist.current() if ranks is None else ranks
         self.ranks = ranks if ranks is not None and ranks.world > 1 else None
         if self.ranks is not None:
@@ -429,7 +432,9 @@ class Simulation:
             mesh = self.sys.shard_mesh
             split = ("" if not hier.n_split else
                      f"; the finest {hier.n_split} of {hier.n_levels} GMG "
-                     "levels split by slab")
+                     "levels split by slab"
+                     + ("" if hier.seam is None else
+                        f" across the seam at row {hier.seam.s}"))
             where = ("" if self.ranks is None else
                      f", {mesh.n_local} per rank, "
                      f"{dist.describe(self.ranks)}")

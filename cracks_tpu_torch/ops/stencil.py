@@ -297,20 +297,21 @@ def halo_rows(X, mesh):
         from_above=spec if above else None)
 
 
-def stencil_matvec_sharded_reference(JP, X, k, mesh):
+def stencil_matvec_sharded_reference(JP, X, k, mesh, halo=None):
     """Plain version of `stencil_matvec_sharded`, per shard: the halo'd
     X_loc (k, rows_loc+2, *rest) of every shard of this process, cut
     from its rows of X with the halo rows of the neighbour processes
-    (zero at the lattice's ends), the unsharded plain product of JP[i]
-    (pad columns dropped) and X_loc per shard, its rows 1..rows_loc
-    kept, the shards concatenated and cut back to X's rows."""
+    (`halo`, or one exchange; zero at the lattice's ends), the unsharded
+    plain product of JP[i] (pad columns dropped) and X_loc per shard,
+    its rows 1..rows_loc kept, the shards concatenated and cut back to
+    X's rows."""
     check_sharded(JP, X, k, mesh)
     D = mesh.n_local
     nx = X.shape[1]
     rl = JP.shape[3] - 1
     gcx = X.shape[-1] - 1
     kl = JP.shape[1]
-    lo, hi = halo_rows(X, mesh)
+    lo, hi = halo_rows(X, mesh) if halo is None else halo
     zero = X.new_zeros((k, 1) + X.shape[2:])
     Xe = torch.cat([zero if lo is None else lo, X,
                     X.new_zeros((k, D * rl - nx) + X.shape[2:]),
@@ -331,13 +332,16 @@ def stencil_matvec_sharded(JP, X, k, mesh, halo=None):
     sharded kernel once for all shards of this process, after one
     exchange of the halo rows with the neighbour ranks (W > 1), and each
     launch adds one to `stencil_matvec_sharded.launches`.  `halo`, the
-    pair `halo_rows` returns, skips the kernel's exchange (the plain
-    version makes its own): the solvers never pass it; chip_smoke.py's
-    timing of a rank's product does, so that its clock sees the kernel
-    alone."""
+    pair `halo_rows` returns, skips the exchange: the seam lattice
+    passes the halo rows it has spread where its seam straddles a rank
+    boundary (`solvers/lattice.py::_sharded_op`), and chip_smoke.py's
+    timing of a rank's product passes them so that its clock sees the
+    kernel alone."""
     check_sharded(JP, X, k, mesh)
     if X.device.type == "cpu":
-        return stencil_matvec_sharded_reference(JP, X, k, mesh)
+        if halo is None:
+            return stencil_matvec_sharded_reference(JP, X, k, mesh)
+        return stencil_matvec_sharded_reference(JP, X, k, mesh, halo)
     if X.device.type != "cuda":
         raise ValueError(f"the sharded stencil kernel takes CUDA tensors, "
                          f"got {X.device}")

@@ -47,8 +47,9 @@ TIMEOUT_S = 300.0
 # reset (`reset_counts`)
 COUNTS = dict(collectives=0, bytes=0)
 # neighbour row exchanges (`exchange_rows`) and the bytes each rank sent
-# in them, since the last reset
-EXCHANGES = dict(exchanges=0, bytes=0)
+# in them, since the last reset; of them the seam lattice's own, the
+# mirror row's glued columns sent across a rank boundary
+EXCHANGES = dict(exchanges=0, bytes=0, seam=0, seam_bytes=0)
 
 
 class Ranks(NamedTuple):
@@ -148,7 +149,7 @@ def describe(ranks: Ranks) -> str:
 
 def reset_counts() -> None:
     COUNTS.update(collectives=0, bytes=0)
-    EXCHANGES.update(exchanges=0, bytes=0)
+    EXCHANGES.update(exchanges=0, bytes=0, seam=0, seam_bytes=0)
 
 
 def _host(shape, dtype, slot: str = "") -> torch.Tensor:
@@ -222,7 +223,7 @@ def all_max(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
 
 
 def exchange_rows(ranks: Ranks, *, down=None, up=None, from_below=None,
-                  from_above=None):
+                  from_above=None, seam: bool = False):
     """One round of sends between neighbour ranks: `down` (a tensor or
     None) goes to rank - 1 and `up` to rank + 1; `from_below` /
     `from_above` (a (shape, dtype) pair or None) say what arrives from
@@ -232,7 +233,8 @@ def exchange_rows(ranks: Ranks, *, down=None, up=None, from_below=None,
     ranks).  Staged ranks copy what they send into pinned host buffers
     (the one wait: it also ends every earlier copy back, so no buffer is
     rewritten under a pending copy) and copy what arrives back without a
-    wait; NCCL sends CUDA tensors as they are."""
+    wait; NCCL sends CUDA tensors as they are.  `seam` counts the round
+    as the seam lattice's too."""
     dev = ranks.device
     sends = [(t, ranks.rank + d, s) for t, d, s in
              ((down, -1, "down"), (up, 1, "up")) if t is not None]
@@ -243,9 +245,12 @@ def exchange_rows(ranks: Ranks, *, down=None, up=None, from_below=None,
         if not 0 <= peer < ranks.world:
             raise ValueError(f"rank {ranks.rank} of {ranks.world} has no "
                              f"neighbour {peer}")
+    sent = sum(t.numel() * t.element_size() for t, _, _ in sends)
     EXCHANGES["exchanges"] += 1
-    EXCHANGES["bytes"] += sum(t.numel() * t.element_size()
-                              for t, _, _ in sends)
+    EXCHANGES["bytes"] += sent
+    if seam:
+        EXCHANGES["seam"] += 1
+        EXCHANGES["seam_bytes"] += sent
     if ranks.staged:
         torch.cuda.current_stream(dev).synchronize()
         out = []

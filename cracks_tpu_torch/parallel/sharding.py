@@ -26,7 +26,8 @@ The lattice layout splits the finest levels of the lattice GMG by
 slab (`Slab`, `level_slabs`): at level l (2:1 coarser per level) shard
 i owns the rows [ceil(min(i*rows_loc, G0) / 2**l), ...) up to the next
 shard's first row, so a coarse vertex belongs to the shard of its fine
-parent vertex; a process holds its shards' rows of every vector, mask
+parent vertex (across a seam the upper lip's rows have odd parents,
+`level_bounds`); a process holds its shards' rows of every vector, mask
 and element-matrix level split so and reaches its neighbours' boundary
 rows through one exchange per product (`Slab.ext`).  Where JAX's GSPMD
 partitions global-view code, the port runs the same code on a
@@ -393,24 +394,60 @@ def row_sums(*pairs, a: int = 0, g: int | None = None) -> torch.Tensor:
     return torch.stack(sums)
 
 
-def level_slabs(mesh: ShardMesh | None, g0: int, n_levels: int):
-    """This process's `Slab` of every level of a 2:1 lattice hierarchy
-    whose finest level has g0 rows, finest first, and the number of
-    levels split by slab: the finest level and each next one while every
-    shard holding lattice rows holds at least SPLIT_MIN_ROWS of its rows
-    (never the coarsest, whose dense factor every process computes).
-    Without a mesh: one slab of all rows per level and no split level
-    (the global-view solve).  On W > 1 ranks every rank must hold a row
-    of the finest level (ValueError)."""
-    grids = [(g0 - 1) // 2 ** l + 1 for l in range(n_levels)]
-    if mesh is None:
-        return [whole(g) for g in grids], 0
-    D, W, nl = mesh.n_shards, mesh.world, mesh.n_local
+def coarse_rows_below(A: int, seam_row: int | None = None) -> int:
+    """The rows of the 2:1-coarsened level whose fine parent row lies
+    below fine row A: a coarse row c's parent is row 2c, or, across a
+    seam whose lower-lip row is `seam_row` = s, 2c - 1 for the upper
+    lip's rows c > s/2 (the mirror row s+1 starts the upper slab).  The
+    same count maps cell rows: coarse cell c is made of the fine cells
+    from that row on."""
+    if seam_row is None or A <= seam_row + 1:
+        return -(-A // 2)
+    return seam_row // 2 + 1 + -(-(A - seam_row - 1) // 2)
+
+
+def level_bounds(mesh: ShardMesh, g0: int, n_levels: int,
+                 seam_row: int | None = None):
+    """(grids, bounds): the rows of every level of a 2:1 lattice
+    hierarchy whose finest level has g0 rows, finest first, and at each
+    level the D+1 shard bounds, shard i owning rows [bounds[i],
+    bounds[i+1]).  On a seam lattice (`seam_row`, the finest level's
+    lower-lip row s) a level of g rows coarsens to (g-2)//2 + 2 and the
+    seam row halves.  Each coarse row lies on the shard of its fine
+    parent (`coarse_rows_below`), so the two lip rows of a coarse seam
+    share a shard exactly when the fine ones do."""
+    grids, seams = [g0], [seam_row]
+    for _ in range(n_levels - 1):
+        g, s = grids[-1], seams[-1]
+        grids.append((g - 1) // 2 + 1 if s is None else (g - 2) // 2 + 2)
+        seams.append(None if s is None else s // 2)
     rl = mesh.rows_loc(g0)
+    bounds = [[min(i * rl, g0) for i in range(mesh.n_shards + 1)]]
+    for s in seams[:-1]:
+        bounds.append([coarse_rows_below(A, s) for A in bounds[-1]])
+    return grids, bounds
+
+
+def level_slabs(mesh: ShardMesh | None, g0: int, n_levels: int,
+                seam_row: int | None = None):
+    """This process's `Slab` of every level of a 2:1 lattice hierarchy
+    whose finest level has g0 rows (on a seam lattice `seam_row`, see
+    `level_bounds`), finest first, and the number of levels split by
+    slab: the finest level and each next one while every shard holding
+    lattice rows holds at least SPLIT_MIN_ROWS of its rows (never the
+    coarsest, whose dense factor every process computes).  Without a
+    mesh: one slab of all rows per level and no split level (the
+    global-view solve).  On W > 1 ranks every rank must hold a row of
+    the finest level (ValueError)."""
+    if mesh is None:
+        grids, _ = level_bounds(ShardMesh(1, torch.device("cpu")), g0,
+                                n_levels, seam_row)
+        return [whole(g) for g in grids], 0
+    grids, level = level_bounds(mesh, g0, n_levels, seam_row)
+    D, W, nl = mesh.n_shards, mesh.world, mesh.n_local
     first, last = mesh.first, mesh.first + nl
     slabs, sizes = [], []
-    for l, g in enumerate(grids):
-        bounds = [-(-min(i * rl, g0) // 2 ** l) for i in range(D + 1)]
+    for l, (g, bounds) in enumerate(zip(grids, level)):
         sizes.append([bounds[i + 1] - bounds[i] for i in range(D)])
         spans = tuple((bounds[r * nl], bounds[(r + 1) * nl])
                       for r in range(W))

@@ -36,7 +36,7 @@ f32 fine-level operator of the CG loop and the V-cycle is the sharded
 product (`ops.stencil.stencil_matvec_sharded`, one launch for all
 shards of a process), seam lattices included.
 
-On a shard mesh without a seam the hierarchy is split by slab
+On a shard mesh the hierarchy is split by slab
 (`parallel.sharding.level_slabs`, the hierarchy's `slabs`): a process
 holds its rows of every vector and mask of the finest `n_split` levels
 and the element matrices of the cells next to them, and each level's
@@ -46,15 +46,21 @@ refinement products too.  Coarsening a level takes at most one coarse
 cell row from a neighbour (`coarsen_slab`).  The levels below are whole
 on every process: one gather of the first one's operator per setup and
 of its restricted residual per V-cycle, after which every process runs
-them, and the coarse factor, identically.  Every dot product of the
-lattice-layout Newton, one process or D shards or W ranks alike, is a
-sum of per-row partial sums (`Slab.dots`), so all of them hold the same
-bits; the replicated Newton's solve and the seam lattice keep the
-global view and its sums (one slab of all rows per level).  The element
-residual, the element matrices and the Galerkin coarsening contract in
-pieces of a number of cell rows set by the whole level (`CELL_CHUNK`,
-`RESIDUAL_CHUNK`), so a cell has the same bits whatever rows a process
-holds.
+them, and the coarse factor, identically.  A seam lattice splits the
+same way: its transfers and coarsening work per lip on a slab, the
+spread follows the halo exchange (`seam_ext`), and where the seam runs
+between two ranks the collect takes one exchange between them
+(`seam_collect_rows`).  Every dot product of the lattice-layout Newton,
+one process or D shards or W ranks alike, is a sum of per-row partial
+sums (`Slab.dots`), so all of them hold the same bits; so is a seam
+lattice's under the replicated Newton (one slab of all rows per level),
+whose solve on a lattice without a seam keeps the global view and its
+sums.  The element residual, the element matrices and the Galerkin
+coarsening contract in pieces of a number of cell rows set by the whole
+level (`CELL_CHUNK`, `RESIDUAL_CHUNK`; across a seam each lip's), so a
+cell has the same bits whatever rows a process holds.  The global
+transfers and coarsening of a seam lattice are the slab forms on whole
+levels (`sharding.whole`).
 """
 
 from __future__ import annotations
@@ -67,11 +73,11 @@ import numpy as np
 import torch
 
 from ..ops import physics
-from ..ops.stencil import (pad_jac_sharded, stencil_matvec,
+from ..ops.stencil import (halo_rows, pad_jac_sharded, stencil_matvec,
                            stencil_matvec_sharded)
 from ..parallel import dist
-from ..parallel.sharding import (Slab, gather_rows, level_slabs, pad_rows,
-                                 unpad_rows, whole)
+from ..parallel.sharding import (Slab, coarse_rows_below, gather_rows,
+                                 level_slabs, pad_rows, unpad_rows, whole)
 from .galerkin import embedding_matrices
 from . import opcache
 from .multigrid import _chebyshev, sharp_spectrum, smoothing_range
@@ -133,30 +139,91 @@ class Seam(NamedTuple):
     slit_lo: int  # first duplicated column; glued columns [0, slit_lo)
 
 
-def seam_spread(X, seam: Seam | None):
+def seam_spread(X, seam: Seam | None, r0: int = 0):
     """Canonical -> consistent: copy the shared values of row s into the
     mirror slots (row s+1, glued columns), so the stencil sees the
     function on both sides of the seam.  A slice copy: the JAX
     package's one-hot matmul form serves only its SPMD partitioner, and
-    each output element is the same copy."""
+    each output element is the same copy.  X holds the rows [r0, r0 +
+    X.shape[1]) of its level (all of them by default); where it lacks
+    either lip row it is returned as it is (`seam_ext` spreads across a
+    rank boundary)."""
     if seam is None:
         return X
     s, lo = seam
+    i = s - r0
+    if not 0 <= i < X.shape[1] - 1:
+        return X
     Y = X.clone()
-    Y[:, s + 1, :lo] = X[:, s, :lo]
+    Y[:, i + 1, :lo] = X[:, i, :lo]
     return Y
 
 
-def seam_collect(Y, seam: Seam | None):
+def _straddles(seam: Seam | None, sl: Slab | None) -> bool:
+    """Whether a rank boundary of the slab's level runs between the lip
+    rows s and s+1: this process owns one of them, a neighbour the
+    other."""
+    return (seam is not None and sl is not None and sl.ranked
+            and seam.s + 1 in (sl.a, sl.b))
+
+
+def seam_ext(sl: Slab | None, seam: Seam | None, *Xs):
+    """Canonical owned rows -> consistent halo'd rows (`Slab.ext`): the
+    spread where this process owns both lip rows (so a boundary row it
+    sends is consistent), the exchange, and, where the seam straddles a
+    rank boundary, the spread again on the halo'd rows, which hold both
+    lip rows only after the exchange.  Without a slab, the spread of
+    whole levels.  Returns a tuple."""
+    if sl is None:
+        return tuple(seam_spread(X, seam) for X in Xs)
+    Es = sl.ext(*(seam_spread(X, seam, sl.a) for X in Xs))
+    if _straddles(seam, sl):
+        Es = tuple(seam_spread(E, seam, sl.e0) for E in Es)
+    return Es
+
+
+def seam_collect(Y, seam: Seam | None, sl: Slab | None = None):
     """Consistent -> canonical (the S^T of seam_spread): add the mirror
-    slots into the shared row and zero them."""
+    slots into the shared row and zero them.  With a slab `sl`, Y holds
+    its owned rows (`seam_collect_rows`)."""
+    return seam_collect_rows((Y,), seam, sl)[0]
+
+
+def seam_collect_rows(Ys, seam: Seam | None, sl: Slab | None = None):
+    """`seam_collect` of the owned rows of a slab of one or more arrays
+    of one dtype and row shape (whole levels without `sl`).  Where the
+    seam straddles a rank boundary the owner of the mirror row s+1 sends
+    its glued columns of all of them to the owner of row s in one
+    exchange between those two ranks (counted apart,
+    `dist.EXCHANGES["seam"]`) and zeroes them; the owner of s adds them.
+    Every other process moves nothing.  Returns a tuple."""
     if seam is None:
-        return Y
+        return tuple(Ys)
     s, lo = seam
-    Z = Y.clone()
-    Z[:, s, :lo] = Y[:, s, :lo] + Y[:, s + 1, :lo]
-    Z[:, s + 1, :lo] = 0.0
-    return Z
+    a = 0 if sl is None else sl.a
+    n = Ys[0].shape[1]
+    own_s, own_m = 0 <= s - a < n, 0 <= s + 1 - a < n
+    out = [Y.clone() for Y in Ys] if own_s or own_m else list(Ys)
+    if own_s and own_m:
+        for Y, Z in zip(Ys, out):
+            Z[:, s - a, :lo] = Y[:, s - a, :lo] + Y[:, s + 1 - a, :lo]
+            Z[:, s + 1 - a, :lo] = 0.0
+    elif own_m:
+        dist.exchange_rows(sl.mesh.ranks,
+                           down=torch.cat([Y[:, :1, :lo] for Y in Ys]),
+                           seam=True)
+        for Z in out:
+            Z[:, 0, :lo] = 0.0
+    elif own_s:
+        ks = [Y.shape[0] for Y in Ys]
+        _, got = dist.exchange_rows(
+            sl.mesh.ranks, from_above=((sum(ks), 1, lo), Ys[0].dtype),
+            seam=True)
+        at = 0
+        for Y, Z, k in zip(Ys, out, ks):
+            Z[:, n - 1, :lo] = Y[:, n - 1, :lo] + got[at:at + k, 0]
+            at += k
+    return tuple(out)
 
 
 def seam_coarse(seam: Seam | None) -> Seam | None:
@@ -404,7 +471,7 @@ class LatticeHierarchy(NamedTuple):
     seam: Seam | None = None   # the finest level's seam (slit lattices)
     slabs: tuple = ()       # per-level `Slab` of this process,
     #                         coarsest..finest, on a lattice-layout run
-    #                         without a seam (else empty)
+    #                         (else empty)
     n_split: int = 0        # the finest levels split by slab; the masks
     #                         of those hold this process's rows
 
@@ -415,10 +482,9 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
     """Host construction.  Levels halve the cell extents while the grid
     (and a slit lattice's seam) stays 2:1 coarsenable and the coarse
     vertex count stays at least `min_coarse`.  For the lattice-layout
-    Newton (`lattice_layout`) without a seam each level gets its `Slab`
-    and, on a `shard_mesh`, the finest levels are split by slab
-    (`level_slabs`); on W > 1 ranks a seam raises NotImplementedError
-    (ROADMAP A11d, part 2)."""
+    Newton (`lattice_layout`) each level gets its `Slab` and, on a
+    `shard_mesh`, the finest levels are split by slab (`level_slabs`,
+    seam-aware on a slit lattice)."""
     dim = mesh.dim
     grid = lay.grid
     seam = lay.seam
@@ -457,15 +523,10 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
         dp = _seam_inject_down(dp, sm)
         dir_u.insert(0, torch.as_tensor(np.ascontiguousarray(du), **b))
         dir_p.insert(0, torch.as_tensor(np.ascontiguousarray(dp), **b))
-    if (lattice_layout and seam is not None and shard_mesh is not None
-            and shard_mesh.world > 1):
-        raise NotImplementedError(
-            f"the seam lattice on {shard_mesh.world} ranks is ROADMAP A11d, "
-            "part 2 (the seam's row copies across a rank boundary); one "
-            "process (W = 1) runs it")
     slabs, n_split = (), 0
-    if lattice_layout and seam is None:
-        slabs, n_split = level_slabs(shard_mesh, grid[0], len(grids))
+    if lattice_layout or seam is not None:
+        slabs, n_split = level_slabs(shard_mesh, grid[0], len(grids),
+                                     _seam_row(seam))
         slabs = slabs[::-1]
     L = len(grids)
     for l in range(L - n_split, L):
@@ -514,13 +575,16 @@ def _cell_windows(U, P, P_old, P_oold, dim):
 
 # Cell rows per batched contraction of the element residual, the element
 # matrices and the Galerkin coarsening: every call sees the same number
-# of cell rows, the last piece filled up with copies of its last row, so
-# that a cell's bits do not depend on how many cells the caller holds (on
-# the card a batched product picks its kernel, and with it the order of
-# its terms, from its shape: a slab's cells and the whole lattice's
-# differed in their last bits, scripts/slab_bits.py).  A piece holds at
-# most CELL_CHUNK cells (at least one row), RESIDUAL_CHUNK for the
-# residual, and a whole level splits into pieces of equal rows.  The
+# of cell rows at the same places, the whole level's pieces, so that a
+# cell's bits do not depend on which cells the caller holds (on the card
+# a batched product picks its kernel, and with it the order of its terms,
+# from its shape: a slab's cells and the whole lattice's differed in
+# their last bits, scripts/slab_bits.py; and a large one's terms may
+# depend on a cell's place in it: the residual of a rank's rows of the
+# refine-8 seam lattice differed, scripts/seam_bits.py).  A piece holds
+# at most CELL_CHUNK cells (at least one row), RESIDUAL_CHUNK for the
+# residual, and a whole level splits into pieces of equal rows, the rows
+# a caller lacks filled with copies of its first or last row.  The
 # element matrices' vmapped jvp takes 2**19 // piece tangents per pass
 # and recomputes the residual once per pass, so their pieces are small;
 # the residual has no tangents, and a larger piece takes fewer launches.
@@ -528,27 +592,30 @@ CELL_CHUNK = 1 << 16
 RESIDUAL_CHUNK = 1 << 18
 
 
-def _by_cell_rows(fn, arrays, cell_rows: int, ax: int, chunk: int):
+def _by_cell_rows(fn, arrays, cell_rows: int, ax: int, chunk: int,
+                  first: int = 0):
     """fn over pieces of the cells of `arrays`, whose cell-row axis is
     `ax` (negative, the same for all) with the other cell axes after
-    it.  A piece is a number of cell rows set by `cell_rows`, the whole
-    level's, and `chunk`, and the cells of a row, flattened: fn takes
-    and returns tensors with one cell axis, last.  Returns fn's outputs
-    with their cell axis whole (flat)."""
+    it, and whose first cell row is the whole level's row `first`.  A
+    piece is a number of cell rows set by `cell_rows`, the whole level's,
+    and `chunk`, from a multiple of that number on, and the cells of a
+    row, flattened: fn takes and returns tensors with one cell axis,
+    last.  Returns fn's outputs with their cell axis whole (flat)."""
     n = arrays[0].shape[ax]
     rc = math.prod(arrays[0].shape[ax:][1:])
     pieces = -(-cell_rows // max(1, chunk // rc))
     rows = -(-cell_rows // pieces)
     out = None
-    for r0 in range(0, n, rows):
-        r1 = min(r0 + rows, n)
-        idx = torch.arange(r0, r0 + rows, device=arrays[0].device)
-        idx = idx.clamp_max(n - 1)
+    for start in range(first - first % rows, first + n, rows):
+        r0, r1 = max(start, first) - first, min(start + rows, first + n) - first
+        idx = torch.arange(start - first, start - first + rows,
+                           device=arrays[0].device).clamp(0, n - 1)
         res = fn(*(x.index_select(ax, idx).flatten(ax) for x in arrays))
         if out is None:
             out = [y.new_empty(y.shape[:-1] + (n * rc,)) for y in res]
+        at = first + r0 - start
         for o, y in zip(out, res):
-            o[..., r0 * rc:r1 * rc] = y[..., :(r1 - r0) * rc]
+            o[..., r0 * rc:r1 * rc] = y[..., at * rc:(at + r1 - r0) * rc]
     return out
 
 
@@ -556,11 +623,11 @@ def _by_cell_rows(fn, arrays, cell_rows: int, ax: int, chunk: int):
 _CA_CELL = ("JxW", "grads", "lam", "mu", "inv_diam2")
 
 
-def _by_cells(fn, U, P, P_old, P_oold, caL, dim, rows, chunk):
+def _by_cells(fn, U, P, P_old, P_oold, caL, dim, rows, chunk, first=0):
     """fn(u_e, phi_e, pf_old_e, pf_oold_e, ca) of lattice-layout state
     and the raster-ordered CellArrays of its cells, in the pieces of
     `_by_cell_rows`; `rows` is the whole level's vertex rows (U's own
-    if None)."""
+    if None), `first` the level's index of U's first row."""
     cgrid = tuple(g - 1 for g in U.shape[1:])
     split = lambda x: x.unflatten(-1, (cgrid[0], -1))
     vals = [split(x) for x in _cell_windows(U, P, P_old, P_oold, dim)]
@@ -571,42 +638,43 @@ def _by_cells(fn, U, P, P_old, P_oold, caL, dim, rows, chunk):
         out = fn(*xs[:4], ca)
         return out if isinstance(out, tuple) else (out,)
 
-    return _by_cell_rows(piece, vals, (rows or U.shape[1]) - 1, -2, chunk)
+    return _by_cell_rows(piece, vals, (rows or U.shape[1]) - 1, -2, chunk,
+                         first)
 
 
 def lattice_residual(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
-                     monolithic, rows: int | None = None):
+                     monolithic, rows: int | None = None, first: int = 0):
     """Gather-free residual assembly in lattice layout (port of the JAX
     ``lattice_residual``): U (dim, *grid), the phase fields (1, *grid),
     caL the raster-ordered CellArrays.  Returns the rhs (negative
     residual) (RU (dim, *grid), RP (1, *grid)), the physics of
     physics.assemble_residual with the cell gather and the vertex
     scatter-add as 2**dim shifted window slices.  Where U is some of a
-    level's rows, `rows` is the level's (the contractions' pieces,
-    `_by_cell_rows`)."""
+    level's rows, `rows` is the level's and `first` the level's index of
+    U's first row (the contractions' pieces, `_by_cell_rows`)."""
     nvc = 2 ** dim
     grid = tuple(U.shape[1:])
     cgrid = tuple(g - 1 for g in grid)
     ru_e, rp_e = _by_cells(
         lambda *v: physics._element_residual_cl(
             *v, sc, dim=dim, with_split=with_split, monolithic=monolithic),
-        U, P, P_old, P_oold, caL, dim, rows, RESIDUAL_CHUNK)
+        U, P, P_old, P_oold, caL, dim, rows, RESIDUAL_CHUNK, first)
     return (scatter_windows(ru_e.reshape((nvc, dim) + cgrid), grid),
             scatter_windows(rp_e.reshape((nvc, 1) + cgrid), grid))
 
 
 def element_matrices_lattice(U, P, P_old, P_oold, caL, sc, *, dim,
                              with_split, monolithic,
-                             rows: int | None = None):
+                             rows: int | None = None, first: int = 0):
     """(ndl, ndl, *cellgrid) element Jacobians from lattice-layout state
-    (window gathers instead of the flat gather maps); `rows`: see
-    `lattice_residual`."""
+    (window gathers instead of the flat gather maps); `rows`, `first`:
+    see `lattice_residual`."""
     ndl = 2 ** dim * (dim + 1)
     cgrid = tuple(g - 1 for g in U.shape[1:])
     (jac,) = _by_cells(
         lambda *v: physics.element_matrices_from_cellvals(
             *v, sc, dim=dim, with_split=with_split, monolithic=monolithic),
-        U, P, P_old, P_oold, caL, dim, rows, CELL_CHUNK)
+        U, P, P_old, P_oold, caL, dim, rows, CELL_CHUNK, first)
     return jac.reshape((ndl, ndl) + cgrid)
 
 
@@ -651,11 +719,12 @@ def gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam: Seam | None = None,
     nvc = (hi - lo) // k
     if sl is not None:
         grid = _ext_grid(jacL)
-    s = seam_collect(scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]),
-                                     grid), seam)
+    s = scatter_windows(rs.reshape((nvc, k) + rs.shape[1:]), grid)
     if sl is None:
+        s = seam_collect(s, seam)
         return torch.where(free, s * Dinv.abs(), 0.0).max()
-    return sl.amax(torch.where(free, sl.owned(s) * Dinv.abs(), 0.0).amax())
+    s = seam_collect(sl.owned(s), seam, sl)
+    return sl.amax(torch.where(free, s * Dinv.abs(), 0.0).amax())
 
 
 def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
@@ -677,13 +746,11 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
     dot = _dot if sl is None else (lambda a, b: sl.dots((a, b))[0])
 
     def S(x):
-        xs = seam_spread(torch.where(free, sq * x, 0.0), seam)
-        if sl is not None:
-            (xs,) = sl.ext(xs)
+        (xs,) = seam_ext(sl, seam, torch.where(free, sq * x, 0.0))
         y = 0.5 * (matvec(jacL, xs, lo, hi, k) + matvec(jacT, xs, 0, nb, k))
         if sl is not None:
             y = sl.owned(y)
-        return torch.where(free, sq * seam_collect(y, seam), 0.0)
+        return torch.where(free, sq * seam_collect(y, seam, sl), 0.0)
 
     ranges = [torch.arange(g, device=free.device) for g in grid]
     if sl is not None:
@@ -715,13 +782,14 @@ def lanczos_lambda(jacL, free, Dinv, lo, hi, k, grid, m: int = 10,
     return gershgorin(jacL, free, Dinv, lo, hi, k, grid, seam, sl)
 
 
-def coarsen(jacL, P_embed, cell_rows: int | None = None):
+def coarsen(jacL, P_embed, cell_rows: int | None = None, first: int = 0):
     """Galerkin element-RAP one level down on the lattice:
     (ndl, ndl, *cg) -> (ndl, ndl, *(cg//2)).  Runs at full f32 (the
     package turns TF32 off): reduced-precision RAPs made the coarse
     operator indefinite in the JAX package (see cracks_tpu_torch's
     __init__).  Where jacL is some of a level's cells, `cell_rows` is
-    the coarse level's cell rows (the contraction's pieces,
+    the coarse level's cell rows and `first` the coarse level's index of
+    its first coarse cell row (the contraction's pieces,
     `_by_cell_rows`)."""
     dim = jacL.dim() - 2
     # embedding_matrices orders child positions by geometric bits
@@ -739,23 +807,16 @@ def coarsen(jacL, P_embed, cell_rows: int | None = None):
         return (out,)
 
     (out,) = _by_cell_rows(rap, As, cell_rows or cells[0], 2 - jacL.dim(),
-                           CELL_CHUNK)
+                           CELL_CHUNK, first)
     return out.unflatten(2, cells)
 
 
 def coarsen_seam(jacL, P_embed, seam: Seam | None):
-    """Galerkin element RAP one level down on a seam lattice.  The dead
-    cell row decouples the slabs, so the per-slab RAP of the consistent
-    element matrices IS the Galerkin coarse operator (the conjugation
-    S^T . S happens at product time); the coarse raster keeps its own
-    dead row at s // 2."""
-    if seam is None:
-        return coarsen(jacL, P_embed)
-    s = seam.s
-    below = coarsen(jacL[:, :, :s], P_embed)
-    above = coarsen(jacL[:, :, s + 1:], P_embed)
-    dead = below.new_zeros(below.shape[:2] + (1,) + below.shape[3:])
-    return torch.cat([below, dead, above], dim=2)
+    """Galerkin element RAP one level down on a whole level (a seam
+    lattice's too): `coarsen_slab` of one process's slabs of all rows."""
+    grid = _ext_grid(jacL)
+    return coarsen_slab(jacL, P_embed, whole(grid[0]),
+                        whole(_seam_coarse_grid(grid, seam)[0]), seam)
 
 
 def coarsen_chain(jacL, P_embed, n_levels: int, seam: Seam | None = None):
@@ -766,13 +827,20 @@ def coarsen_chain(jacL, P_embed, n_levels: int, seam: Seam | None = None):
     return jacs
 
 
-def _coarsenable(fine_span, g):
+def _seam_row(seam: Seam | None):
+    return None if seam is None else seam.s
+
+
+def _coarsenable(fine_span, g, seam: Seam | None = None):
     """The coarse cell rows [p0, p1) that the fine cells held with the
-    rows `fine_span` = (a, b) of a g-row level coarsen: both children
-    held."""
-    c0, c1 = max(fine_span[0] - 1, 0), min(fine_span[1], g - 1)
-    e = c0 + c0 % 2
-    return e // 2, (c1 - (c1 - e) % 2) // 2
+    rows `fine_span` = (a, b) of a g-row level coarsen: all their
+    children held.  A coarse cell's children are the fine cells from
+    its lower vertex row's parent (`coarse_rows_below`) to the next
+    one's: two, or on a seam the dead cell row s alone for the coarse
+    dead row."""
+    c0, c1 = _held(fine_span, g)
+    s = _seam_row(seam)
+    return coarse_rows_below(c0, s), coarse_rows_below(c1 + 1, s) - 1
 
 
 def _held(span, g):
@@ -780,18 +848,48 @@ def _held(span, g):
     return max(span[0] - 1, 0), min(span[1], g - 1)
 
 
-def coarsen_slab(jac, P_embed, fine: Slab, coarse: Slab):
+def _coarsen_cells(jac, c0, p0, p1, P_embed, cell_rows, seam):
+    """`coarsen` into the coarse cell rows [p0, p1) from the fine cells
+    `jac` held from cell row c0; across a seam the dead coarse row is
+    zero and each slab's pairs of cell rows coarsen on their own (the
+    dead fine row decouples them).  `cell_rows`: the whole coarse
+    level's, or across a seam each slab's (the contraction's pieces)."""
+    if seam is None:
+        return coarsen(jac[:, :, 2 * p0 - c0:2 * p1 - c0], P_embed,
+                       cell_rows, p0)
+    sc = seam.s // 2
+    parts = []
+    if p0 < sc:
+        f0 = 2 * p0 - c0
+        parts.append(coarsen(jac[:, :, f0:f0 + 2 * (min(p1, sc) - p0)],
+                             P_embed, sc, p0))
+    if p0 <= sc < p1:
+        parts.append(jac.new_zeros(jac.shape[:2] + (1, jac.shape[3] // 2)))
+    if sc + 1 < p1:
+        q0 = max(p0, sc + 1)
+        f0 = 2 * q0 - 1 - c0
+        parts.append(coarsen(jac[:, :, f0:f0 + 2 * (p1 - q0)], P_embed,
+                             cell_rows - sc - 1, q0 - sc - 1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def coarsen_slab(jac, P_embed, fine: Slab, coarse: Slab,
+                 seam: Seam | None = None):
     """`coarsen` of a process's cells of one level (those held with its
-    rows, `Slab.cells`) into its cells of the next: the coarse cells
-    whose two child rows it holds, and, where its coarse rows start or
-    end one cell row past those, that row from the neighbour process
-    that coarsens it (at most one row each way: a rank boundary at an
-    odd fine row makes the lower process's last coarse cell the upper
-    one's, at an even row the upper one's first coarse cell the lower
-    one's).  Every cell has one maker, so every holder has its bits."""
+    rows, `Slab.cells`) into its cells of the next (`seam`: the fine
+    level's, whose dead coarse row is zero): the coarse cells whose
+    children it holds, and, where its coarse rows start or end one cell
+    row past those, that row from the neighbour process that coarsens it
+    (at most one row each way: a rank boundary at an odd fine row makes
+    the lower process's last coarse cell the upper one's, at an even row
+    the upper one's first coarse cell the lower one's; across a seam the
+    upper slab's parity turns).  Every cell has one maker (the dead row
+    is zero wherever it is made), so every holder has its bits.  On
+    whole levels (`sharding.whole`) it is the Galerkin RAP of the
+    level."""
     c0 = fine.cells[0]
-    p0, p1 = _coarsenable((fine.a, fine.b), fine.g)
-    out = coarsen(jac[:, :, 2 * p0 - c0:2 * p1 - c0], P_embed, coarse.g - 1)
+    p0, p1 = _coarsenable((fine.a, fine.b), fine.g, seam)
+    out = _coarsen_cells(jac, c0, p0, p1, P_embed, coarse.g - 1, seam)
     q0, q1 = coarse.cells
     m = fine.mesh
     if m is None or m.world == 1:
@@ -800,12 +898,12 @@ def coarsen_slab(jac, P_embed, fine: Slab, coarse: Slab):
     # what each neighbour lacks of its held cells and this process makes
     down = up = None
     if r > 0:
-        pb = _coarsenable(fine.spans[r - 1], fine.g)
+        pb = _coarsenable(fine.spans[r - 1], fine.g, seam)
         qb = _held(coarse.spans[r - 1], gc)
         if qb[1] > pb[1]:
             down = out[:, :, qb[1] - 1 - p0:qb[1] - p0]
     if r < m.world - 1:
-        pa = _coarsenable(fine.spans[r + 1], fine.g)
+        pa = _coarsenable(fine.spans[r + 1], fine.g, seam)
         qa = _held(coarse.spans[r + 1], gc)
         if qa[0] < pa[0]:
             up = out[:, :, qa[0] - p0:qa[0] + 1 - p0]
@@ -889,69 +987,112 @@ def prolong_seam(Xc, grid, k, seam: Seam | None):
     across its seam, Q1-prolong each slab on its own along the slit
     axis (the dead row decouples them) and across, then make the result
     canonical again.  On canonical vectors the adjoint of
-    restrict_seam."""
+    restrict_seam.  `prolong_slab` of whole levels."""
     if seam is None:
         return prolong(Xc, grid, k)
-    sc = seam_coarse(seam)
-    Xc = seam_spread(Xc, sc)
-    X = torch.cat([_prolong_axis(Xc[:, :sc.s + 1], 1),
-                   _prolong_axis(Xc[:, sc.s + 1:], 1)], dim=1)
-    X = _prolong_axis(X, 2)
-    X[:, seam.s + 1, :seam.slit_lo] = 0.0
-    return X
+    return prolong_slab(Xc, whole(grid[0]), whole(Xc.shape[1]), seam=seam)
 
 
 def restrict_seam(Xf, k, seam: Seam | None):
     """Transpose of prolong_seam: the per-slab Q1 restriction, then the
-    coarse seam's collect (S_c^T P^T on canonical vectors)."""
+    coarse seam's collect (S_c^T P^T on canonical vectors).
+    `restrict_slab` of whole levels."""
     if seam is None:
         return restrict(Xf, k)
-    X = _restrict_axis(Xf, 2)
-    X = torch.cat([_restrict_axis(X[:, :seam.s + 1], 1),
-                   _restrict_axis(X[:, seam.s + 1:], 1)], dim=1)
-    return seam_collect(X, seam_coarse(seam))
+    g = Xf.shape[1]
+    return restrict_slab(Xf, whole(g), whole((g - 2) // 2 + 2), seam)
 
 
-def restrict_slab(Xf, fine: Slab, coarse: Slab):
+def _lips(seam: Seam | None, g: int):
+    """The slabs a level of g rows coarsens in on its own, each as (its
+    first fine row, its end, its first coarse row, its end): the whole
+    level, or across a seam the lower lip's rows [0, s+1) and the upper
+    lip's [s+1, g), the dead cell row between them."""
+    if seam is None:
+        return [(0, g, 0, (g - 1) // 2 + 1)]
+    s = seam.s
+    return [(0, s + 1, 0, s // 2 + 1), (s + 1, g, s // 2 + 1, (g - 2) // 2 + 2)]
+
+
+def restrict_slab(Xf, fine: Slab, coarse: Slab, seam: Seam | None = None,
+                  collect: bool = True):
     """`restrict` of a process's rows of a fine level to its rows of the
     coarse one, with the fine halo rows of one exchange: the axes past
     the leading one first, then the leading axis with `_restrict_axis`'s
-    adds in its order (the even row, + half the next odd row, + half the
-    previous odd row), so each coarse value has the global one's bits."""
+    adds in its order (the parent row, + half the next odd row, + half
+    the previous odd row), so each coarse value has the global one's
+    bits.  Across a seam (`seam`, the fine level's) each lip restricts
+    on its own and the coarse seam's collect follows (`restrict_seam`):
+    canonical in, canonical out; without `collect` the caller collects
+    (after the gather of a whole coarse level, which then needs no
+    exchange of its own)."""
     (E,) = fine.ext(Xf)
     for j in reversed(range(2, E.dim())):
         E = _restrict_axis(E, j)
-    ca, cb, e0 = coarse.a, coarse.b, fine.e0
-    m = cb - ca
-    Xc = E[:, 2 * ca - e0:2 * cb - 1 - e0:2].clone()
-    n_next = min(cb, coarse.g - 1) - ca
-    Xc[:, :n_next] += 0.5 * E[:, 2 * ca + 1 - e0::2][:, :n_next]
-    s = 1 if ca == 0 else 0
-    Xc[:, s:] += 0.5 * E[:, 2 * (ca + s) - 1 - e0::2][:, :m - s]
-    return Xc
+    e0 = fine.e0
+    parts = []
+    for L0, L1, C0, C1 in _lips(seam, fine.g):
+        ca, cb = max(coarse.a, C0), min(coarse.b, C1)
+        m = cb - ca
+        if m <= 0:
+            continue
+        p = L0 + 2 * (ca - C0) - e0            # the first parent row in E
+        Xc = E[:, p:p + 2 * m - 1:2].clone()
+        n_next = min(cb, C1 - 1) - ca
+        if n_next > 0:
+            Xc[:, :n_next] += 0.5 * E[:, p + 1::2][:, :n_next]
+        s = 1 if ca == C0 else 0
+        if m > s:
+            Xc[:, s:] += 0.5 * E[:, p + 2 * s - 1::2][:, :m - s]
+        parts.append(Xc)
+    Xc = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return seam_collect(Xc, seam_coarse(seam), coarse) if collect else Xc
 
 
-def prolong_slab(Xc, fine: Slab, coarse: Slab, whole: bool = False):
+def prolong_slab(Xc, fine: Slab, coarse: Slab, whole: bool = False,
+                 seam: Seam | None = None):
     """`prolong` of a process's rows of a coarse level (or, `whole`, of
     the whole coarse level) to its rows of the fine one, from the coarse
-    halo rows of one exchange: the leading axis first, as `prolong`."""
+    halo rows of one exchange: the leading axis first, as `prolong`.
+    Across a seam (`seam`, the fine level's) the coarse field is spread
+    (`seam_ext`), each lip prolongs on its own, and the fine mirror slots
+    are zeroed (`prolong_seam`)."""
+    sc = seam_coarse(seam)
     if whole:
-        C = Xc[:, coarse.e0:coarse.e1]
+        C = seam_spread(Xc, sc)[:, coarse.e0:coarse.e1]
     else:
-        (C,) = coarse.ext(Xc)
-    X = _prolong_axis(C, 1)
-    a = fine.a - 2 * coarse.e0
-    X = X[:, a:a + fine.n]
+        (C,) = seam_ext(coarse, sc, Xc)
+    parts = []
+    for L0, L1, C0, _ in _lips(seam, fine.g):
+        f0, f1 = max(fine.a, L0), min(fine.b, L1)
+        if f0 >= f1:
+            continue
+        # the lip's coarse rows [C0 + k0, C0 + k1) reach its fine rows
+        # [f0, f1)
+        k0, k1 = (f0 - L0) // 2, (f1 - L0) // 2 + 1
+        X = _prolong_axis(C[:, C0 + k0 - coarse.e0:C0 + k1 - coarse.e0], 1)
+        parts.append(X[:, f0 - L0 - 2 * k0:f1 - L0 - 2 * k0])
+    X = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     for j in range(2, X.dim()):
         X = _prolong_axis(X, j)
+    if seam is not None and fine.a <= seam.s + 1 < fine.b:
+        X[:, seam.s + 1 - fine.a, :seam.slit_lo] = 0.0
     return X
 
 
-def inject_slab(A, fine: Slab, coarse: Slab):
-    """The [::2] injection of a process's rows of a fine level into its
-    rows of the coarse one (the coarse row i is the fine row 2i)."""
-    s = 2 * coarse.a - fine.a
-    return A[(slice(None), slice(s, s + 2 * coarse.n - 1, 2))
+def inject_slab(A, fine: Slab, coarse: Slab, seam: Seam | None = None):
+    """The injection of a process's rows of a fine level into its rows
+    of the coarse one: the coarse row i is its parent, the fine row 2i,
+    or across a seam (`seam`, the fine level's) the upper lip's rows
+    from s+1 (`_seam_inject_down`)."""
+    parts = []
+    for L0, _, C0, C1 in _lips(seam, fine.g):
+        ca, cb = max(coarse.a, C0), min(coarse.b, C1)
+        if ca < cb:
+            p = L0 + 2 * (ca - C0) - fine.a
+            parts.append(A[:, p:p + 2 * (cb - ca) - 1:2])
+    X = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return X[(slice(None), slice(None))
              + (slice(None, None, 2),) * (A.dim() - 2)]
 
 
@@ -988,7 +1129,7 @@ def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
         for l in range(L - 1, -1, -1):
             acts[l] = a
             if l >= n_whole:
-                a = inject_slab(a, slabs[l], slabs[l - 1])
+                a = inject_slab(a, slabs[l], slabs[l - 1], seams[l])
                 if l - 1 < n_whole:
                     a = slabs[l - 1].gather(a)
             elif l:
@@ -1006,7 +1147,7 @@ def _build_block_levels(jacs, dir_u, dir_p, grid, active_L, lo, hi, k,
             free = torch.broadcast_to(~dir_u[l], (k,) + rows)
         free = free.contiguous()
         d = block_diag(jac, lo, hi, k, g)
-        d = seam_collect(d if sl is None else sl.owned(d), seams[l])
+        d = seam_collect(d if sl is None else sl.owned(d), seams[l], sl)
         Dinv = torch.where(free & (d.abs() > 0), 1.0 / d, 1.0)
         if sharp:
             lam = lanczos_lambda(jac, free, Dinv, lo, hi, k, rows,
@@ -1022,13 +1163,39 @@ def _masked_mv(lv: _LOps, lo, hi, k, seam: Seam | None = None,
     """The level's masked product; with a slab `sl` on the process's
     rows, its halo rows from one exchange."""
     def op(X):
-        X = seam_spread(torch.where(lv.free, X, 0.0), seam)
-        if sl is not None:
-            (X,) = sl.ext(X)
+        (X,) = seam_ext(sl, seam, torch.where(lv.free, X, 0.0))
         Y = matvec(lv.jac, X, lo, hi, k)
         if sl is not None:
             Y = sl.owned(Y)
-        return torch.where(lv.free, seam_collect(Y, seam), 0.0)
+        return torch.where(lv.free, seam_collect(Y, seam, sl), 0.0)
+    return op
+
+
+def _sharded_op(lv: _LOps, fine_pad, k, mesh, seam: Seam | None = None,
+                sl: Slab | None = None):
+    """The finest level's masked product on the sharded kernel
+    (`stencil_matvec_sharded`, one launch for this process's shards),
+    collect . product . spread on a seam lattice.  Where the seam
+    straddles a rank boundary the halo rows are exchanged here and
+    spread before the launch: the owner of row s+1 takes row s's glued
+    columns from its lower halo row, the owner of s writes its own into
+    its upper halo row."""
+    def op(X):
+        X = seam_spread(torch.where(lv.free, X, 0.0), seam,
+                        0 if sl is None else sl.a)
+        halo = None
+        if _straddles(seam, sl):
+            below, above = halo_rows(X, mesh)
+            s, lo = seam
+            if sl.a == s + 1:
+                X = X.clone()
+                X[:, 0, :lo] = below[:, 0, :lo]
+            else:
+                above = above.clone()
+                above[:, 0, :lo] = X[:, -1, :lo]
+            halo = (below, above)
+        Y = stencil_matvec_sharded(fine_pad, X, k, mesh, halo=halo)
+        return torch.where(lv.free, seam_collect(Y, seam, sl), 0.0)
     return op
 
 
@@ -1108,10 +1275,13 @@ def make_vcycle(levels, lo, hi, k, coarse_factor, degree: int = 2,
             g = tuple(lv.free.shape[1:])
             p = prolong_seam(e_c, g, k, seams[l])
         else:
-            whole = l - 1 < n_whole
-            r_c = restrict_slab(r, sl, slabs[l - 1])
-            e_c = cycle(l - 1, slabs[l - 1].gather(r_c) if whole else r_c)
-            p = prolong_slab(e_c, sl, slabs[l - 1], whole)
+            top = l - 1 < n_whole
+            # a whole coarse level collects its seam after the gather
+            r_c = restrict_slab(r, sl, slabs[l - 1], seams[l], not top)
+            if top:
+                r_c = seam_collect(slabs[l - 1].gather(r_c), seams[l - 1])
+            e_c = cycle(l - 1, r_c)
+            p = prolong_slab(e_c, sl, slabs[l - 1], top, seams[l])
         x = x + torch.where(lv.free, p, 0.0)
         r = b - op(x)
         return x + _chebyshev(op, lv.Dinv, r, lv.lam, degree, lv.rng)
@@ -1161,14 +1331,13 @@ def _prepare64(U, P, P_old, P_oold, caL64, sc, *, grid, dim, with_split,
     slab `sl` the state is the process's rows and caL64 its held cells,
     whose matrices it returns (the halo rows of one exchange)."""
     n = grid[0] if sl is None else sl.n
-    up = lambda X: seam_spread(unpad_rows(X, n), seam)
-    state = (up(U), up(P), up(P_old), up(P_oold))
-    if sl is not None:
-        state = sl.ext(*state)
+    state = seam_ext(sl, seam, *(unpad_rows(X, n)
+                                 for X in (U, P, P_old, P_oold)))
     return element_matrices_lattice(*state, caL64, sc, dim=dim,
                                     with_split=with_split,
                                     monolithic=monolithic,
-                                    rows=grid[0] if sl is None else sl.g)
+                                    rows=grid[0] if sl is None else sl.g,
+                                    first=0 if sl is None else sl.e0)
 
 
 def _prepare32_from64(jacL64, P_embed, *, n_levels, seam=None, slabs=(),
@@ -1184,12 +1353,14 @@ def _prepare32_from64(jacL64, P_embed, *, n_levels, seam=None, slabs=(),
     if not n_split:
         return tuple(coarsen_chain(jac, P_embed, n_levels, seam))
     L = n_levels
+    seams = seam_levels(seam, L)
     split = [jac]
     for l in range(L - 1, L - n_split - 1, -1):
         split.insert(0, coarsen_slab(split[0], P_embed, slabs[l],
-                                     slabs[l - 1]))
+                                     slabs[l - 1], seams[l]))
     top = gather_cells(split.pop(0), slabs[L - n_split - 1])
-    return tuple(coarsen_chain(top, P_embed, L - n_split) + split)
+    return tuple(coarsen_chain(top, P_embed, L - n_split,
+                               seams[L - n_split - 1]) + split)
 
 
 def _prepare_levels(jacs, dir_u, dir_p, active, *, grid, which, dim,
@@ -1260,11 +1431,11 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     is the sharded product (`stencil_matvec_sharded`), as the JAX pass
     runs the Pallas kernel under ``shard_map`` (``lattice.py:1126-1149``).
     With a seam every product is spread -> product -> collect, the
-    sharded one too.  That is a deliberate divergence: JAX keeps seam
-    lattices off its sharded kernel (``lattice.py:1975-1983``) only
-    because its conjugation is a global matmul under GSPMD; here the
-    sharded product works on the global view of one card, so the
-    conjugation wraps it unchanged.  The exit test reads one scalar per
+    sharded one too (`_sharded_op`).  That is a deliberate divergence:
+    JAX keeps seam lattices off its sharded kernel
+    (``lattice.py:1975-1983``) only because its conjugation is a global
+    matmul under GSPMD; here the conjugation wraps the sharded product
+    on the process's rows.  The exit test reads one scalar per
     iteration back to the host; the next iteration's work is queued
     before that read, so the card stays busy while the host waits.
     Split by slab (`slabs`, `n_split`), R0 and the iterates are the
@@ -1281,13 +1452,9 @@ def _cg_pass32(levels, coarse32, R0, tol2, *, which, dim, fine_pad=None,
     else:
         dots = sl.dots
     if fine_pad is None:
-        op = _masked_mv(fin, lo, hi, k, seam)
+        op = _masked_mv(fin, lo, hi, k, seam, sl)
     else:
-        def op(X):
-            X = seam_spread(torch.where(fin.free, X, 0.0), seam)
-            Y = seam_collect(stencil_matvec_sharded(fine_pad, X, k, mesh),
-                             seam)
-            return torch.where(fin.free, Y, 0.0)
+        op = _sharded_op(fin, fine_pad, k, mesh, seam, sl)
     M = make_vcycle(levels, lo, hi, k, coarse32, degree=degree, fine_op=op,
                     seam=seam, slabs=slabs, n_split=n_split)
     tol2_h = float(tol2)
@@ -1331,20 +1498,19 @@ def _pass_apply_mat(Xb, scale, X_acc, B, jacL64, free_u, free_p, *, grid,
     g0 = grid[0] if sl is None else sl.n
     X_try = unpad_rows(X_acc, g0) + Xb.to(torch.float64) * scale
     free = free_u if which == "u" else free_p
-    Xs = seam_spread(torch.where(free, X_try, 0.0), seam)
-    own = lambda Y: Y
-    if sl is not None:
-        (Xs,) = sl.ext(Xs)
-        own = sl.owned
-    R_try = unpad_rows(B, g0) - torch.where(
-        free, seam_collect(own(matvec(jacL64, Xs, lo, hi, k)), seam), 0.0)
+    (Xs,) = seam_ext(sl, seam, torch.where(free, X_try, 0.0))
+    own = (lambda Y: Y) if sl is None else sl.owned
+    Ys = [own(matvec(jacL64, Xs, lo, hi, k))]
+    if which == "u":
+        Ys.append(own(matvec_block(jacL64, Xs, nvc * dim, nvc * (dim + 1),
+                                   lo, hi, k, 1)))
+    Ys = seam_collect_rows(Ys, seam, sl)
+    R_try = unpad_rows(B, g0) - torch.where(free, Ys[0], 0.0)
     rr_try = _dot(R_try, R_try) if sl is None else sl.dots((R_try,
                                                              R_try))[0]
     JP = None
     if which == "u":
-        JP = pad_rows(torch.where(free_p, seam_collect(own(matvec_block(
-            jacL64, Xs, nvc * dim, nvc * (dim + 1), lo, hi, k, 1)), seam),
-            0.0), gyp)
+        JP = pad_rows(torch.where(free_p, Ys[1], 0.0), gyp)
     return pad_rows(X_try, gyp), pad_rows(R_try, gyp), rr_try, JP
 
 

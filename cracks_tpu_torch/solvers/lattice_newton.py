@@ -41,18 +41,18 @@ def _lat_residual_seam(U, P, P_old, P_oold, caL, sc, *, dim, with_split,
     seam so the window stencil sees both slit lips, collect the mirror
     contributions back (S^T r for the duplication map S; the plain
     residual without a seam).  The neighbours' boundary rows of the
-    state arrive in one exchange; the cells next to them (caL: the
-    process's held cells) are computed here, so each owned row sums its
-    cells as the global residual does.  Without `sl`, the whole
-    lattice."""
-    sp = lambda X: lattice.seam_spread(X, seam)
+    state arrive in one exchange, spread after it where the seam
+    straddles a rank boundary (`lattice.seam_ext`); the cells next to
+    them (caL: the process's held cells) are computed here, so each
+    owned row sums its cells as the global residual does.  Without `sl`,
+    the whole lattice."""
     if sl is None:
         sl = whole(U.shape[1])
     RU, RP = lattice.lattice_residual(
-        *sl.ext(sp(U), sp(P), sp(P_old), sp(P_oold)), caL, sc, dim=dim,
-        with_split=with_split, monolithic=monolithic, rows=sl.g)
-    return (lattice.seam_collect(sl.owned(RU), seam),
-            lattice.seam_collect(sl.owned(RP), seam))
+        *lattice.seam_ext(sl, seam, U, P, P_old, P_oold), caL, sc, dim=dim,
+        with_split=with_split, monolithic=monolithic, rows=sl.g,
+        first=sl.e0)
+    return lattice.seam_collect_rows((sl.owned(RU), sl.owned(RP)), seam, sl)
 
 
 def _condensed_residual(U, P, P_old, P_oold, active, dir_u, dir_p, caL, sc,
@@ -181,9 +181,8 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
     grid = hier.grid
     dim = sys.dim
     vert_pos = hier.vert_pos
-    # the process's rows (on a seam the whole lattice, its contractions
-    # the batched ones)
-    sl = hier.slabs[-1] if hier.slabs else whole(grid[0])
+    # the process's rows of the finest level (a seam lattice's too)
+    sl = hier.slabs[-1]
     mesh = sys.shard_mesh
     # this process's rows of the padded lattice: its shards'
     r0 = 0 if mesh is None else mesh.first * mesh.rows_loc(grid[0])

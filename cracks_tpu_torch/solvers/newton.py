@@ -275,14 +275,36 @@ def _solve_matrix_free(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
     return du + cu, dp + cp, total_its
 
 
+def _seam_residual(sys, u, phi, phi_old, phi_oold, with_split):
+    """The residual of a seam lattice: the lattice layout's conjugated
+    window residual (`lattice_newton._lat_residual_seam`) of the whole
+    lattice, lifted from and mapped back to flat vectors, so that the
+    replicated run and the lattice-layout runs of a slit mesh, on any
+    number of row slabs, assemble the same bits."""
+    from .lattice_newton import _lat_residual_seam
+    hier = sys.lattice_hierarchy
+    vp, grid, dim = hier.vert_pos, hier.grid, sys.dim
+    lat = lambda x, k: lattice._to_lat(x, vp, grid, k)
+    RU, RP = _lat_residual_seam(
+        lat(u, dim), lat(phi, 1), lat(phi_old, 1), lat(phi_oold, 1),
+        sys.lattice_ca64, sys.scalars, dim=dim, with_split=with_split,
+        monolithic=sys.monolithic, seam=hier.seam)
+    return lattice._to_glob(RU, vp, dim), lattice._to_glob(RP, vp, 1)
+
+
 def _assemble(sys, u, phi, phi_old, phi_oold, con, active, with_split):
     """(tot_p, pde_u, pde_p): the hanging-condensed raw phase-field
-    residual (the indicator's input) and the condensed Newton rhs."""
-    ru, rp = physics.assemble_residual(u, phi, phi_old, phi_oold, sys.ca,
-                                       sys.scalars, sys.cell_scatter,
-                                       dim=sys.dim,
-                                       with_split=with_split,
-                                       monolithic=sys.monolithic)
+    residual (the indicator's input) and the condensed Newton rhs (on a
+    seam lattice assembled as the lattice layout assembles it,
+    `_seam_residual`)."""
+    hier = sys.lattice_hierarchy
+    if hier is not None and hier.seam is not None:
+        ru, rp = _seam_residual(sys, u, phi, phi_old, phi_oold, with_split)
+    else:
+        ru, rp = physics.assemble_residual(
+            u, phi, phi_old, phi_oold, sys.ca, sys.scalars,
+            sys.cell_scatter, dim=sys.dim, with_split=with_split,
+            monolithic=sys.monolithic)
     tot_p = hanging_transpose_p(rp, con)
     pde_u, pde_p = condense_residual(ru, rp, con, active)
     return tot_p, pde_u, pde_p

@@ -52,6 +52,13 @@ The runs (all of them without arguments, else the named ones):
   ``tests/test_torch_dist_lattice.py``, whose ranks do not import JAX);
 - ``sneddon_3d_lattice_np4``: the same settings in 3d at refine 1
   (37,044 DoFs), load step 0, at ``n_devices=4``;
+- ``miehe_shear_2_lattice_np4``: ``params/tests/miehe_shear_2.prm`` at
+  global refinement 4 (the (34, 33) seam lattice, slit row 16, 3,315
+  DoFs), three load steps under ``tests/test_torch_cases_seam.py``'s
+  `MIEHE` settings, at ``n_devices=4, dof_sharding=lattice``: the seam
+  lattice in the lattice-layout Newton on 4 virtual CPU devices, with
+  ``FUSED_SOLVE_MAX_DOFS = 0`` (the split solve, the one the port
+  implements), for ``tests/test_torch_dist_seam.py``;
 - ``halo_cg_2d``: one call of the halo pool's block CG
   (``cracks_tpu.solvers.halo_newton.build_halo_cg``, the split on) at
   D = 8 on the hanging-node mesh of
@@ -136,6 +143,11 @@ SNEDDON = dict(
     n_global_pre_refine=2, max_no_timesteps=3, output_dir="",
     linear_solver="cg", preconditioner="gmg", cg_rtol=1e-10,
     mixed_precision_cg=True)
+# tests/test_torch_cases_seam.py's MIEHE: bench.py's solver settings,
+# three load steps
+MIEHE = dict(max_no_timesteps=2, output_dir="", linear_solver="cg",
+             direct_solver=False, preconditioner="gmg",
+             mixed_precision_cg=True, cg_rtol=1e-8)
 # name -> (the .prm under params/ or None: Parameters() defaults,
 # overrides)
 LATTICE_RUNS = {
@@ -144,19 +156,30 @@ LATTICE_RUNS = {
     "sneddon_3d_lattice_np4": ("parameters_sneddon_3d", dict(
         SNEDDON, dimension=3, n_global_pre_refine=1, max_no_timesteps=0,
         n_devices=4, dof_sharding="lattice")),
+    "miehe_shear_2_lattice_np4": (os.path.join("tests", "miehe_shear_2"),
+                                  dict(MIEHE, n_global_pre_refine=4,
+                                       n_devices=4, dof_sharding="lattice")),
 }
 
 
 def write_lattice_reference(name):
     from cracks_tpu.config import Parameters, load_parameters
     from cracks_tpu.driver import Simulation
+    from cracks_tpu.solvers import lattice
 
     t0 = time.perf_counter()
     prm, overrides = LATTICE_RUNS[name]
     p = (Parameters(**overrides) if prm is None else load_parameters(
         os.path.join(ROOT, "params", f"{prm}.prm"), **overrides))
     sim = Simulation(p, verbose=False)
-    sim.run()
+    # the split solve, the one the port implements (the lattice-layout
+    # Newton takes it at any size; the threshold pins it all the same)
+    fused = lattice.FUSED_SOLVE_MAX_DOFS
+    lattice.FUSED_SOLVE_MAX_DOFS = 0
+    try:
+        sim.run()
+    finally:
+        lattice.FUSED_SOLVE_MAX_DOFS = fused
     assert sim.sys.use_lattice_state
     with open(os.path.join(OUT, f"{name}.json"), "w") as f:
         json.dump(dict(statistics=sim.statistics.data,

@@ -19,10 +19,10 @@ spawned ranks on the CPU, gloo, one torch thread each.
   Newton iteration;
 - the CLI under torchrun (2 ranks, D = 4): rank 0 alone writes the
   output, and its statistics file is the one-process run's;
-- W > 1 on a seam lattice (the slit mesh of the Miehe cases) or with
-  replicated vectors raises the NotImplementedError naming ROADMAP A11d,
-  part 2 / A11e (the lattice layout on W ranks:
-  tests/test_torch_dist_lattice.py);
+- W > 1 with replicated vectors raises the NotImplementedError naming
+  ROADMAP A11e (the lattice layout on W ranks:
+  tests/test_torch_dist_lattice.py, its seam lattice
+  tests/test_torch_dist_seam.py);
 - a rank that raises ends the launch with `RankFailed` and its error
   within 30 s, long before the launch's deadline of 60 s (each spawned
   rank imports this module, JAX with it, which takes seconds); a rank
@@ -223,16 +223,10 @@ def test_torchrun_cli_rank_zero_writes(tmp_path):
 
 
 @pytest.mark.parametrize("prm,over,item", [
-    # the slit mesh of the Miehe cases under gmg + mixed precision: the
-    # seam lattice
-    (os.path.join(PRM_DIR, "miehe_shear_2.prm"),
-     dict(max_no_timesteps=0, linear_solver="cg", preconditioner="gmg",
-          mixed_precision_cg=True, n_devices=2, dof_sharding="lattice",
-          output_dir=""), "A11d, part 2"),
     (SNEDDON_1, dict(DRYRUN, n_devices=2), "A11e"),
     (SNEDDON_1, dict(DRYRUN, n_devices=2, dof_sharding="lattice",
                      outer_solver="simple monolithic"), "A11e"),
-], ids=["lattice", "replicated", "monolithic"])
+], ids=["replicated", "monolithic"])
 def test_unported_modes_on_ranks_raise(prm, over, item):
     """Refused before any collective, so a rank of a two-rank group
     that was never set up shows the refusal."""
