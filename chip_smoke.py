@@ -239,12 +239,10 @@ without printing the final line:
    on W = 2 and 4, at D = 8 on W = 4, hetero_3d_1 at D = 4 on W = 2)
    within rel 1e-12 with equal Newton iterations and every rank's
    statistics bit-equal, whether bit-equal to phase 19 printed; then
-   its production run at W = 4, its last epoch (168,609 DoFs) cut to its
-   first 2 of 4 load steps (to fit the smoke's time limit): phase 19's
-   DoFs in every epoch, TCV within abs 1e-12 and rel 1e-11 in every
-   whole epoch, the cut epoch's bulk and crack energies within rel
-   1e-11 at each of its steps, equal Newton iterations per step, no
-   cut.
+   its production run at W = 4, cut to its first 2 of 4 epochs (8,445
+   and 16,953 DoFs; the smoke's time limit): phase 19's DoFs in both
+   epochs, TCV within abs 1e-12 and rel 1e-11 in each, equal Newton
+   iterations per step, no cut.
    Each rank's device and the transport are printed, and per epoch
    s/step, ms, collectives and bytes per CG iteration, each rank's peak
    device memory, and the card's idle share during the last epoch's
@@ -287,6 +285,34 @@ without printing the final line:
    exchanges (the seam's own apart), collectives and bytes per CG
    iteration, each rank's peak device memory and launches, the card's
    idle share (nvidia-smi).
+23. the replicated cell-axis mode on W ranks of the one card (n_devices
+   = D, replicated DoF vectors; gloo, staged): each rank computes the
+   per-cell terms of its range of the cells (`sharding.CellRange`,
+   JAX's padded shards) and gathers every rank's before the
+   one-process ordered scatter, the dense direct solve gathers the
+   element matrices, and the lattice solve runs on the rank's row
+   slabs; in phase 21's rank processes after phase 22's work (their
+   one-process references run before).  Small: sneddon_3d_1 as shipped
+   at D = 4 on W = 4 against tests/golden/sneddon_3d_1.mpirun=4.
+   statistics under phase 9's rule (its one-process run at D = 4
+   bit-equal to phase 9's), threepoint_1 as shipped at D = 2 on W = 2
+   against tests/golden/threepoint_1.mpirun=2.statistics under phase
+   12's tolerances, miehe_shear_1 under the simple monolithic solver
+   on the matrix-free Jacobi CG (3 steps) at D = 2 on W = 2, and
+   hetero_3d_1 under the Galerkin GMG's mixed-precision split solve
+   (the fine level split by range, the coarse chain on every rank),
+   load step 0, at D = 4 on W = 4 against the first row of
+   tests/golden/hetero_3d_1.mpirun-4.statistics under phase 14's
+   tolerance; every rank bit-equal to the one-process card run at the same D
+   (statistics, Newton and linear iterations).  Full width: phase 5's
+   2d bench case (refine 6, 1,232,643 DoFs), replicated, at D = 4 on W
+   = 4, load step 0: bulk and crack energy within rel 1e-10 of phase
+   5's, equal Newton iterations, no cut, the kernels launched on every
+   rank.  Printed: each rank's device and the transport, s per step,
+   ms, cell gathers, collectives, exchanges and bytes per Newton
+   iteration and per CG iteration, each rank's peak device memory
+   beside phase 5's, each rank's launches, the card's idle share
+   (nvidia-smi).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -724,7 +750,9 @@ def main_phase(dim, refine=None, n_dofs=None, replicated=None,
                              f"{dim}d launches")
     out = dict(energies=_energies(sim), launches=launches, sharded=sharded,
                route_launches=route_launches,
-               newton=[e[1] for e in sim.solver_effort])
+               newton=[e[1] for e in sim.solver_effort],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               step_s=[t for _, _, t in sim.step_times])
     print(f"{label}: host setup (forest, mesh) {host_s:.2f} s, "
           f"setup system {sim.timer.wall['Setup system']:.2f} s")
     for (step, newton_its, lin_its, n_active), (_, _, secs) in zip(
@@ -889,6 +917,7 @@ def golden3d_phase():
     if (fails or sim.mesh.n_dofs != 5324 or sim.step_cuts
             or not abs(tcv - 0.0399535) <= 1e-5):
         raise AssertionError("golden 3d: " + "; ".join(fails))
+    return ours
 
 
 def _fresh_memory_baseline():
@@ -1011,12 +1040,10 @@ def shipped_phase():
                              + "\n".join(fails[:20]))
 
 
-def production_phase(label="production", instrument=None, cut_last=False,
-                     **overrides):
+def production_phase(label="production", instrument=None, **overrides):
     """The shipped file four times finer (last epoch 168,609 DoFs), on
     the Jacobi CG or, with `overrides`, another solve (phases 16, 19;
-    `instrument(sim)` is called before the run).  With `cut_last` the
-    overrides end the run inside its last epoch, which then has no TCV.
+    `instrument(sim)` is called before the run).
     Returns the epochs, the TCV per epoch, the bulk and crack energy
     per step and the seconds."""
     from cracks_tpu_torch import config, qoi
@@ -1053,7 +1080,7 @@ def production_phase(label="production", instrument=None, cut_last=False,
                              "non-finite statistic")
     if not min(data["Bulk Energy"]) > 0:
         raise AssertionError(f"{label}: bulk energy not positive")
-    if len(tcv) != len(epochs) - cut_last or not all(
+    if len(tcv) != len(epochs) or not all(
             b < a for a, b in zip(errors, errors[1:])):
         raise AssertionError(f"{label}: the TCV error does not fall "
                              "from epoch to epoch")
@@ -2462,10 +2489,12 @@ RANKED_SMALL = [
     for (label, prm, ov, _), worlds in zip(HALO_SMALL, ((2, 4), (4,), (2,)))
     for W in worlds]
 RANKED_FULL_W = 4
-# phase 20's production run: its four epochs, the last one (168,609
-# DoFs) cut to its first RANKED_LAST_STEPS of 4 load steps (the smoke's
-# time limit; phase 19 runs all of it on the same pool)
-RANKED_LAST_STEPS = 2
+# phase 20's production run: its first RANKED_EPOCHS of 4 epochs (8,445
+# and 16,953 DoFs, 4 load steps each; the smoke's time limit: the 48,321-
+# and 168,609-DoF epochs took 84 and 72 s of its 227 s on W = 4 ranks
+# with the last one cut to 2 steps; phase 19 runs all four on the same
+# pool)
+RANKED_EPOCHS = 2
 
 
 def _host_resident_bytes():
@@ -2532,8 +2561,7 @@ def _ranked_production(ranks):
     halo_newton.build_halo_cg = timed_build
     try:
         out = production_phase(f"production halo W={ranks.world}",
-                               cut_last=True,
-                               max_no_timesteps=11 + RANKED_LAST_STEPS,
+                               n_refinement_cycles=RANKED_EPOCHS - 1,
                                **SHARDED)
     finally:
         halo_newton.build_halo_cg = build
@@ -2626,14 +2654,12 @@ def ranked_small_phase(entries, outs, card, secs):
 
 def ranked_full_phase(outs, samples, production):
     """Phase 20, full width: phase 19's production run on W = 4 ranks,
-    its last epoch cut to its first RANKED_LAST_STEPS steps: phase 19's
-    DoFs in every epoch, TCV within abs 1e-12 and rel 1e-11 in every
-    whole epoch, the cut epoch's bulk and crack energies within rel
-    1e-11 at each of its steps, equal Newton iterations per step, no
-    time-step cut (production_phase's gate); per epoch s/step, ms,
-    collectives and bytes per CG iteration, and each rank's peak
-    memory; the device's idle share during the last epoch's solves from
-    nvidia-smi's samples."""
+    its first RANKED_EPOCHS epochs: phase 19's DoFs in every epoch, TCV
+    within abs 1e-12 and rel 1e-11 in every epoch, equal Newton
+    iterations per step, no time-step cut (production_phase's gate); per
+    epoch s/step, ms, collectives and bytes per CG iteration, and each
+    rank's peak memory; the device's idle share during the last epoch's
+    solves from nvidia-smi's samples."""
     W = len(outs)
     out = outs[0]
     print(f"production halo W={W}: {out['secs']:.2f} s in rank 0's run "
@@ -2641,7 +2667,7 @@ def ranked_full_phase(outs, samples, production):
           + "; ".join(f"rank {o['rank']} on {o['device']}" for o in outs)
           + f", {out['transport']}, resident host memory per rank at "
           f"its end {[o['host_bytes'] for o in outs]} B")
-    ref_epochs = production["epochs"]
+    ref_epochs = production["epochs"][:RANKED_EPOCHS]
     if [e["dofs"] for e in out["epochs"]] != [e["dofs"] for e in ref_epochs]:
         raise AssertionError(f"production halo W={W}: DoFs per epoch "
                              "differ from phase 19's")
@@ -2651,31 +2677,18 @@ def ranked_full_phase(outs, samples, production):
             raise AssertionError(f"production halo W={W}: rank "
                                  f"{o['rank']}'s statistics differ from "
                                  "rank 0's")
-    step0 = 0
     for i, (ep, ref) in enumerate(zip(out["epochs"], ref_epochs)):
         mine = [s for s in out["solves"] if s[0] == ep["dofs"]]
         wall, its, coll, nbytes = (sum(s[k] for s in mine)
                                    for k in (1, 2, 3, 4))
-        n_steps = len(ep["its"])
         newton = [n for n, _ in ep["its"]]
-        newton_ref = [n for n, _ in ref["its"]][:n_steps]
-        if i < len(out["tcv"]):
-            tcv, tcv_ref = out["tcv"][i], production["tcv"][i]
-            diff = abs(tcv - tcv_ref)
-            ok = diff <= 1e-12 and diff <= 1e-11 * abs(tcv_ref)
-            gate = (f"TCV {tcv!r} vs phase 19's {tcv_ref!r}: {diff:.3e} "
-                    f"apart (bound 1e-12), rel {diff / abs(tcv_ref):.3e} "
-                    "(bound 1e-11)")
-        else:
-            steps = slice(step0, step0 + n_steps)
-            rel = max(abs(x - y) / abs(y) for key in ("bulk", "crack")
-                      for x, y in zip(out[key][steps],
-                                      production[key][steps]))
-            ok = rel <= 1e-11 and n_steps == RANKED_LAST_STEPS
-            gate = (f"its first {n_steps} of {len(ref['its'])} steps, bulk "
-                    f"and crack energy per step within rel {rel:.3e} of "
-                    "phase 19's (bound 1e-11)")
-        step0 += n_steps
+        newton_ref = [n for n, _ in ref["its"]]
+        tcv, tcv_ref = out["tcv"][i], production["tcv"][i]
+        diff = abs(tcv - tcv_ref)
+        ok = diff <= 1e-12 and diff <= 1e-11 * abs(tcv_ref)
+        gate = (f"TCV {tcv!r} vs phase 19's {tcv_ref!r}: {diff:.3e} "
+                f"apart (bound 1e-12), rel {diff / abs(tcv_ref):.3e} "
+                "(bound 1e-11)")
         print(f"production halo W={W} epoch {i + 1}: {ep['dofs']} DoFs, "
               f"s/step {[round(x, 3) for x in ep['step_s']]} (phase 19 "
               f"{[round(x, 3) for x in ref['step_s']]}), Newton/linear "
@@ -2873,12 +2886,14 @@ def _ranked_lattice_full(ranks):
                 **_rank_info(ranks))
 
 
-def _ranked_lattice(ranks, dims, kernels, full, seam=None):
+def _ranked_lattice(ranks, dims, kernels, full, seam=None,
+                    replicated=None):
     """A rank of a phase-21 launch: with `kernels` the kernel check,
     then each small case's _run_small tuple (dims), then with `full` the
     full-width run; then with `seam` (`_ranked_seam`'s arguments) phase
-    22's work in the same process, which spares phase 22 the ranks'
-    start and their first CUDA calls."""
+    22's work and with `replicated` (`_ranked_replicated`'s) phase 23's
+    in the same process, which spares them the ranks' start and their
+    first CUDA calls."""
     from cracks_tpu_torch.ops import stencil
     prods = _ranked_products(ranks) if kernels else None
     small = []
@@ -2893,7 +2908,9 @@ def _ranked_lattice(ranks, dims, kernels, full, seam=None):
     info = _rank_info(ranks)
     full = _ranked_lattice_full(ranks) if full else None
     return (prods, small, info, full,
-            None if seam is None else _ranked_seam(ranks, *seam))
+            None if seam is None else _ranked_seam(ranks, *seam),
+            None if replicated is None
+            else _ranked_replicated(ranks, *replicated))
 
 
 def _lattice_kernel_report(outs):
@@ -2918,16 +2935,20 @@ def _lattice_kernel_report(outs):
     return report
 
 
-def lattice_ranked_phase(small_card, sharded_full, seam_work):
+def lattice_ranked_phase(small_card, sharded_full, seam_work,
+                         replicated_work):
     """Phase 21: the lattice layout on W ranks of the one card, held to
-    phases 3, 4 and 7; each launch then runs phase 22's work for its W
-    (`seam_work`: W -> `_ranked_seam`'s arguments).  Returns the kernel
-    check's records, the full-width run's per-rank dicts, per small case
-    each rank's (sharded, unsharded) launches, and per W the ranks'
-    phase-22 outputs with the W = 4 launch's nvidia-smi samples."""
+    phases 3, 4 and 7; each launch then runs phase 22's and phase 23's
+    work for its W (`seam_work`, `replicated_work`: W -> the arguments of
+    `_ranked_seam`, `_ranked_replicated`).  Returns the kernel check's
+    records, the full-width run's per-rank dicts, per small case each
+    rank's (sharded, unsharded) launches, and per W the ranks' phase-22
+    outputs and their phase-23 outputs, each with the W = 4 launch's
+    nvidia-smi samples."""
     worlds = {}
     launches = {}
     seam_outs = {}
+    replicated_outs = {}
     for label, dim, W in LATTICE_SMALL:
         worlds.setdefault(W, []).append((label, dim))
     kernels = full = None
@@ -2938,9 +2959,11 @@ def lattice_ranked_phase(small_card, sharded_full, seam_work):
         with tempfile.TemporaryDirectory() as tmp:
             outs = _launch_on_card(_ranked_lattice, W,
                                    ([dim for _, dim in cases], last, last,
-                                    seam_work.get(W)),
+                                    seam_work.get(W),
+                                    replicated_work.get(W)),
                                    tmp, samples)
         seam_outs[W] = [o[4] for o in outs]
+        replicated_outs[W] = [o[5] for o in outs]
         infos = [o[2] for o in outs]
         print(f"phase 21 on cuda, {W} ranks ("
               + "; ".join(f"rank {i['rank']} on {i['device']}"
@@ -2973,7 +2996,8 @@ def lattice_ranked_phase(small_card, sharded_full, seam_work):
             t22 = seam_outs[W][0]["t0"] if seam_outs[W][0] else math.inf
             _lattice_full_report(full, [x for x in samples if x[0] < t22],
                                  sharded_full)
-    return kernels, full, launches, (seam_outs, samples)
+    return (kernels, full, launches, (seam_outs, samples),
+            (replicated_outs, samples))
 
 
 def _lattice_full_report(outs, samples, ref):
@@ -3256,6 +3280,296 @@ def _seam_full_report(outs, samples, ref):
         raise AssertionError(f"{label}: off phase 17's D=4 run")
 
 
+# phase 23: the replicated cell-axis mode on W ranks of the one card
+# (n_devices = D, replicated DoF vectors: each rank computes its range of
+# the cells and gathers every rank's per-cell terms; the lattice solve on
+# the ranks' row slabs), run by phase 21's rank processes after phase
+# 22's work.  Small: (label, .prm, overrides, W = D, its golden table
+# and the golden's column overrides or None); the one-process card runs
+# at the same D are the references (`replicated_refs_phase`).  Full
+# width: phase 5's 2d bench case, replicated, at D = W =
+# REPLICATED_FULL_W, load step 0, against phase 5's run
+REPLICATED_SMALL = [
+    ("sneddon_3d_1 D=4 W=4", os.path.join(PRM_TESTS, "sneddon_3d_1.prm"),
+     dict(output_dir="", n_devices=4), 4,
+     ("sneddon_3d_1.mpirun=4.statistics", None)),
+    ("threepoint_1 D=2 W=2", os.path.join(PRM_TESTS, "threepoint_1.prm"),
+     dict(output_dir="", n_devices=2), 2,
+     ("threepoint_1.mpirun=2.statistics", {"Load": (1e-6, 5e-5)})),
+    ("miehe_shear_1 simple monolithic matrix-free D=2 W=2",
+     MIEHE_SHEAR_1_PRM,
+     dict(MATRIX_FREE, output_dir="", max_no_timesteps=2,
+          outer_solver="simple monolithic", n_devices=2), 2, None),
+    # the Galerkin GMG's split solve: the fine level split by range, the
+    # coarse chain built on every rank; load step 0 against the golden's
+    # first row at phase 14's tolerance
+    ("hetero_3d_1 Galerkin split solve D=4 W=4", HETERO_PRM,
+     dict(HETERO_MIXED, output_dir="", max_no_timesteps=0, n_devices=4), 4,
+     ("hetero_3d_1.mpirun-4.statistics", {"Energy": (1e-6, 3e-3)})),
+]
+REPLICATED_FULL_W = 4
+
+
+def _replicated_case(prm, overrides):
+    """One phase-23 case on this process's device (the ranks', if any):
+    (DoFs, (column names, statistics table), (Newton, linear) its per
+    solve, time-step cuts, seconds, cell gathers and their bytes, whether
+    the cells were split)."""
+    from cracks_tpu_torch import config
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.parallel import dist
+    dist.reset_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(config.load_parameters(prm, **overrides),
+                     device="cuda", verbose=False)
+    sim.run()
+    torch.cuda.synchronize()
+    return (sim.mesh.n_dofs, parse_statistics(sim.statistics.write_text()),
+            [(e[1], e[2]) for e in sim.solver_effort], sim.step_cuts,
+            time.perf_counter() - t0, dict(dist.CELL_GATHERS),
+            sim.sys.cells is not None)
+
+
+def replicated_refs_phase():
+    """Phase 23's references: each small case's one-process card run at
+    its D, before the ranks start."""
+    return {label: _replicated_case(prm, ov)
+            for label, prm, ov, _, _ in REPLICATED_SMALL}
+
+
+def _ranked_replicated_full(ranks):
+    """A rank of phase 23's full-width run: phase 5's 2d case at D = W,
+    replicated, load step 0, with every CG pass timed between
+    synchronizations and the cell gathers, exchanges, collectives and
+    bytes of the step and of its passes counted."""
+    from cracks_tpu_torch.driver import Simulation
+    from cracks_tpu_torch.ops import stencil
+    from cracks_tpu_torch.parallel import dist
+    from cracks_tpu_torch.solvers import lattice
+    if ranks.rank:
+        sys.stdout = open(os.devnull, "w")
+    real = lattice._cg_pass32
+    passes = []
+
+    def counts():
+        return (dist.CELL_GATHERS["gathers"], dist.EXCHANGES["exchanges"],
+                dist.COUNTS["collectives"],
+                dist.EXCHANGES["bytes"] + dist.COUNTS["bytes"])
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        c0 = counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0, out[1])
+                      + tuple(b - a for a, b in zip(c0, counts())))
+        return out
+
+    sim = Simulation(_params(2, FULL[2][0], max_no_timesteps=0,
+                             n_devices=ranks.world),
+                     device="cuda", verbose=False)
+    _fresh_memory_baseline()
+    _zero_stencil_counts()
+    dist.reset_counts()
+    lattice._cg_pass32 = timed
+    t0, w0 = time.perf_counter(), time.time()
+    try:
+        sim.run()
+    finally:
+        lattice._cg_pass32 = real
+    torch.cuda.synchronize()
+    hier = sim.sys.lattice_hierarchy
+    cells = sim.sys.cells
+    return dict(energies=_energies(sim),
+                newton=[e[1] for e in sim.solver_effort],
+                linear=[e[2] for e in sim.solver_effort],
+                steps=len(sim.solver_effort), cuts=sim.step_cuts,
+                step_s=[t for _, _, t in sim.step_times],
+                secs=time.perf_counter() - t0, window=(w0, time.time()),
+                cell_gathers=dict(dist.CELL_GATHERS),
+                collectives=dist.COUNTS["collectives"],
+                exchanges=dist.EXCHANGES["exchanges"],
+                bytes=dist.COUNTS["bytes"] + dist.EXCHANGES["bytes"],
+                sharded=stencil.stencil_matvec_sharded.launches,
+                unsharded=stencil.stencil_matvec2d.launches,
+                phi=stencil.stencil_matvec2d.phi_launches,
+                cells=(cells.lo, cells.hi), n_split=hier.n_split,
+                n_levels=hier.n_levels,
+                rows=(hier.slabs[-1].a, hier.slabs[-1].b), passes=passes,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                **{k: v for k, v in _rank_info(ranks).items()
+                   if k != "peak_bytes"})
+
+
+def _ranked_replicated(ranks, labels, full):
+    """A rank's phase-23 work: each small case's `_replicated_case`
+    tuple, the rank's device, transport and peak memory after them, then
+    with `full` the full-width run; with its start and end on the
+    host's clock.  The peak memory counter starts anew."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cases = {label: (prm, ov) for label, prm, ov, _, _ in REPLICATED_SMALL}
+    small = [_replicated_case(*cases[label]) for label in labels]
+    info = _rank_info(ranks)
+    full = _ranked_replicated_full(ranks) if full else None
+    return dict(small=small, info=info, full=full, t0=t0, t1=time.time())
+
+
+def replicated_work():
+    """Phase 23's work for each W: `_ranked_replicated`'s arguments, run
+    by phase 21's launch of that W after phase 22's work."""
+    work = {}
+    for label, _, _, W, _ in REPLICATED_SMALL:
+        work.setdefault(W, [[], False])[0].append(label)
+    work.setdefault(REPLICATED_FULL_W, [[], False])[1] = True
+    return {W: tuple(w) for W, w in work.items()}
+
+
+def _replicated_small_report(label, outs, n, ref, golden):
+    """Phase 23, small: every rank's case n bit-equal to the one-process
+    card run `ref` at the same D (statistics, Newton and linear
+    iterations), the cells split; with `golden` (table, column
+    overrides) the table within the golden's first rows' tolerance:
+    phase 12's or 14's overrides, or without them phase 9's rule on the
+    golden's columns."""
+    runs = [o["small"][n] for o in outs]
+    run = runs[0]
+    (names, ours), (_, theirs) = run[1], ref[1]
+    bits = (all(np.array_equal(r[1][1], ours, equal_nan=True)
+                and r[2] == run[2] for r in runs)
+            and np.array_equal(ours, theirs, equal_nan=True)
+            and run[2] == ref[2])
+    fails = []
+    if golden is not None:
+        with open(os.path.join(GOLDEN_DIR, golden[0])) as f:
+            g_names, g_table = parse_statistics(f.read())
+        g_table = g_table[:len(ours)]
+        if golden[1] is not None:
+            fails = golden_failures(names, ours, g_names, g_table,
+                                    golden[1], None, {})
+        elif names[:len(g_names)] != g_names:
+            fails = [f"columns {names} vs {g_names}"]
+        else:
+            fails = table_failures(ours[:, :len(g_names)], g_table, 1e-6,
+                                   1e-8)
+    gathers = run[5]
+    print(f"{label} on cuda: {run[0]} DoFs, {run[4]:.1f} s in rank 0 "
+          f"(one process {ref[4]:.1f} s), Newton/linear its per solve "
+          f"{run[2]}, {gathers['gathers']} cell gathers of "
+          f"{gathers['bytes']} B per rank, cells split on every rank: "
+          f"{all(r[6] for r in runs)}, every rank bit-equal to the "
+          f"one-process card run: {bits}"
+          + ("" if golden is None else
+             f", {len(fails)} cells off {golden[0]}"))
+    if (not bits or fails or run[3] or not all(r[6] for r in runs)
+            or ref[6]):
+        raise AssertionError(f"{label}: off the one-process card run or "
+                             "its golden:\n" + "\n".join(fails[:20]))
+
+
+def _replicated_full_report(outs, samples, ref):
+    """Phase 23, full width: every rank's run against phase 5's
+    replicated run's load step 0 (`ref`: main_phase's dict), and what it
+    cost."""
+    W = len(outs)
+    out = outs[0]
+    label = f"2d main path replicated D={W} W={W}"
+    for o in outs[1:]:
+        if not (np.array_equal(o["energies"], out["energies"])
+                and o["newton"] == out["newton"]):
+            raise AssertionError(f"{label}: rank {o['rank']} differs from "
+                                 "rank 0")
+    want = ref["energies"][:, :1]
+    rel = float(np.max(np.abs(out["energies"] - want) / np.abs(want)))
+    newton = sum(out["newton"])
+    its = sum(p[1] for p in out["passes"])
+    wall = sum(p[0] for p in out["passes"])
+    cg_gathers, ex, coll, nbytes = (sum(p[k] for p in out["passes"])
+                                    for k in (2, 3, 4, 5))
+    per_it = lambda x: x / max(its, 1)
+    per_newton = lambda x: x / max(newton, 1)
+    g = out["cell_gathers"]
+    print(f"{label}: {out['secs']:.2f} s in rank 0's run, s per step "
+          f"{[round(x, 3) for x in out['step_s']]} (phase 5 "
+          f"{[round(x, 3) for x in ref['step_s'][:1]]}), Newton its "
+          f"{out['newton']} (phase 5 {ref['newton'][:1]}), linear its "
+          f"{out['linear']}; cells per rank {[o['cells'] for o in outs]}, "
+          f"{out['n_split']} of {out['n_levels']} GMG levels split by "
+          f"slab, rows per rank {[o['rows'] for o in outs]}; "
+          + "; ".join(f"rank {o['rank']} on {o['device']}" for o in outs)
+          + f", {out['transport']}")
+    print(f"{label}: per Newton iteration "
+          f"{1e3 * per_newton(sum(out['step_s'])):.1f} ms (the step's "
+          f"time over its Newton iterations), "
+          f"{per_newton(g['gathers']):.1f} cell gathers of "
+          f"{per_newton(g['bytes']):.0f} B, "
+          f"{per_newton(out['collectives']):.1f} collectives, "
+          f"{per_newton(out['exchanges']):.1f} exchanges and "
+          f"{per_newton(out['bytes']):.0f} B per rank (rank 0); "
+          f"{len(out['passes'])} CG passes, {its} CG iterations, "
+          f"{1e3 * per_it(wall):.2f} ms, {per_it(cg_gathers):.2f} cell "
+          f"gathers, {per_it(ex):.1f} exchanges, {per_it(coll):.1f} "
+          f"collectives and {per_it(nbytes):.0f} B per CG iteration per "
+          f"rank (the passes' setup included)")
+    print(f"{label}: peak device memory per rank "
+          f"{[o['peak_bytes'] for o in outs]} B (the one-process run, "
+          f"phase 5: {ref['peak_bytes']} B); launches per rank: sharded "
+          f"{[o['sharded'] for o in outs]}, unsharded 2d "
+          f"{[o['unsharded'] for o in outs]}, of them phase-field "
+          f"{[o['phi'] for o in outs]}; energies "
+          f"{[repr(float(e)) for e in out['energies'].ravel()]}, max rel "
+          f"difference to phase 5's load step 0 {rel:.3e} (bound 1e-10)")
+    w0, w1 = out["window"]
+    busy = [u for t, u in samples if w0 <= t <= w1]
+    print(f"{label}: idle share "
+          + (f"{100 - sum(busy) / len(busy):.1f} % (nvidia-smi "
+             f"utilization.gpu, {len(busy)} samples over the run)"
+             if busy else "not measured (no sample)"))
+    if (rel > 1e-10 or out["newton"] != ref["newton"][:1] or out["cuts"]
+            or out["steps"] != 1 or g["gathers"] <= 0
+            or any(o["sharded"] <= 0 or o["phi"] <= 0
+                   or o["unsharded"] <= o["phi"] for o in outs)):
+        raise AssertionError(f"{label}: off phase 5's run")
+
+
+def replicated_ranked_phase(refs, ranked, main_ref, golden3d):
+    """Phase 23: the replicated cell-axis mode on W ranks of the one
+    card, held to one-process card runs (`refs`, whose sneddon_3d_1 run
+    at D = 4 must be phase 9's `golden3d` table bit for bit) and to phase
+    5's replicated run (`main_ref`); `ranked`: per W the ranks' outputs
+    of phase 21's launches and the W = 4 launch's nvidia-smi samples.
+    Returns the full-width run's per-rank dicts."""
+    outs_by_w, samples = ranked
+    label3d = REPLICATED_SMALL[0][0]
+    same3d = np.array_equal(refs[label3d][1][1], golden3d, equal_nan=True)
+    print(f"{label3d}: the one-process card run at n_devices = 4 bit-equal "
+          f"to phase 9's at n_devices = 1: {same3d}")
+    if not same3d:
+        raise AssertionError(f"{label3d}: n_devices = 4 in one process is "
+                             "not phase 9's run")
+    cases = {}
+    for label, _, _, W, golden in REPLICATED_SMALL:
+        cases.setdefault(W, []).append((label, golden))
+    full = None
+    for W, outs in sorted(outs_by_w.items()):
+        infos = [o["info"] for o in outs]
+        print(f"phase 23 on cuda, {W} ranks ("
+              + "; ".join(f"rank {i['rank']} on {i['device']}"
+                          for i in infos)
+              + f"), {infos[0]['transport']}: "
+              f"{outs[0]['t1'] - outs[0]['t0']:.1f} s in rank 0 (after "
+              f"phases 21 and 22 in the same processes); peak device "
+              f"memory per rank after the small cases "
+              f"{[i['peak_bytes'] for i in infos]} B")
+        for n, (label, golden) in enumerate(cases.get(W, [])):
+            _replicated_small_report(label, outs, n, refs[label], golden)
+        if W == REPLICATED_FULL_W:
+            full = [o["full"] for o in outs]
+            _replicated_full_report(full, samples, main_ref)
+    return full
+
+
 def _main_paths():
     """The main path of each dimension at full width, replicated and
     then sharded: ({dim: main_phase's dict}, the same sharded)."""
@@ -3280,8 +3594,9 @@ def main():
     (full, full_sharded), small_card = _timed(small_phases, _main_paths)
     print(f"main_phase, sharded: {time.perf_counter() - t_start:.1f} s "
           "since the start")
-    for phase in (golden2d_phase, golden3d_phase, shipped_phase):
-        _timed(phase)
+    _timed(golden2d_phase)
+    golden3d = _timed(golden3d_phase)
+    _timed(shipped_phase)
     jacobi = _timed(production_phase)
     # the CPU references of phases 14, 17 and 18 start a phase ahead of
     # them, beside the card's phases 12-13, 16 and 17 (they were what
@@ -3303,12 +3618,17 @@ def main():
         _timed(matrix_free_phase, mf_cpu)
     multi = _timed(sharded_modes_phase, jacobi)
     _timed(ranked_phase, multi)
-    # phase 22's references, then phase 21, whose launches run phase 22's
-    # work after their own
+    # phase 22's and 23's references, then phase 21, whose launches run
+    # phase 22's and 23's work after their own
     seam_refs = _timed(seam_refs_phase)
-    lattice_kernels, lattice_full, lattice_small, seam_ranked = _timed(
-        lattice_ranked_phase, small_card, full_sharded[2], seam_work())
+    replicated_refs = _timed(replicated_refs_phase)
+    (lattice_kernels, lattice_full, lattice_small, seam_ranked,
+     replicated_ranked) = _timed(lattice_ranked_phase, small_card,
+                                 full_sharded[2], seam_work(),
+                                 replicated_work())
     seam_full = _timed(seam_ranked_phase, seam, seam_refs, seam_ranked)
+    replicated_full = _timed(replicated_ranked_phase, replicated_refs,
+                             replicated_ranked, full[2], golden3d)
     entries = []
     for k in KERNELS:
         shapes = records[k["name"]][0]
@@ -3333,6 +3653,8 @@ def main():
             entries[-1]["launches_seam_ranked"] = [o["phi"]
                                                    for o in seam_full]
             entries[-1]["launches_multi_shard"] = multi["phi"]
+            entries[-1]["launches_replicated_ranked"] = [
+                o["phi"] for o in replicated_full]
         head = shapes[0]   # the f32 u block: the main product
         entries.append({
             "name": k["name"], "route": "cuda",
@@ -3350,6 +3672,8 @@ def main():
                 o["per_step"][-1][1] - o["phi"] for o in seam_full]
             entries[-1]["seam_products"] = seam["products"]
             entries[-1]["launches_multi_shard"] = multi["rest"]
+            entries[-1]["launches_replicated_ranked"] = [
+                o["unsharded"] - o["phi"] for o in replicated_full]
         head = records[k["name"]][1][0]   # the sharded f32 u block
         entries.append({
             "name": k["sharded"], "route": "cuda",
@@ -3369,6 +3693,8 @@ def main():
                                               for o in lattice_full]
             entries[-1]["launches_seam_ranked"] = [o["per_step"][-1][0]
                                                    for o in seam_full]
+            entries[-1]["launches_replicated_ranked"] = [
+                o["sharded"] for o in replicated_full]
         else:
             entries[-1]["launches_ranked"] = [
                 sharded for sharded, _ in lattice_small[LATTICE_SMALL[-1][0]]]

@@ -26,8 +26,11 @@ exists, else the owned+ghost halo pool (`solvers.halo_newton`); the
 product mesh (`mesh_dcn`) keeps the flat partition.  On W ranks
 (`parallel.dist`, one process per rank) the lattice layout splits its
 levels by slab (seam lattices included: the seam's row copies cross a
-rank boundary where it runs between the lips) and the halo pool its D
-shards, D / W to a rank; every rank runs the host work (forest,
+rank boundary where it runs between the lips), the halo pool its D
+shards, D / W to a rank, and the replicated cell-axis mode its cells
+(`System.cells`: each rank computes its range's per-cell terms and
+gathers every rank's before the one-process scatter; its lattice solve
+runs on the rank's slabs); every rank runs the host work (forest,
 refinement, Kelly, QoI, statistics) on the gathered state, so every
 rank builds the same next mesh, and rank 0 alone prints and writes
 files.
@@ -48,10 +51,11 @@ from . import profiling, statistics
 from .ops import physics
 from .ops.constraints import (Constraints, hanging_interpolate_p,
                               hanging_interpolate_u, make_constraints)
-from .ops.scatter import CellScatter, cell_scatter
+from .ops.scatter import CellScatter, cell_scatter, piece_size
 from .output import PvdWriter, write_vtu
 from .parallel import dist, halo
-from .parallel.sharding import make_shard_mesh
+from .parallel.sharding import (CellRange, every_rank_has_rows,
+                                make_shard_mesh)
 from .solvers import (galerkin, halo_newton, lattice, lattice_newton,
                       multigrid, newton)
 from .solvers.newton import NoConvergence
@@ -104,7 +108,7 @@ class System:
                       else torch.float32)
         self._core = physics.build_cell_core(mesh, lam, mu,
                                              device=self.device)
-        self.ca = physics.cell_arrays_from_core(self._core, self.dtype)
+        self.ca_all = physics.cell_arrays_from_core(self._core, self.dtype)
         self.mixed_precision = (params.mixed_precision_cg
                                 and self.dtype == torch.float64)
         t = fem.element_tables(mesh.dim)
@@ -121,6 +125,13 @@ class System:
         # use
         self._ca32 = None
         self._cell_scatter = None
+        # the replicated cell-axis mode on W > 1 ranks (set by
+        # Simulation.setup_system): this process's range of the cells
+        # (`sharding.CellRange`), whose per-cell terms it computes from
+        # `ca`; `ca_all` keeps all cells (the energies, the dense
+        # matrix's gather maps, the scatter tables).  None in one process
+        self.cells = None
+        self._ca_own = None
         # lattice bundle (attached by Simulation.setup_system); the
         # split lattice solve builds its f32 chain by casting the f64
         # element matrices, so no f32 raster cell arrays are kept
@@ -144,14 +155,17 @@ class System:
         # lattice-layout Newton, with n_devices = D > 1 on D row slabs,
         # or the halo pool of D shards, on this System's one device or,
         # on W ranks, D / W to a rank.  Replicated DoF vectors need no
-        # shard mesh (the cell-axis mode moves no value on one device).
+        # shard mesh in one process (the cell-axis mode moves no value
+        # on one device); on W ranks their D shards split the cells
+        # (`cells`) and the lattice solve's rows.
         self.use_lattice_state = False
         self.use_halo_state = False
         self.halo_partition = None
         self.shard_mesh = (
             make_shard_mesh([self.device] * params.n_devices,
                             dcn=params.mesh_dcn, ranks=ranks)
-            if params.n_devices > 1 and params.dof_sharding == "lattice"
+            if params.n_devices > 1 and (params.dof_sharding == "lattice"
+                                         or ranks is not None)
             else None)
         # energy Lame fields on the device (qoi.energy_tcv_device); the
         # heterogeneous case's use the raw bitmap E, without the
@@ -172,32 +186,46 @@ class System:
         self.alpha_eps = 0.0
 
     @property
+    def ca(self):
+        """The cell arrays of the cells this process computes: all of
+        them (`ca_all`) in one process, its range on W ranks."""
+        if self._ca_own is None:
+            self._ca_own = self.cell_scatter.own(self.ca_all)
+        return self._ca_own
+
+    @property
     def ca32(self):
         """f32 cell arrays of the mixed-precision stored-matrix solve
-        (None when mixed precision is off)."""
+        (None when mixed precision is off), of this process's cells."""
         if not self.mixed_precision:
             return None
         if self._ca32 is None:
-            self._ca32 = physics.cell_arrays_from_core(self._core,
-                                                       torch.float32)
+            self._ca32 = self.cell_scatter.own(physics.cell_arrays_from_core(
+                self._core, torch.float32))
         return self._ca32
 
     @property
     def cell_scatter(self) -> CellScatter:
         """Scatter tables of the cell gather maps (shared by `ca` and
-        `ca32`)."""
+        `ca32`), with the card's pieces of the mesh's n_devices shards
+        (`scatter.piece_size`) and this process's cell range on W
+        ranks."""
         if self._cell_scatter is None:
             self._cell_scatter = cell_scatter(
-                self.ca, self.mesh.n_vertices * self.dim,
-                self.mesh.n_vertices)
+                self.ca_all, self.mesh.n_vertices * self.dim,
+                self.mesh.n_vertices,
+                piece_size(self.mesh.n_cells, self.params.n_devices),
+                self.cells)
         return self._cell_scatter
 
     @property
     def galerkin_fine(self) -> galerkin.LevelGeom:
         """The finest level of the Galerkin GMG: the cell gathers
-        cell-first, their scatter tables and the constraints."""
+        cell-first, their scatter tables and the constraints (on W
+        ranks the gathers of this process's cells)."""
         if self._galerkin_fine is None:
-            self._galerkin_fine = galerkin.fine_geom(self.ca, self._con)
+            self._galerkin_fine = galerkin.fine_geom(self.ca_all, self._con,
+                                                     self.cell_scatter)
         return self._galerkin_fine
 
     @property
@@ -291,10 +319,10 @@ class Simulation:
         """With `ranks` (by default the process group this process set
         up through `dist.init_process_group`, if any) of W > 1 ranks the
         run takes the rank's device, and only rank 0 prints and writes
-        files.  W must divide n_devices, and the modes on W > 1 ranks
-        are the lattice layout (seam lattices included) and the halo
-        pool: the replicated cell-axis mode raises NotImplementedError
-        (ROADMAP A11e)."""
+        files.  W must divide n_devices.  Every mode runs on W ranks:
+        the lattice layout (seam lattices included), the halo pool and
+        the replicated cell-axis mode (replicated DoF vectors, also the
+        monolithic Newton's fallback from dof_sharding = lattice)."""
         ranks = dist.current() if ranks is None else ranks
         self.ranks = ranks if ranks is not None and ranks.world > 1 else None
         if self.ranks is not None:
@@ -305,14 +333,6 @@ class Simulation:
             if params.n_devices % ranks.world:
                 raise ValueError(f"the world size {ranks.world} does not "
                                  f"divide n_devices={params.n_devices}")
-            if (params.dof_sharding != "lattice"
-                    or params.outer_solver != "active set"):
-                raise NotImplementedError(
-                    "the replicated cell-axis mode on "
-                    f"{ranks.world} ranks is ROADMAP A11e (dof_sharding="
-                    f"{params.dof_sharding}, outer solver "
-                    f"{params.outer_solver!r}); one process (W = 1) runs "
-                    "it")
             if ranks.rank > 0:
                 verbose = False
                 params = params.replace(output_dir="")
@@ -328,7 +348,10 @@ class Simulation:
                      f"{params.n_devices // params.mesh_dcn}) product mesh, "
                      "its flat partition)")
             self.log(f"n_devices = {params.n_devices}{shape} with "
-                     + ("replicated DoF vectors: the cell axis on one device"
+                     + (("replicated DoF vectors: the cell axis on one device"
+                         if self.ranks is None else
+                         "replicated DoF vectors: the cell axis split over "
+                         f"{self.ranks.world} ranks")
                         if params.dof_sharding == "replicated" else
                         f"lattice-sharded DoF vectors: {params.n_devices} "
                         f"shards on {self.device}"))
@@ -417,10 +440,19 @@ class Simulation:
             lay = lattice.detect_tensor_grid(self.mesh)
         lattice_mode = (p.dof_sharding == "lattice"
                         and p.outer_solver == "active set")
+        if not lattice_mode and self.ranks is None:
+            # replicated DoF vectors in one process: the one-shard run
+            self.sys.shard_mesh = None
         if lay is not None:
+            # the replicated Newton's lattice solve on W ranks is split by
+            # slab where every rank holds a row, else whole on each rank
+            lat_mesh = self.sys.shard_mesh
+            if (not lattice_mode and lat_mesh is not None
+                    and not every_rank_has_rows(lat_mesh, lay.grid[0])):
+                lat_mesh = None
             hier = lattice.build_lattice_hierarchy(
                 self.mesh, lay, dirichlet_fn, device=self.device,
-                lattice_layout=lattice_mode, shard_mesh=self.sys.shard_mesh)
+                shard_mesh=lat_mesh)
         if hier is not None:
             self.sys.lattice_hierarchy = hier
             self.sys._lattice_lay = lay
@@ -462,10 +494,28 @@ class Simulation:
                      f"n_loc = {part.n_loc} of {part.n_vertices} vertices"
                      f"{where})")
         elif p.dof_sharding == "lattice":
-            self.sys.shard_mesh = None
             self.log("DoF sharding = lattice requested but unavailable "
                      "(needs the active-set solver and a multi-device "
                      "mesh); falling back to replicated DoF vectors")
+        if self.ranks is not None and not (self.sys.use_lattice_state
+                                           or self.sys.use_halo_state):
+            # the replicated cell-axis mode on W ranks (JAX's default
+            # distributed mode): each rank computes its range of cells
+            cells = CellRange(self.mesh.n_cells, self.sys.shard_mesh)
+            self.sys.cells = cells
+            split = ("" if hier is None else
+                     f"; the lattice solve on the finest {hier.n_split} of "
+                     f"{hier.n_levels} GMG levels split by slab, rows "
+                     f"[{hier.slabs[-1].a}, {hier.slabs[-1].b}) of "
+                     f"{hier.grid[0]}" if hier.n_split else
+                     f"; the {hier.grid[0]}-row lattice solved whole on "
+                     "every rank (too few rows for the ranks)")
+            self.log(f"replicated cell-axis mode: D = "
+                     f"{cells.mesh.n_shards} shards of {cells.per_shard} "
+                     f"cells, {self.mesh.n_cells} cells padded to "
+                     f"{cells.mesh.n_shards * cells.per_shard}, rank 0 "
+                     f"cells [{cells.lo}, {cells.hi}), "
+                     f"{dist.describe(self.ranks)}{split}")
         # the halo pool's solve is its own Jacobi block CG: no hierarchy
         gmg = gmg and not self.sys.use_halo_state
         if gmg and hier is None:
@@ -476,7 +526,11 @@ class Simulation:
                 self.log("Galerkin GMG: levels of "
                          + ", ".join(str(int(lv.inject_p.numel()))
                                      for lv in ghier.levels)
-                         + f" and {self.mesh.n_vertices} vertices")
+                         + f" and {self.mesh.n_vertices} vertices"
+                         + ("" if self.sys.cells is None else
+                            "; the finest level split by cell range, the "
+                            "coarse chain built on every rank from the "
+                            "gathered fine element matrices"))
         if (p.preconditioner == "gmg" and hier is None
                 and not self.sys.use_halo_state
                 and self.sys.galerkin_hierarchy is None):
@@ -484,6 +538,10 @@ class Simulation:
                 self.forest, self.mesh,
                 lambda m: problems.cell_lame_fields(p, m, self.bitmap),
                 dirichlet_fn, device=self.device, dtype=self.sys.dtype)
+            if self.sys.hierarchy is not None and p.n_devices > 1:
+                self.sys.hierarchy = multigrid.on_shards(
+                    self.sys.hierarchy, p.n_devices,
+                    None if self.sys.cells is None else self.sys.shard_mesh)
             if self.sys.hierarchy is not None:
                 self.log("geometric GMG: levels of "
                          + ", ".join(str(int(lv.inject_p.numel()))
@@ -783,7 +841,7 @@ class Simulation:
             st.set_scientific("minimum cell diameter", 8)
 
             bulk_d, crack_d, tcv_d = qoi.energy_tcv_device(
-                state.u, state.phi, self.sys.ca, *self.sys.lam_mu_dev,
+                state.u, state.phi, self.sys.ca_all, *self.sys.lam_mu_dev,
                 self.constant_k, self.alpha_eps, p.G_c, dim=self.mesh.dim)
             bulk, crack = float(bulk_d), float(crack_d)
             self.log(f"No {self.timestep_number} time {self.time} "

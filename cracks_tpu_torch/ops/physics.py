@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import fem
-from .scatter import CellScatter, scatter_add
+from .scatter import WHOLE, CellScatter, scatter_add
 from .spectral import stress_split_components
 
 ALPHA_BIOT = 0.0  # reference cracks.cc:1497
@@ -54,6 +54,14 @@ class CellArrays(NamedTuple):
     lam: torch.Tensor        # (n_c,) per-cell Lame lambda
     mu: torch.Tensor         # (n_c,) per-cell Lame mu
     inv_diam2: torch.Tensor  # (n_c,) 1/diameter^2
+
+    def map_cells(self, f):
+        """These arrays with f applied to each per-cell field."""
+        return self._replace(**{k: f(getattr(self, k)) for k in CELL_FIELDS})
+
+
+CELL_FIELDS = ("gather_u", "gather_p", "JxW", "grads", "lam", "mu",
+               "inv_diam2")
 
 
 class Scalars(NamedTuple):
@@ -282,31 +290,40 @@ def assemble_residual(u, phi, phi_old, phi_oold, ca: CellArrays,
     """Global Newton right-hand side (the *negative* residual, the
     reference's local_rhs sign convention, cracks.cc:2404/2423).
     Returns (ru (n_v*dim,), rp (n_v,)), raw scatter-add through `cs`
-    (the scatter tables of `ca`), no constraints."""
+    (the scatter tables of all cells), no constraints.  `ca` holds the
+    cells this process computes: all of them in one process, its range
+    (`cs.cells`) on W ranks of the replicated cell-axis mode, whose
+    terms every rank gathers before the scatter.  So do the jvp and the
+    diagonals below."""
     nvc = ca.gather_p.shape[0]
-    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
-                                             ca, dim)
-    ru_e, rp_e = _element_residual_cl(u_e, phi_e, pfo_e, pfoo_e, ca, sc,
-                                      dim=dim, with_split=with_split,
-                                      monolithic=monolithic)
-    ru = scatter_add(cs.u, ru_e.reshape(nvc * dim, -1), torch.zeros_like(u))
+
+    def cells(ca):
+        ru_e, rp_e = _element_residual_cl(
+            *_cell_values(u, phi, phi_old, phi_oold, ca, dim), ca, sc,
+            dim=dim, with_split=with_split, monolithic=monolithic)
+        return ru_e.reshape(nvc * dim, -1), rp_e
+
+    ru_e, rp_e = cs.cell_terms(cells, ca)
+    ru = scatter_add(cs.u, ru_e, torch.zeros_like(u))
     rp = scatter_add(cs.p, rp_e, torch.zeros_like(phi))
     return ru, rp
 
 
 def element_matrices(u, phi, phi_old, phi_oold, ca: CellArrays,
                      sc: Scalars, *, dim: int, with_split: bool,
-                     monolithic: bool):
+                     monolithic: bool, cs: CellScatter = WHOLE):
     """Dense element Jacobians J_loc = -d(rhs_loc)/d(x_loc) per cell,
     cell-last: (ndl, ndl, n_c).  Local dof order: u dofs vertex-major
     (a*dim+d), then the nvc phi dofs.
 
     Built from ndl one-hot jvps of the batched cell-last residual on
     pre-gathered cell values (JAX: element_matrices(cell_last=True) via
-    element_matrices_from_cellvals)."""
-    return element_matrices_from_cellvals(
+    element_matrices_from_cellvals), of the cells of `ca`, this
+    process's with the System's CellScatter `cs` (`CellScatter.local`:
+    on the card in its pieces)."""
+    return cs.local(lambda ca: element_matrices_from_cellvals(
         *_cell_values(u, phi, phi_old, phi_oold, ca, dim), ca, sc, dim=dim,
-        with_split=with_split, monolithic=monolithic)
+        with_split=with_split, monolithic=monolithic), ca)
 
 
 # (cell, tangent) pairs per vmapped pass of the element-matrix build: a
@@ -361,18 +378,23 @@ def jacobian_vector_product(u, phi, du, dphi, phi_old, phi_oold,
     up to rounding.  Returns (ju (n_v*dim,), jp (n_v,)), raw (no
     constraints)."""
     nvc = ca.gather_p.shape[0]
-    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
-                                             ca, dim)
 
-    def f(ue, pe):
-        return _element_residual_cl(ue, pe, pfo_e, pfoo_e, ca, sc, dim=dim,
-                                    with_split=with_split,
-                                    monolithic=monolithic)
+    def cells(ca):
+        u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
+                                                 ca, dim)
 
-    _, (dru_e, drp_e) = torch.func.jvp(
-        f, (u_e, phi_e), (du[ca.gather_u].reshape(nvc, dim, -1),
-                          dphi[ca.gather_p]))
-    dru = scatter_add(cs.u, dru_e.reshape(nvc * dim, -1), torch.zeros_like(u))
+        def f(ue, pe):
+            return _element_residual_cl(ue, pe, pfo_e, pfoo_e, ca, sc,
+                                        dim=dim, with_split=with_split,
+                                        monolithic=monolithic)
+
+        _, (dru_e, drp_e) = torch.func.jvp(
+            f, (u_e, phi_e), (du[ca.gather_u].reshape(nvc, dim, -1),
+                              dphi[ca.gather_p]))
+        return dru_e.reshape(nvc * dim, -1), drp_e
+
+    dru_e, drp_e = cs.cell_terms(cells, ca)
+    dru = scatter_add(cs.u, dru_e, torch.zeros_like(u))
     drp = scatter_add(cs.p, drp_e, torch.zeros_like(phi))
     return -dru, -drp
 
@@ -384,8 +406,9 @@ def jacobian_diagonal(u, phi, phi_old, phi_oold, ca: CellArrays,
     element matrices' diagonals, scatter-added."""
     nvc = ca.gather_p.shape[0]
     jac = element_matrices(u, phi, phi_old, phi_oold, ca, sc, dim=dim,
-                           with_split=with_split, monolithic=monolithic)
-    d_loc = jac.diagonal(dim1=0, dim2=1).T               # (ndl, n_c)
+                           with_split=with_split, monolithic=monolithic,
+                           cs=cs)
+    (d_loc,) = cs.all_cells(jac.diagonal(dim1=0, dim2=1).T)   # (ndl, n_c)
     du = scatter_add(cs.u, d_loc[:nvc * dim], torch.zeros_like(u))
     dp = scatter_add(cs.p, d_loc[nvc * dim:], torch.zeros_like(phi))
     return du, dp
@@ -402,48 +425,60 @@ def jacobi_diagonal_approx(u, phi, phi_old, phi_oold, ca: CellArrays,
     (without the straight-through tangent: nothing is differentiated
     here).  Returns (du (n_v*dim,), dp (n_v,))."""
     nvc = ca.gather_p.shape[0]
-    u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
-                                             ca, dim)
-    pf = torch.einsum("qa,ac->qc", ca.shape_v, phi_e)
-    pf_old = torch.einsum("qa,ac->qc", ca.shape_v, pfo_e)
-    pf_oold = torch.einsum("qa,ac->qc", ca.shape_v, pfoo_e)
-    if monolithic:
-        pf = pf.clamp_min(0.0)
-        pf_old = pf_old.clamp_min(0.0)
-        pf_oold = pf_oold.clamp_min(0.0)
-    pf_extra = _pf_extra(pf, pf_old, pf_oold, sc)
-    degr = (1.0 - sc.constant_k) * pf_extra**2 + sc.constant_k   # (q, c)
 
-    grad_u = torch.einsum("adc,qaec->qdec", u_e, ca.grads)
-    div_u = sum(grad_u[:, d, d] for d in range(dim))
-    strain = {}
-    for i in range(dim):
-        for j in range(i, dim):
-            strain[(i, j)] = 0.5 * (grad_u[:, i, j] + grad_u[:, j, i])
-    sp, _ = _full_stress_components(strain, ca.lam[None, :], ca.mu[None, :],
-                                    dim)
-    sp_E = sum((1.0 if i == j else 2.0) * sp[(i, j)] * strain[(i, j)]
-               for i in range(dim) for j in range(i, dim))
+    def cells(ca):
+        u_e, phi_e, pfo_e, pfoo_e = _cell_values(u, phi, phi_old, phi_oold,
+                                                 ca, dim)
+        pf = torch.einsum("qa,ac->qc", ca.shape_v, phi_e)
+        pf_old = torch.einsum("qa,ac->qc", ca.shape_v, pfo_e)
+        pf_oold = torch.einsum("qa,ac->qc", ca.shape_v, pfoo_e)
+        if monolithic:
+            pf = pf.clamp_min(0.0)
+            pf_old = pf_old.clamp_min(0.0)
+            pf_oold = pf_oold.clamp_min(0.0)
+        pf_extra = _pf_extra(pf, pf_old, pf_oold, sc)
+        degr = (1.0 - sc.constant_k) * pf_extra**2 + sc.constant_k
 
-    gw = ca.grads * ca.JxW[:, None, None, :]                # (q, a, e, c)
-    g2 = torch.einsum("qaec,qaec->qac", ca.grads, gw)       # |grad N|^2 JxW
-    # u diagonal per (a, d): (lam + mu) (dN_d)^2 + mu |grad N|^2, degraded
-    du_ad = []
-    for d in range(dim):
-        gd2 = ca.grads[:, :, d, :] * gw[:, :, d, :]
-        term = ((ca.lam + ca.mu)[None, None, :] * gd2
-                + ca.mu[None, None, :] * g2)
-        du_ad.append(torch.einsum("qc,qac->ac", degr, term))
-    du_e = torch.stack(du_ad, dim=1).reshape(nvc * dim, -1)
+        grad_u = torch.einsum("adc,qaec->qdec", u_e, ca.grads)
+        div_u = sum(grad_u[:, d, d] for d in range(dim))
+        strain = {}
+        for i in range(dim):
+            for j in range(i, dim):
+                strain[(i, j)] = 0.5 * (grad_u[:, i, j] + grad_u[:, j, i])
+        sp, _ = _full_stress_components(strain, ca.lam[None, :],
+                                        ca.mu[None, :], dim)
+        sp_E = sum((1.0 if i == j else 2.0) * sp[(i, j)] * strain[(i, j)]
+                   for i in range(dim) for j in range(i, dim))
 
-    gap_pos = torch.where(pf - pf_old < 0.0, 0.0, 1.0).to(pf.dtype)
-    react = ((1.0 - sc.constant_k) * sp_E
-             + sc.G_c / sc.alpha_eps
-             + sc.gamma_dt * ca.inv_diam2[None, :] * gap_pos
-             - 2.0 * (ALPHA_BIOT - 1.0) * sc.pressure * div_u)   # (q, c)
-    NN = ca.shape_v * ca.shape_v                             # (q, a)
-    dp_e = (torch.einsum("qc,qa,qc->ac", react, NN, ca.JxW)
-            + sc.G_c * sc.alpha_eps * torch.einsum("qac->ac", g2))
+        gw = ca.grads * ca.JxW[:, None, None, :]            # (q, a, e, c)
+        g2 = torch.einsum("qaec,qaec->qac", ca.grads, gw)   # |grad N|^2 JxW
+        # the sum over the quadrature points in order: a reduction's
+        # order of terms may depend on the number of cells it sees, and
+        # a cell's terms must not (`scatter.in_pieces`)
+        g2_sum = g2[0]
+        for q in range(1, g2.shape[0]):
+            g2_sum = g2_sum + g2[q]
+        # u diagonal per (a, d): (lam + mu) (dN_d)^2 + mu |grad N|^2,
+        # degraded
+        du_ad = []
+        for d in range(dim):
+            gd2 = ca.grads[:, :, d, :] * gw[:, :, d, :]
+            term = ((ca.lam + ca.mu)[None, None, :] * gd2
+                    + ca.mu[None, None, :] * g2)
+            du_ad.append(torch.einsum("qc,qac->ac", degr, term))
+        du_e = torch.stack(du_ad, dim=1).reshape(nvc * dim, -1)
+
+        gap_pos = torch.where(pf - pf_old < 0.0, 0.0, 1.0).to(pf.dtype)
+        react = ((1.0 - sc.constant_k) * sp_E
+                 + sc.G_c / sc.alpha_eps
+                 + sc.gamma_dt * ca.inv_diam2[None, :] * gap_pos
+                 - 2.0 * (ALPHA_BIOT - 1.0) * sc.pressure * div_u)
+        NN = ca.shape_v * ca.shape_v                         # (q, a)
+        dp_e = (torch.einsum("qc,qa,qc->ac", react, NN, ca.JxW)
+                + sc.G_c * sc.alpha_eps * g2_sum)
+        return du_e, dp_e
+
+    du_e, dp_e = cs.cell_terms(cells, ca)
     du = scatter_add(cs.u, du_e, torch.zeros_like(u))
     dp = scatter_add(cs.p, dp_e, torch.zeros_like(phi))
     return du, dp

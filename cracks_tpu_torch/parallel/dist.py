@@ -3,7 +3,8 @@ rank.
 
 A run on W ranks holds its D = ``n_devices`` shards D/W consecutive
 shards to a rank (`sharding.make_shard_mesh`); the shards meet only in
-`sharding.psum_shards` and `sharding.pmax_shards`, which call
+`sharding.psum_shards`, `sharding.pmax_shards` and, in the replicated
+cell-axis mode, `sharding.CellRange.gather`, which call
 `all_gather_shards` and `all_max` here, and, on the lattice layout, in
 the row exchanges of `sharding.ppermute_rows` and `sharding.Slab`,
 which call `exchange_rows`: one round of point-to-point sends between
@@ -46,6 +47,9 @@ TIMEOUT_S = 300.0
 # collectives and the bytes each rank put into them, since the last
 # reset (`reset_counts`)
 COUNTS = dict(collectives=0, bytes=0)
+# of them, the replicated cell-axis mode's gathers of per-cell terms
+# (`sharding.CellRange.gather`) and their bytes
+CELL_GATHERS = dict(gathers=0, bytes=0)
 # neighbour row exchanges (`exchange_rows`) and the bytes each rank sent
 # in them, since the last reset; of them the seam lattice's own, the
 # mirror row's glued columns sent across a rank boundary
@@ -149,6 +153,7 @@ def describe(ranks: Ranks) -> str:
 
 def reset_counts() -> None:
     COUNTS.update(collectives=0, bytes=0)
+    CELL_GATHERS.update(gathers=0, bytes=0)
     EXCHANGES.update(exchanges=0, bytes=0, seam=0, seam_bytes=0)
 
 

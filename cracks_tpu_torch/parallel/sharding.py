@@ -14,13 +14,18 @@ device, as the JAX tests run 8 virtual CPU devices on one host.  On W
 ranks (torch.distributed, one process per rank, `dist.py`) rank r
 holds the D/W consecutive shards from r * D/W on its own device.  The
 JAX placements under GSPMD -- ``shard_cell_core``,
-``shard_cell_arrays``, ``shard_cell_arrays_nopad``, ``pad_cell_arrays``
-(``parallel/sharding.py:102-173``) and ``lattice._maybe_shard_jacs``
+``shard_cell_arrays``, ``shard_cell_arrays_nopad`` (``parallel/
+sharding.py:126-173``) and ``lattice._maybe_shard_jacs``
 (``lattice.py:1735``) -- move no value between shards and change no
 result, so on one device they are no-ops and have no code here.  That
 is all the replicated cell-axis mode (``n_devices > 1`` with replicated
-DoF vectors) is: the port runs it as the one-shard run (on W > 1 ranks
-it is ROADMAP A11e).
+DoF vectors) is in one process: the port runs it as the one-shard run.
+On W > 1 ranks it splits the cell axis as ``pad_cell_arrays``
+(``:102-124``) pads it (`CellRange`): every rank holds the whole DoF
+vectors and computes the per-cell terms of its shards' cells only,
+and every sum over cells gathers all ranks' terms in cell order before
+the one-process ordered scatter (`ops.scatter`), so every rank holds
+the one-process vector bit for bit.
 
 The lattice layout splits the finest levels of the lattice GMG by
 slab (`Slab`, `level_slabs`): at level l (2:1 coarser per level) shard
@@ -142,6 +147,73 @@ def make_shard_mesh(devices: Sequence, dcn: int = 1,
                          f"{ranks.device}")
     return ShardMesh(len(devs), dev, max(dcn, 1),
                      ranks if world > 1 else None)
+
+
+class CellRange(NamedTuple):
+    """The replicated cell-axis mode's split of a mesh's n_cells cells
+    over the D shards of `mesh` (JAX ``pad_cell_arrays``): the cell axis
+    padded with zero-JxW cells to D * m, m = ceil(n_cells / D), shard i
+    owning the cells [i * m, (i+1) * m).  This process holds its shards'
+    consecutive cells [lo, hi), one range: (D / W) * m cells, pad cells
+    included on the last rank.  The halo pool's ranges
+    (`halo.build_halo_partition`, ``np.linspace`` bounds) are another
+    partition, as in JAX."""
+
+    n_cells: int
+    mesh: ShardMesh
+
+    @property
+    def per_shard(self) -> int:
+        return -(-self.n_cells // self.mesh.n_shards)
+
+    @property
+    def lo(self) -> int:
+        return self.mesh.first * self.per_shard
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.mesh.n_local * self.per_shard
+
+    def take(self, a, fill=0):
+        """This process's cells [lo, hi) of a per-cell array (cell axis
+        last), the pad cells set to `fill`."""
+        pad = self.mesh.n_shards * self.per_shard - a.shape[-1]
+        if pad:
+            a = torch.cat([a, a.new_full(a.shape[:-1] + (pad,), fill)], -1)
+        return a[..., self.lo:self.hi].contiguous()
+
+    def own(self, ca):
+        """This process's cells of the cell arrays `ca` (a
+        `physics.CellArrays`): the pad cells have zero JxW (no
+        contribution anywhere), gathers at DoF 0 and unit Lame and
+        diameter fields, as JAX pads them."""
+        t = self.take
+        return ca._replace(
+            gather_u=t(ca.gather_u), gather_p=t(ca.gather_p), JxW=t(ca.JxW),
+            grads=t(ca.grads), lam=t(ca.lam, 1), mu=t(ca.mu, 1),
+            inv_diam2=t(ca.inv_diam2, 1))
+
+    def gather(self, *values):
+        """Every process's per-cell terms, in cell order: each value
+        (..., hi - lo) with the cell axis last (one dtype for all)
+        becomes (..., n_cells), the pad cells dropped, from one gather
+        of all of them.  In one process (W = 1) the values
+        themselves."""
+        if self.mesh.world == 1:
+            return values
+        m = self.hi - self.lo
+        flat = torch.cat([v.reshape(-1, m) for v in values])
+        dist.CELL_GATHERS["gathers"] += 1
+        dist.CELL_GATHERS["bytes"] += flat.numel() * flat.element_size()
+        every = dist.all_gather_shards(flat.unsqueeze(0), self.mesh.ranks)
+        every = every.permute(1, 0, 2).reshape(flat.shape[0], -1)
+        out, at = [], 0
+        for v in values:
+            rows = v.numel() // m
+            out.append(every[at:at + rows, :self.n_cells].reshape(
+                v.shape[:-1] + (self.n_cells,)))
+            at += rows
+        return tuple(out)
 
 
 def gather_shards(x: torch.Tensor, mesh: ShardMesh | None = None
@@ -428,6 +500,12 @@ def level_bounds(mesh: ShardMesh, g0: int, n_levels: int,
     return grids, bounds
 
 
+def every_rank_has_rows(mesh: ShardMesh, g0: int) -> bool:
+    """Whether each of the mesh's W ranks holds a row of a g0-row
+    lattice (its last rank's first row lies inside)."""
+    return (mesh.world - 1) * mesh.n_local * mesh.rows_loc(g0) < g0
+
+
 def level_slabs(mesh: ShardMesh | None, g0: int, n_levels: int,
                 seam_row: int | None = None):
     """This process's `Slab` of every level of a 2:1 lattice hierarchy
@@ -451,7 +529,7 @@ def level_slabs(mesh: ShardMesh | None, g0: int, n_levels: int,
         sizes.append([bounds[i + 1] - bounds[i] for i in range(D)])
         spans = tuple((bounds[r * nl], bounds[(r + 1) * nl])
                       for r in range(W))
-        if l == 0 and W > 1 and any(a == b for a, b in spans):
+        if l == 0 and W > 1 and not every_rank_has_rows(mesh, g0):
             raise ValueError(f"{W} ranks of {D} shards leave a rank without "
                              f"rows of the {g0}-row lattice")
         slabs.append(Slab(g, bounds[first], bounds[last], mesh,

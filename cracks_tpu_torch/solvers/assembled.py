@@ -18,6 +18,11 @@ A_pp = J[nud_l:, nud_l:] are slices of the same stored array, and the
 solve is a pair of Jacobi-preconditioned CGs: A_uu du = b_u, then
 A_pp dp = b_p - A_pu du.
 
+On W ranks of the replicated cell-axis mode a rank stores the element
+matrices of its own cells (`sharding.CellRange`) and each product
+gathers every rank's per-cell products before the ordered scatter
+(`CellScatter.all_cells`): one gather per product.
+
 The JAX package advances each CG in host-driven chunks of device
 iterations; here the loop is on the host, one iteration at a time,
 with the same stopping rules: the first iteration with |r|^2 <= tol2
@@ -37,38 +42,43 @@ from ..ops import physics
 from ..ops.constraints import (Constraints, hanging_interpolate_p,
                                hanging_interpolate_u, hanging_transpose_p,
                                hanging_transpose_u)
-from ..ops.scatter import CellScatter, scatter_add
+from ..ops.scatter import WHOLE, CellScatter, scatter_add
 
 
 def build_jacobians(u, phi, phi_old, phi_oold, ca: physics.CellArrays,
                     sc: physics.Scalars, *, dim: int, with_split: bool,
-                    monolithic: bool):
+                    monolithic: bool, cs: CellScatter = WHOLE):
     """(ndl, ndl, n_c) cell-last element Jacobians at the current
-    Newton linearization point."""
+    Newton linearization point, of the cells of `ca` (this process's,
+    `CellScatter.local`)."""
     return physics.element_matrices(
         u, phi, phi_old, phi_oold, ca, sc, dim=dim, with_split=with_split,
-        monolithic=monolithic)
+        monolithic=monolithic, cs=cs)
 
 
 # ---------------------------------------------------------------------------
 # raw block matvecs (no constraints)
 # ---------------------------------------------------------------------------
 
-def _block_apply(jac_blk, xe):
-    return torch.einsum("ijc,jc->ic", jac_blk, xe)
+def _block_apply(jac_blk, x, gather, cs: CellScatter):
+    """The per-cell products of one block with x's cell values, of all
+    cells (`CellScatter.cell_terms`)."""
+    (ye,) = cs.cell_terms(
+        lambda blk, g: torch.einsum("ijc,jc->ic", blk, x[g]), jac_blk, gather)
+    return ye
 
 
 def matvec_uu(jac_cl, ca: physics.CellArrays, x, cs: CellScatter, *,
               dim: int):
     nud_l = ca.gather_p.shape[0] * dim
-    ye = _block_apply(jac_cl[:nud_l, :nud_l], x[ca.gather_u])
+    ye = _block_apply(jac_cl[:nud_l, :nud_l], x, ca.gather_u, cs)
     return scatter_add(cs.u, ye, x.new_zeros(cs.n_ud))
 
 
 def matvec_pp(jac_cl, ca: physics.CellArrays, x, cs: CellScatter, *,
               dim: int):
     nud_l = ca.gather_p.shape[0] * dim
-    ye = _block_apply(jac_cl[nud_l:, nud_l:], x[ca.gather_p])
+    ye = _block_apply(jac_cl[nud_l:, nud_l:], x, ca.gather_p, cs)
     return scatter_add(cs.p, ye, x.new_zeros(cs.n_p))
 
 
@@ -76,7 +86,7 @@ def matvec_pu(jac_cl, ca: physics.CellArrays, xu, cs: CellScatter, *,
               dim: int):
     """Coupling block action: phi rows, u columns (B du)."""
     nud_l = ca.gather_p.shape[0] * dim
-    ye = _block_apply(jac_cl[nud_l:, :nud_l], xu[ca.gather_u])
+    ye = _block_apply(jac_cl[nud_l:, :nud_l], xu, ca.gather_u, cs)
     return scatter_add(cs.p, ye, xu.new_zeros(cs.n_p))
 
 
@@ -85,7 +95,7 @@ def diagonals(jac_cl, ca: physics.CellArrays, cs: CellScatter, *,
     """Exact global Jacobi diagonals (du (n_ud,), dp (n_p,)) from the
     stored element matrices."""
     nud_l = ca.gather_p.shape[0] * dim
-    d_loc = jac_cl.diagonal(dim1=0, dim2=1).T               # (ndl, c)
+    (d_loc,) = cs.all_cells(jac_cl.diagonal(dim1=0, dim2=1).T)  # (ndl, c)
     du = scatter_add(cs.u, d_loc[:nud_l], jac_cl.new_zeros(cs.n_ud))
     dp = scatter_add(cs.p, d_loc[nud_l:], jac_cl.new_zeros(cs.n_p))
     return du, dp

@@ -24,15 +24,20 @@ nodes where the fine mesh does not.
 Layout: level element matrices are cell-first, (n_c, ndl, ndl), so each
 block product is one `torch.bmm`; gathers are (n_c, nvc*dim) and
 (n_c, nvc), and every scatter sums in index order (`ops/scatter.py`),
-so a card run repeats its iterates bit for bit.
+so a card run repeats its iterates bit for bit.  On W ranks of the
+replicated cell-axis mode the finest level is split: a rank builds and
+stores its own cells' element matrices, and every fine product, diagonal
+and row sum gathers all ranks' per-cell terms before the ordered
+scatter.  The coarse chain is built on every rank from the gathered
+fine matrices and runs whole there (its split is ROADMAP A11e part 2).
 
 Two solves use the hierarchy (`solvers/newton._solve_assembled`):
 `solve_cg_block`, the f64 Galerkin-preconditioned block CG with
 restarted refinement passes, and `solve_split`, the mixed-precision
 solve: f32 element matrices rebuilt from f32 inputs, all-f32 CG passes
 preconditioned by the f32 V-cycle, and the exact f64 residual between
-passes through one `torch.func.jvp` of the f64 residual assembly (no
-f64 matrix is built).  The JAX package's fused one-dispatch variant
+passes through one jvp of the f64 element residual (no f64 matrix is
+built).  The JAX package's fused one-dispatch variant
 (``solve_newton_system``) exists only for the TPU's dispatch latency
 and is not ported; `solve_split` serves every size, with the fused
 solve's residual target up to the size JAX fuses (`block_target`).  Each CG loop keeps
@@ -55,8 +60,8 @@ from ..ops.constraints import (Constraints, condense_residual, expand_update,
                                hanging_interpolate_p, hanging_interpolate_u,
                                hanging_transpose_p, hanging_transpose_u,
                                make_constraints)
-from ..ops.scatter import (ScatterTable, scatter_add, scatter_add_rows,
-                           scatter_table)
+from ..ops.scatter import (WHOLE, CellScatter, ScatterTable, scatter_add,
+                           scatter_add_rows, scatter_table)
 from . import assembled, opcache
 from .multigrid import (_chebyshev, _prolong, _restrict, lanczos_lambda_max,
                         sharp_spectrum, smoothing_range)
@@ -153,13 +158,18 @@ def embedding_matrices(dim: int) -> np.ndarray:
 class LevelGeom(NamedTuple):
     """The gather maps of one level's cells (cell-first), their scatter
     tables (the level operator's sum order) and the level's constraint
-    bundle (hanging nodes and Dirichlet masks)."""
+    bundle (hanging nodes and Dirichlet masks).  The finest level's
+    `cs` is the System's CellScatter: its block products, diagonals and
+    row sums go through `CellScatter.cell_terms`, and on W ranks of the
+    replicated cell-axis mode its gathers are those of this process's
+    cells, its scatter tables those of all cells."""
 
     gather_u: torch.Tensor     # (n_c, nvc*dim) int64
     gather_p: torch.Tensor     # (n_c, nvc) int64
     scatter_u: ScatterTable
     scatter_p: ScatterTable
     con: Constraints
+    cs: CellScatter = WHOLE
 
 
 def level_geom(gather_u, gather_p, con: Constraints) -> LevelGeom:
@@ -167,11 +177,17 @@ def level_geom(gather_u, gather_p, con: Constraints) -> LevelGeom:
                      scatter_table(gather_p), con)
 
 
-def fine_geom(ca: physics.CellArrays, con: Constraints) -> LevelGeom:
-    """The finest level's LevelGeom from the System's cell arrays
-    (cell-last gathers) and constraints."""
-    return level_geom(ca.gather_u.T.contiguous(), ca.gather_p.T.contiguous(),
-                      con)
+def fine_geom(ca: physics.CellArrays, con: Constraints,
+              cs: CellScatter = WHOLE) -> LevelGeom:
+    """The finest level's LevelGeom from the System's cell arrays of
+    all cells (cell-last gathers), its constraints and its CellScatter
+    `cs`."""
+    g = level_geom(ca.gather_u.T.contiguous(), ca.gather_p.T.contiguous(),
+                   con)
+    if cs.cells is not None:
+        g = g._replace(gather_u=cs.cells.take(ca.gather_u).T.contiguous(),
+                       gather_p=cs.cells.take(ca.gather_p).T.contiguous())
+    return g._replace(cs=cs)
 
 
 class GLevel(NamedTuple):
@@ -296,10 +312,12 @@ def _block(jac, which: str, dim: int):
     return jac[:, :nud_l, :nud_l] if which == "u" else jac[:, nud_l:, nud_l:]
 
 
-def _matvec(blk, gather, st: ScatterTable, x):
+def _matvec(blk, gather, st: ScatterTable, x, cs: CellScatter = WHOLE):
     """Raw block product: gather, batched dense matvec, ordered
-    scatter-add."""
-    ye = torch.bmm(blk, x[gather].unsqueeze(-1)).squeeze(-1)
+    scatter-add (of every process's cells, `CellScatter.cell_terms`)."""
+    (ye,) = cs.cell_terms(
+        lambda b, xg: torch.bmm(b, xg.unsqueeze(-1)).squeeze(-1), blk,
+        x[gather], axis=0)
     return scatter_add(st, ye, torch.zeros_like(x))
 
 
@@ -310,27 +328,29 @@ def _hang(which: str):
     return hanging_interpolate_p, hanging_transpose_p
 
 
-def _masked_op(blk, gather, st, free, con: Constraints, which: str):
+def _masked_op(blk, gather, st, free, con: Constraints, which: str,
+               cs: CellScatter = WHOLE):
     """Condensed masked block operator: mask . H^T A_raw H . mask (H the
     identity on a conforming level)."""
     interp, transpose = _hang(which)
 
     def op(x):
         x = interp(torch.where(free, x, 0.0), con)
-        y = transpose(_matvec(blk, gather, st, x), con)
+        y = transpose(_matvec(blk, gather, st, x, cs), con)
         return torch.where(free, y, 0.0)
     return op
 
 
 def _gershgorin_lambda_max(blk, gather, st, free, Dinv, con: Constraints,
-                           which: str):
+                           which: str, cs: CellScatter = WHOLE):
     """Deterministic upper bound on lambda_max(D^-1 A): the Gershgorin
     row sums, over-approximated element-wise.  An UPPER bound matters:
     Chebyshev amplifies modes above its window, and power iteration sits
     below lambda_max when the top mode lives in the crack strip (see the
     JAX function).  With hanging constraints, |H|^T applied to the raw
     row sums bounds the condensed rows."""
-    rs = blk.abs().sum(dim=2)                               # (c, b)
+    (rs,) = cs.cell_terms(lambda b: b.abs().sum(dim=2), blk,
+                          axis=0)                           # (c, b)
     s = scatter_add(st, rs, torch.zeros_like(Dinv))
     if which == "u":
         child, w, hst = con.hang_child_u, con.hang_weights_u, \
@@ -344,7 +364,8 @@ def _gershgorin_lambda_max(blk, gather, st, free, Dinv, con: Constraints,
     return torch.where(free, s * Dinv.abs(), 0.0).max()
 
 
-def _lambda_est(blk, gather, st, free, Dinv, con, which, *, sharp: bool):
+def _lambda_est(blk, gather, st, free, Dinv, con, which, *, sharp: bool,
+                cs: CellScatter = WHOLE):
     """lambda_max(D^-1 A) for the Chebyshev smoother: the Gershgorin
     bound; with `sharp` (the production window) a 16-step Lanczos
     estimate on the symmetrized operator (J + J^T)/2, capped by the
@@ -353,10 +374,12 @@ def _lambda_est(blk, gather, st, free, Dinv, con, which, *, sharp: bool):
     coarse phase-field vertex in the active set) has no spectrum and
     takes 1, on which the smoother returns zero; the JAX package keeps
     its bound 0 and divides by it (ROADMAP C12)."""
-    lam = _gershgorin_lambda_max(blk, gather, st, free, Dinv, con, which)
+    lam = _gershgorin_lambda_max(blk, gather, st, free, Dinv, con, which,
+                                 cs)
     if sharp:
-        op = _masked_op(blk, gather, st, free, con, which)
-        opT = _masked_op(blk.transpose(1, 2), gather, st, free, con, which)
+        op = _masked_op(blk, gather, st, free, con, which, cs)
+        opT = _masked_op(blk.transpose(1, 2), gather, st, free, con, which,
+                         cs)
         ritz = lanczos_lambda_max(lambda x: 0.5 * (op(x) + opT(x)), Dinv,
                                   free)
         ok = torch.isfinite(ritz) & (ritz > 0)
@@ -381,11 +404,11 @@ def _level_blockdata(jacs, geoms, injects, active, which: str, *, dim: int,
             act_l = active if i == len(jacs) - 1 else active[injects[i]]
             free = ~(con.dirichlet_p | con.hang_mask_p | act_l)
             gather, st = g.gather_p, g.scatter_p
-        d = scatter_add(st, blk.diagonal(dim1=1, dim2=2),
-                        jac.new_zeros(free.shape[0]))
+        (d,) = g.cs.all_cells(blk.diagonal(dim1=1, dim2=2), axis=0)
+        d = scatter_add(st, d, jac.new_zeros(free.shape[0]))
         Dinv = torch.where(free & (d.abs() > 0), 1.0 / d, 1.0)
         lam = _lambda_est(blk, gather, st, free, Dinv, con, which,
-                          sharp=sharp)
+                          sharp=sharp, cs=g.cs)
         out.append((free, Dinv, lam))
     return tuple(out)
 
@@ -421,10 +444,13 @@ def build_level_ops(hier: GalerkinHierarchy, jac_fine, fine: LevelGeom,
     geoms = [lvl.geom for lvl in levels] + [fine]
     injects = [lvl.inject_p for lvl in levels]
     if reuse is None:
-        jacs = [jac_fine]
+        # on W ranks the chain starts from every rank's fine matrices,
+        # gathered: each rank coarsens all of them (ROADMAP A11e part 2)
+        jacs = list(fine.cs.all_cells(jac_fine, axis=0))
         for lvl in reversed(levels):
             jacs.insert(0, coarsen_level(jacs[0], lvl, hier.P_embed,
                                          lvl.geom.gather_p.shape[0]))
+        jacs[-1] = jac_fine
         jacs = tuple(jacs)
         u_data = _level_blockdata(jacs, geoms, injects, active, "u",
                                   dim=dim, sharp=sharp)
@@ -459,7 +485,7 @@ def _pieces(lv: _LevelOps, which: str, dim: int):
         gather, st, free, Dinv, lam = (g.gather_p, g.scatter_p, lv.free_p,
                                        lv.Dinv_p, lv.lam_p)
     op = _masked_op(_block(lv.jac, which, dim), gather, st, free, g.con,
-                    which)
+                    which, g.cs)
     return op, free, Dinv, lam, g.con
 
 
@@ -686,7 +712,8 @@ def _g_jac32(sys, u, phi, phi_old, phi_oold, with_split):
     jac = physics.element_matrices(
         f32(u), f32(phi), f32(phi_old), f32(phi_oold), sys.ca32,
         physics.Scalars(*(f32(v) for v in sys.scalars)), dim=sys.dim,
-        with_split=with_split, monolithic=sys.monolithic)
+        with_split=with_split, monolithic=sys.monolithic,
+        cs=sys.cell_scatter)
     return jac.permute(2, 0, 1).contiguous()
 
 
@@ -722,21 +749,19 @@ def _g_pass_apply(sys, u, phi, phi_old, phi_oold, con, active, Xb, scale,
                   x_acc, b, which, with_split):
     """f32 -> f64 boundary of one CG pass: the trial accumulate, the
     EXACT f64 Newton operator applied to it as one jvp of the f64
-    residual assembly at the Newton point, and the trial residual.
+    element residual at the Newton point, scattered in order
+    (`physics.jacobian_vector_product`), and the trial residual.
     Returns (x_try, r_try, rr_try, J_pu x_try for 'u' else None)."""
     x_try = x_acc + Xb.to(torch.float64) * scale
     zu = torch.zeros_like(u)
     zp = torch.zeros_like(phi)
     eu, ep = expand_update(x_try if which == "u" else zu,
                            zp if which == "u" else x_try, con, active)
-
-    def res64(uu, pp):
-        return physics.assemble_residual(
-            uu, pp, phi_old, phi_oold, sys.ca, sys.scalars, sys.cell_scatter,
-            dim=sys.dim, with_split=with_split, monolithic=sys.monolithic)
-
-    _, (ju, jp) = torch.func.jvp(res64, (u, phi), (eu, ep))
-    ju, jp = condense_residual(-ju, -jp, con, active)
+    ju, jp = physics.jacobian_vector_product(
+        u, phi, eu, ep, phi_old, phi_oold, sys.ca, sys.scalars,
+        sys.cell_scatter, dim=sys.dim, with_split=with_split,
+        monolithic=sys.monolithic)
+    ju, jp = condense_residual(ju, jp, con, active)
     r_try = b - (ju if which == "u" else jp)
     return x_try, r_try, torch.dot(r_try, r_try), (jp if which == "u"
                                                     else None)

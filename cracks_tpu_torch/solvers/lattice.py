@@ -50,15 +50,16 @@ them, and the coarse factor, identically.  A seam lattice splits the
 same way: its transfers and coarsening work per lip on a slab, the
 spread follows the halo exchange (`seam_ext`), and where the seam runs
 between two ranks the collect takes one exchange between them
-(`seam_collect_rows`).  Every dot product of the lattice-layout Newton,
-one process or D shards or W ranks alike, is a sum of per-row partial
-sums (`Slab.dots`), so all of them hold the same bits; so is a seam
-lattice's under the replicated Newton (one slab of all rows per level),
-whose solve on a lattice without a seam keeps the global view and its
-sums.  The element residual, the element matrices and the Galerkin
-coarsening contract in pieces of a number of cell rows set by the whole
-level (`CELL_CHUNK`, `RESIDUAL_CHUNK`; across a seam each lip's), so a
-cell has the same bits whatever rows a process holds.  The global
+(`seam_collect_rows`).  Every dot product of the solve, one process or
+D shards or W ranks alike, is a sum of per-row partial sums
+(`Slab.dots`), so all of them hold the same bits: the replicated
+Newton's solve takes one slab of all rows per level in one process, and
+its rank's slabs on W ranks of the replicated cell-axis mode
+(`solve_lattice`); only the module's functions called without a slab
+keep the global view.  The element residual, the element matrices and
+the Galerkin coarsening contract in pieces of a number of cell rows set
+by the whole level (`CELL_CHUNK`, `RESIDUAL_CHUNK`; across a seam each
+lip's), so a cell has the same bits whatever rows a process holds.  The global
 transfers and coarsening of a seam lattice are the slab forms on whole
 levels (`sharding.whole`).
 """
@@ -470,21 +471,20 @@ class LatticeHierarchy(NamedTuple):
     P_embed: torch.Tensor   # (nvc+1, ndl, ndl) f32
     seam: Seam | None = None   # the finest level's seam (slit lattices)
     slabs: tuple = ()       # per-level `Slab` of this process,
-    #                         coarsest..finest, on a lattice-layout run
-    #                         (else empty)
+    #                         coarsest..finest
     n_split: int = 0        # the finest levels split by slab; the masks
     #                         of those hold this process's rows
 
 
 def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
-                            device, min_coarse: int = 50,
-                            lattice_layout: bool = False, shard_mesh=None):
+                            device, min_coarse: int = 50, shard_mesh=None):
     """Host construction.  Levels halve the cell extents while the grid
     (and a slit lattice's seam) stays 2:1 coarsenable and the coarse
-    vertex count stays at least `min_coarse`.  For the lattice-layout
-    Newton (`lattice_layout`) each level gets its `Slab` and, on a
-    `shard_mesh`, the finest levels are split by slab (`level_slabs`,
-    seam-aware on a slit lattice)."""
+    vertex count stays at least `min_coarse`.  Each level gets its
+    `Slab` (all its rows in one process) and, on a `shard_mesh` (the
+    lattice layout's, or the ranks' of the replicated Newton), the
+    finest levels are split by slab (`level_slabs`, seam-aware on a slit
+    lattice)."""
     dim = mesh.dim
     grid = lay.grid
     seam = lay.seam
@@ -523,11 +523,9 @@ def build_lattice_hierarchy(mesh, lay: LatticeLayout, dirichlet_fn, *,
         dp = _seam_inject_down(dp, sm)
         dir_u.insert(0, torch.as_tensor(np.ascontiguousarray(du), **b))
         dir_p.insert(0, torch.as_tensor(np.ascontiguousarray(dp), **b))
-    slabs, n_split = (), 0
-    if lattice_layout or seam is not None:
-        slabs, n_split = level_slabs(shard_mesh, grid[0], len(grids),
-                                     _seam_row(seam))
-        slabs = slabs[::-1]
+    slabs, n_split = level_slabs(shard_mesh, grid[0], len(grids),
+                                 _seam_row(seam))
+    slabs = slabs[::-1]
     L = len(grids)
     for l in range(L - n_split, L):
         dir_u[l] = slabs[l].rows(dir_u[l]).clone()
@@ -1525,7 +1523,8 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     stored-matrix residual.  U (dim, gyp, ...), the phase fields, the
     active mask and the right-hand sides (k, gyp, ...), with zero pad
     rows past the lattice's G0 rows (gyp = G0 without a shard mesh).
-    With `sys.shard_mesh` the f32 fine-level operator is the sharded one.
+    On a shard mesh (the hierarchy's slabs') the f32 fine-level operator
+    is the sharded one.
     On a seam lattice every vector is canonical (`Seam`).  Split by slab
     (`hier.n_split`) the vectors are the process's rows, padded to its
     shards' rows.  Returns padded (DU, DP, total CG iterations) on the
@@ -1537,7 +1536,7 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     grid = hier.grid
     dim = sys.dim
     gyp = U.shape[1]
-    mesh = sys.shard_mesh
+    mesh = hier.slabs[-1].mesh
     seam = hier.seam
     split = dict(slabs=hier.slabs, n_split=hier.n_split)
     sl = hier.slabs[-1] if hier.slabs else None
@@ -1631,17 +1630,47 @@ def solve_lattice_lat(sys, U, P, P_old, P_oold, active, RHS_U, RHS_P,
     return DU, DP, total_its
 
 
+def local_rows(sys) -> int:
+    """The rows of this process's padded lattice-layout vectors: its
+    shards' on the hierarchy's shard mesh (all shards' in one process),
+    the lattice's without one."""
+    hier: LatticeHierarchy = sys.lattice_hierarchy
+    mesh = hier.slabs[-1].mesh
+    if mesh is None:
+        return hier.grid[0]
+    return mesh.n_local * mesh.rows_loc(hier.grid[0])
+
+
+def rows_of(sys, x, k: int):
+    """This process's rows (the finest level's slab) of the flat dof
+    vector x with k components per vertex, in lattice layout (k, n,
+    ...), unpadded."""
+    hier: LatticeHierarchy = sys.lattice_hierarchy
+    sl = hier.slabs[-1]
+    return _to_lat(x, hier.vert_pos, hier.grid, k)[:, sl.a:sl.b]
+
+
 def solve_lattice(sys, u, phi, phi_old, phi_oold, active, rhs_u, rhs_p,
                   with_split):
     """Flat-vector entry of the solve for the replicated Newton (JAX
     ``_solve_split``): lift the flat state, active mask and right-hand
     sides to the lattice layout, run `solve_lattice_lat`, map the
-    updates back.  Returns (du, dp, total CG iterations)."""
+    updates back.  The solve takes the hierarchy's slabs, whole levels
+    in one process, so its dots are the per-row sums of every lattice
+    run.  On W ranks (the replicated cell-axis mode) each rank cuts its
+    shards' rows out of the whole vectors, runs the slab-split solve on
+    them and gets the whole updates back from one gather of rows; a
+    lattice too small to give every rank a row is solved whole on every
+    rank (the hierarchy's slabs say which).
+    Returns (du, dp, total CG iterations)."""
     hier: LatticeHierarchy = sys.lattice_hierarchy
     vp, grid, dim = hier.vert_pos, hier.grid, sys.dim
-    lat = lambda x, k: _to_lat(x, vp, grid, k)
+    sl = hier.slabs[-1]
+    gyp = local_rows(sys)
+    lat = lambda x, k: pad_rows(rows_of(sys, x, k), gyp)
+    act = pad_rows(_active_lattice(active, vp, grid)[:, sl.a:sl.b], gyp)
     DU, DP, its = solve_lattice_lat(
         sys, lat(u, dim), lat(phi, 1), lat(phi_old, 1), lat(phi_oold, 1),
-        _active_lattice(active, vp, grid), lat(rhs_u, dim), lat(rhs_p, 1),
-        with_split)
-    return _to_glob(DU, vp, dim), _to_glob(DP, vp, 1), its
+        act, lat(rhs_u, dim), lat(rhs_p, 1), with_split)
+    D = sl.gather(torch.cat([unpad_rows(DU, sl.n), unpad_rows(DP, sl.n)]))
+    return _to_glob(D[:dim], vp, dim), _to_glob(D[dim:], vp, 1), its

@@ -181,13 +181,10 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
     grid = hier.grid
     dim = sys.dim
     vert_pos = hier.vert_pos
-    # the process's rows of the finest level (a seam lattice's too)
+    # the process's rows of the finest level (a seam lattice's too),
+    # padded to its shards' rows
     sl = hier.slabs[-1]
-    mesh = sys.shard_mesh
-    # this process's rows of the padded lattice: its shards'
-    r0 = 0 if mesh is None else mesh.first * mesh.rows_loc(grid[0])
-    gyp = sys.lat_gyp if mesh is None else mesh.n_local * mesh.rows_loc(
-        grid[0])
+    gyp = lattice.local_rows(sys)
     log = NewtonLog()
     log.print_line("It.", "#A.Set", "#CycDoF", "Residual", "Reduction",
                    "LSrch", "#LinIts", verbose=verbose)
@@ -196,8 +193,7 @@ def newton_active_set_lattice(sys, state, time: float, verbose: bool = True):
               monolithic=sys.monolithic, gyp=gyp, seam=hier.seam, sl=sl)
 
     def place(x, k):
-        X = pad_rows(lattice._to_lat(x, vert_pos, grid, k), sys.lat_gyp)
-        return X[:, r0:r0 + gyp].contiguous()
+        return pad_rows(lattice.rows_of(sys, x, k), gyp).contiguous()
 
     # boundary: flat state in, the inhomogeneous boundary values applied
     # flat (set_initial_bc, cracks.cc:2787), then lifted to the padded

@@ -53,7 +53,7 @@ import torch
 
 from ..ops import physics
 from ..ops.constraints import Constraints, condense_residual, expand_update
-from ..ops.scatter import CellScatter, scatter_add, scatter_table
+from ..ops.scatter import WHOLE, CellScatter, scatter_add, scatter_table
 from . import multigrid
 from .replay import replayer
 
@@ -98,14 +98,20 @@ def _constraint_matrix(con: Constraints, active, n_ud: int, dtype):
 
 
 def _reduced_system(u, phi, phi_old, phi_oold, ca, sc, con, active,
-                    rhs_u, rhs_p, *, dim, with_split, monolithic):
+                    rhs_u, rhs_p, *, dim, with_split, monolithic,
+                    cs=WHOLE):
     """(A_red (n, n), b (n, 1), C (n, n)) of the reduced dense system
-    A_red x = b, x in the constrained update space, du/dp = C x."""
+    A_red x = b, x in the constrained update space, du/dp = C x.  `ca`
+    holds all cells; with the System's CellScatter `cs` this process
+    builds the element matrices of its cells and gathers every
+    process's (`CellScatter.all_cells`), so that each rank of the
+    replicated cell-axis mode assembles and factors the same matrix."""
     n_ud = u.shape[0]
     n = n_ud + phi.shape[0]
-    jac = physics.element_matrices(
-        u, phi, phi_old, phi_oold, ca, sc, dim=dim, with_split=with_split,
-        monolithic=monolithic).permute(2, 0, 1)          # (n_c, ndl, ndl)
+    (jac,) = cs.all_cells(physics.element_matrices(
+        u, phi, phi_old, phi_oold, cs.own(ca), sc, dim=dim,
+        with_split=with_split, monolithic=monolithic, cs=cs))
+    jac = jac.permute(2, 0, 1)                           # (n_c, ndl, ndl)
     gids = torch.cat([ca.gather_u.T, ca.gather_p.T + n_ud], dim=1)
     keys = gids[:, :, None] * n + gids[:, None, :]
     A = scatter_add(scatter_table(keys), jac,
@@ -129,11 +135,12 @@ def _lu_solve(A_red, b, refinements):
 
 
 def _direct_dense_solve(u, phi, phi_old, phi_oold, ca, sc, con, active,
-                        rhs_u, rhs_p, *, dim, with_split, monolithic):
+                        rhs_u, rhs_p, *, dim, with_split, monolithic,
+                        cs=WHOLE):
     """(du, dp, min |U_ii|, max |U_ii|) of the reduced dense solve."""
     A_red, b, C = _reduced_system(
         u, phi, phi_old, phi_oold, ca, sc, con, active, rhs_u, rhs_p,
-        dim=dim, with_split=with_split, monolithic=monolithic)
+        dim=dim, with_split=with_split, monolithic=monolithic, cs=cs)
     x, lu = _lu_solve(A_red, b,
                       CARD_REFINEMENT_STEPS if A_red.is_cuda else 0)
     del A_red
@@ -146,8 +153,9 @@ def _direct_dense_solve(u, phi, phi_old, phi_oold, ca, sc, con, active,
 def solve_direct(u, phi, phi_old, phi_oold, ca: physics.CellArrays,
                  sc: physics.Scalars, con: Constraints, active,
                  rhs_u, rhs_p, *, dim: int, with_split: bool,
-                 monolithic: bool):
-    """Exact dense solve of the reduced Newton system.
+                 monolithic: bool, cs=WHOLE):
+    """Exact dense solve of the reduced Newton system (`ca`: all cells;
+    with the System's CellScatter `cs`, see `_reduced_system`).
 
     Returns (du (n_v*dim,), dp (n_v,), 1) with the constraints
     distributed.  Raises DirectSolveRefused above DENSE_DIRECT_MAX_DOFS
@@ -161,7 +169,7 @@ def solve_direct(u, phi, phi_old, phi_oold, ca: physics.CellArrays,
             f"(got {n_dofs}); use the Krylov path")
     du, dp, umin, umax = _direct_dense_solve(
         u, phi, phi_old, phi_oold, ca, sc, con, active, rhs_u, rhs_p,
-        dim=dim, with_split=with_split, monolithic=monolithic)
+        dim=dim, with_split=with_split, monolithic=monolithic, cs=cs)
     umin, umax = float(umin), float(umax)
     if not (umax < float("inf") and 0.0 < umin < float("inf")):
         raise DirectSolveRefused("singular factor in dense direct solve")

@@ -35,7 +35,8 @@ from ..mesh import interpolation_stencil
 from ..ops import physics
 from ..ops.constraints import Constraints, make_constraints
 from ..ops.scatter import (CellScatter, ScatterTable, cell_scatter,
-                           scatter_add, scatter_table)
+                           piece_size, scatter_add, scatter_table)
+from ..parallel.sharding import CellRange
 from .replay import replayer
 
 SHARP_SPECTRUM_MIN_DOFS = 50_000
@@ -247,6 +248,23 @@ def build_hierarchy(forest, fine_mesh, lam_fn, dirichlet_fn, *, device,
     return Hierarchy(tuple(levels), *_transfer(
         *interpolation_stencil(prev[0], prev[1], fine_mesh), dim,
         device=device, dtype=dtype))
+
+
+def on_shards(hier: Hierarchy, n_shards: int, mesh=None) -> Hierarchy:
+    """The hierarchy of the replicated cell-axis mode with n_shards > 1
+    shards: every level's per-cell functions in the card's pieces of its
+    cells (`scatter.piece_size`), and on W ranks (`mesh`, the ranks'
+    ShardMesh) every level's cells split as the finest level's are
+    (`sharding.CellRange`), this process keeping the cell arrays of its
+    range of each level; the level operators gather every rank's
+    per-cell terms (`CellScatter.cell_terms`)."""
+    levels = []
+    for lv in hier.levels:
+        n = lv.ca.JxW.shape[-1]
+        cs = lv.cs._replace(cells=None if mesh is None else CellRange(n, mesh),
+                            piece=piece_size(n, n_shards))
+        levels.append(lv._replace(ca=cs.own(lv.ca), cs=cs))
+    return hier._replace(levels=tuple(levels))
 
 
 # ---------------------------------------------------------------------------

@@ -109,9 +109,9 @@ def _solve(sys, u, phi, phi_old, phi_oold, con, active, rhs_u, rhs_p,
     if uses_direct(sys):
         try:
             return linear.solve_direct(
-                u, phi, phi_old, phi_oold, sys.ca, sys.scalars, con, active,
-                rhs_u, rhs_p, dim=sys.dim, with_split=with_split,
-                monolithic=sys.monolithic)
+                u, phi, phi_old, phi_oold, sys.ca_all, sys.scalars, con,
+                active, rhs_u, rhs_p, dim=sys.dim, with_split=with_split,
+                monolithic=sys.monolithic, cs=sys.cell_scatter)
         except linear.DirectSolveRefused:
             pass
     path = krylov_path(sys)
@@ -162,7 +162,7 @@ def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
             dim=sys.dim, maxiter=maxiter, stall_window=p.cg_chunk)
 
     jac = assembled.build_jacobians(u, phi, phi_old, phi_oold, sys.ca,
-                                    sys.scalars, **kw)
+                                    sys.scalars, cs=cs, **kw)
     if ghier is not None:
         du, dp, its = galerkin.solve_cg_block(
             ghier, jac, sys.galerkin_fine, sys.ca, cs, con, active, rhs_u,
@@ -179,7 +179,8 @@ def _solve_assembled(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
                          hang_weights_u=f32(con.hang_weights_u))
     sc32 = physics.Scalars(*(f32(v) for v in sys.scalars))
     jac32 = assembled.build_jacobians(
-        f32(u), f32(phi), f32(phi_old), f32(phi_oold), sys.ca32, sc32, **kw)
+        f32(u), f32(phi), f32(phi_old), f32(phi_oold), sys.ca32, sc32,
+        cs=cs, **kw)
     target = max(p.cg_rtol * bnorm0, 1e-300)
     du = torch.zeros_like(u)
     dp = torch.zeros_like(phi)
@@ -277,19 +278,22 @@ def _solve_matrix_free(sys, u, phi, phi_old, phi_oold, con, active, rhs_u,
 
 def _seam_residual(sys, u, phi, phi_old, phi_oold, with_split):
     """The residual of a seam lattice: the lattice layout's conjugated
-    window residual (`lattice_newton._lat_residual_seam`) of the whole
-    lattice, lifted from and mapped back to flat vectors, so that the
-    replicated run and the lattice-layout runs of a slit mesh, on any
-    number of row slabs, assemble the same bits."""
+    window residual (`lattice_newton._lat_residual_seam`) of this
+    process's rows (the whole lattice in one process), lifted from and
+    mapped back to flat vectors, every process's rows gathered on W
+    ranks, so that the replicated run and the lattice-layout runs of a
+    slit mesh, on any number of row slabs or ranks, assemble the same
+    bits."""
     from .lattice_newton import _lat_residual_seam
     hier = sys.lattice_hierarchy
-    vp, grid, dim = hier.vert_pos, hier.grid, sys.dim
-    lat = lambda x, k: lattice._to_lat(x, vp, grid, k)
+    vp, dim, sl = hier.vert_pos, sys.dim, hier.slabs[-1]
+    rows = lambda x, k: lattice.rows_of(sys, x, k)
     RU, RP = _lat_residual_seam(
-        lat(u, dim), lat(phi, 1), lat(phi_old, 1), lat(phi_oold, 1),
+        rows(u, dim), rows(phi, 1), rows(phi_old, 1), rows(phi_oold, 1),
         sys.lattice_ca64, sys.scalars, dim=dim, with_split=with_split,
-        monolithic=sys.monolithic, seam=hier.seam)
-    return lattice._to_glob(RU, vp, dim), lattice._to_glob(RP, vp, 1)
+        monolithic=sys.monolithic, seam=hier.seam, sl=sl)
+    R = sl.gather(torch.cat([RU, RP]))
+    return lattice._to_glob(R[:dim], vp, dim), lattice._to_glob(R[dim:], vp, 1)
 
 
 def _assemble(sys, u, phi, phi_old, phi_oold, con, active, with_split):

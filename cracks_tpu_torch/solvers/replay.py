@@ -10,12 +10,16 @@ it into a CUDA graph on its second call, and replays the graph from
 then on: one launch for all of its kernels.  The body must update its
 state in place, on tensors that exist before the capture; the replay
 runs the same kernels on the same addresses, so it computes what the
-eager loop computes.  On the CPU the body simply runs.
+eager loop computes.  On the CPU the body simply runs, and so it does
+in a rank of a process group (`parallel.dist`): there the body gathers
+from the other ranks, and a collective cannot be captured.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import dist
 
 
 def _graphed(step):
@@ -39,9 +43,11 @@ def _graphed(step):
 
 def replayer(step, cuda: bool):
     """A function that runs `step` each call: eagerly the first time,
-    from a CUDA graph captured at the second call when `cuda`."""
+    from a CUDA graph captured at the second call when `cuda` and this
+    process is no rank of a process group."""
     calls = 0
     run = step
+    cuda = cuda and dist.current() is None
 
     def call():
         nonlocal calls, run

@@ -59,6 +59,16 @@ The runs (all of them without arguments, else the named ones):
   lattice in the lattice-layout Newton on 4 virtual CPU devices, with
   ``FUSED_SOLVE_MAX_DOFS = 0`` (the split solve, the one the port
   implements), for ``tests/test_torch_dist_seam.py``;
+- ``replicated_np{2,4}_<case>``: the replicated cell-axis mode
+  (``n_devices = D``, replicated DoF vectors) on D virtual CPU devices,
+  for ``tests/test_torch_dist_replicated.py`` (`REPLICATED_RUNS`;
+  writes ``<name>.json`` as the lattice runs do): ``sneddon_2d_1`` as
+  shipped (the dense direct solve) at D = 2; the Sneddon 2d bench
+  settings of ``tests/test_torch_driver.py`` at refine 3 (19,683 DoFs,
+  two load steps, the split lattice solve) at D = 4;
+  ``miehe_shear_1`` under the simple monolithic solver on the
+  matrix-free Jacobi CG, load step 0, at D = 2; ``threepoint_1``'s
+  first four load steps at D = 2 (about five minutes in all);
 - ``halo_cg_2d``: one call of the halo pool's block CG
   (``cracks_tpu.solvers.halo_newton.build_halo_cg``, the split on) at
   D = 8 on the hanging-node mesh of
@@ -162,13 +172,37 @@ LATTICE_RUNS = {
 }
 
 
-def write_lattice_reference(name):
+# tests/test_torch_driver.py's BENCH: bench.py's Sneddon settings at
+# refine 3, two load steps
+BENCH3 = dict(n_global_pre_refine=3, n_local_pre_refine=0,
+              n_refinement_cycles=0, max_no_timesteps=1, output_dir="",
+              linear_solver="cg", preconditioner="gmg", cg_rtol=1e-8,
+              cg_maxiter=3000, dtype="float64", mixed_precision_cg=True)
+# the replicated cell-axis mode (tests/test_torch_dist_replicated.py's
+# DRIVER_RUNS)
+REPLICATED_RUNS = {
+    "replicated_np2_sneddon_2d_1": (os.path.join("tests", "sneddon_2d_1"),
+                                    dict(output_dir="", n_devices=2)),
+    "replicated_np4_sneddon_2d_r3": ("parameters_sneddon_2d",
+                                     dict(BENCH3, n_devices=4)),
+    "replicated_np2_miehe_shear_1_monolithic": (
+        os.path.join("tests", "miehe_shear_1"),
+        dict(output_dir="", max_no_timesteps=0,
+             outer_solver="simple monolithic", linear_solver="cg",
+             assembled_matvec=False, n_devices=2)),
+    "replicated_np2_threepoint_1": (os.path.join("tests", "threepoint_1"),
+                                    dict(output_dir="", max_no_timesteps=3,
+                                         n_devices=2)),
+}
+
+
+def write_lattice_reference(name, runs=LATTICE_RUNS):
     from cracks_tpu.config import Parameters, load_parameters
     from cracks_tpu.driver import Simulation
     from cracks_tpu.solvers import lattice
 
     t0 = time.perf_counter()
-    prm, overrides = LATTICE_RUNS[name]
+    prm, overrides = runs[name]
     p = (Parameters(**overrides) if prm is None else load_parameters(
         os.path.join(ROOT, "params", f"{prm}.prm"), **overrides))
     sim = Simulation(p, verbose=False)
@@ -180,7 +214,7 @@ def write_lattice_reference(name):
         sim.run()
     finally:
         lattice.FUSED_SOLVE_MAX_DOFS = fused
-    assert sim.sys.use_lattice_state
+    assert sim.sys.use_lattice_state == (runs is LATTICE_RUNS)
     with open(os.path.join(OUT, f"{name}.json"), "w") as f:
         json.dump(dict(statistics=sim.statistics.data,
                        effort=[dict(step=step, newton=newton, linear=lin)
@@ -263,7 +297,9 @@ def write_halo_cg():
 # name -> a writer of its own (the runs above are driver runs)
 WRITERS = {"halo_cg_2d": write_halo_cg,
            **{name: (lambda n=name: write_lattice_reference(n))
-              for name in LATTICE_RUNS}}
+              for name in LATTICE_RUNS},
+           **{name: (lambda n=name: write_lattice_reference(
+               n, REPLICATED_RUNS)) for name in REPLICATED_RUNS}}
 
 
 def main(names):

@@ -19,10 +19,10 @@ spawned ranks on the CPU, gloo, one torch thread each.
   Newton iteration;
 - the CLI under torchrun (2 ranks, D = 4): rank 0 alone writes the
   output, and its statistics file is the one-process run's;
-- W > 1 with replicated vectors raises the NotImplementedError naming
-  ROADMAP A11e (the lattice layout on W ranks:
-  tests/test_torch_dist_lattice.py, its seam lattice
-  tests/test_torch_dist_seam.py);
+- a world size W that does not divide n_devices raises ValueError
+  (the lattice layout on W ranks: tests/test_torch_dist_lattice.py,
+  its seam lattice tests/test_torch_dist_seam.py, the replicated
+  cell-axis mode tests/test_torch_dist_replicated.py);
 - a rank that raises ends the launch with `RankFailed` and its error
   within 30 s, long before the launch's deadline of 60 s (each spawned
   rank imports this module, JAX with it, which takes seconds); a rank
@@ -222,18 +222,10 @@ def test_torchrun_cli_rank_zero_writes(tmp_path):
         assert f.read() == g.read()
 
 
-@pytest.mark.parametrize("prm,over,item", [
-    (SNEDDON_1, dict(DRYRUN, n_devices=2), "A11e"),
-    (SNEDDON_1, dict(DRYRUN, n_devices=2, dof_sharding="lattice",
-                     outer_solver="simple monolithic"), "A11e"),
-], ids=["replicated", "monolithic"])
-def test_unported_modes_on_ranks_raise(prm, over, item):
+def test_world_size_must_divide_n_devices():
     """Refused before any collective, so a rank of a two-rank group
     that was never set up shows the refusal."""
     ranks = dist.Ranks(0, 2, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match=item):
-        Simulation(config.load_parameters(prm, **over), device="cpu",
-                   verbose=False, ranks=ranks).run()
     with pytest.raises(ValueError, match="divide"):
         Simulation(config.load_parameters(SNEDDON_1, **dict(
             DRYRUN, n_devices=3, dof_sharding="lattice")), device="cpu",
